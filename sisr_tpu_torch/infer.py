@@ -1,0 +1,105 @@
+"""Single-image x4 super-resolution with the port (counterpart of the
+root ``test_experiment.py``).
+
+Builds the flagship HiT-SIR-Pro without the fusion gate, loads a reference
+``.pth`` (``{'model': state_dict}``) strictly, runs one LR image through
+``TiledSR`` (192 tiles, overlap 16), clips to [0,1] and writes a PNG.
+
+    python -m sisr_tpu_torch.infer lr.png [-o out.png] [--weights ckpt.pth]
+        [--tile 192] [--dtype bfloat16] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+DEFAULT_WEIGHTS = ("weights/hitsir_pro_loss(l1)_mulsizeconvextract(True)_casa(True)"
+                   "_fusion_embed_dim(180)_len(depths)(6)_augment/"
+                   "best_psnr_ssim_lpips_model.pth")
+
+
+def create_model(dtype: str = "float32", device: str = "cuda"):
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+
+    model = HiTSIR(**flagship_config(is_fusion=False), dtype=getattr(torch, dtype))
+    return model.to(device).eval()
+
+
+def load_model_weights(model, weights_path: str, seed: int = 0) -> None:
+    """Load a reference ``.pth`` strictly; without one, synthesize seeded
+    well-conditioned weights (``utils/param_synth.py``)."""
+    if os.path.exists(weights_path):
+        dic = torch.load(weights_path, map_location="cpu", weights_only=True)
+        state = dic["model"] if "model" in dic else dic
+        model.load_state_dict(state, strict=True)
+        print(f"loaded weights from {weights_path} "
+              f"(epoch {int(dic.get('start_epoch', 0))})")
+        return
+    print(f"WARNING: {weights_path} not found — using random init")
+    synth_weights(model, seed)
+
+
+def synth_weights(model, seed: int = 0) -> None:
+    """Seeded well-conditioned weights from the model's own manifest."""
+    from sisr_tpu_torch.utils.param_synth import synth_state_dict
+
+    manifest = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           synth_state_dict(manifest, seed).items()})
+
+
+def parse_tile(spec: str):
+    """"192" -> 192 (square) or "192x1920" -> (192, 1920) strip tiles."""
+    if "x" in spec:
+        th, tw = (int(v) for v in spec.split("x"))
+        return (th, tw)
+    return int(spec)
+
+
+def upscale(model, lr: torch.Tensor, tile="192") -> torch.Tensor:
+    """(H, W, 3) LR image in [0,1] on the model's device -> (4H, 4W, 3)
+    float32 SR image clipped to [0,1], over 192 tiles with overlap 16."""
+    from sisr_tpu_torch.parallel.tiling import TiledSR
+
+    runner = TiledSR(model, scale=4, tile=parse_tile(str(tile)))
+    with torch.inference_mode():
+        return runner(lr).float().clamp(0.0, 1.0)
+
+
+def main(img_path: str, out_path: str = None,
+         weights_path: str = DEFAULT_WEIGHTS, tile="192",
+         dtype: str = "float32", device: str = "cuda") -> str:
+    from PIL import Image
+
+    model = create_model(dtype, device)
+    load_model_weights(model, weights_path)
+    with Image.open(img_path) as handle:
+        lr = np.asarray(handle.convert("RGB"), dtype=np.float32) / 255.0
+
+    sr = upscale(model, torch.from_numpy(lr).to(device), tile).cpu().numpy()
+    result = Image.fromarray((sr * 255.0).round().astype(np.uint8))
+
+    if out_path is None:
+        stem, ext = os.path.splitext(img_path)
+        out_path = f"{stem}_sr{ext or '.png'}"
+    result.save(out_path)
+    print(f"saved {result.size[0]}x{result.size[1]} SR image to {out_path}")
+    return out_path
+
+
+if __name__ == "__main__":
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("image")
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("--weights", default=DEFAULT_WEIGHTS)
+    p.add_argument("--tile", default="192",
+                   help='tile size: "192" (square) or "192x1920" (strips)')
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args()
+    main(args.image, args.out, args.weights, args.tile, args.dtype, args.device)

@@ -1,0 +1,147 @@
+"""Build the CUDA sources in ``sisr_tpu_torch/csrc`` and bind them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
+``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (the hash
+is of the source, so an edited source rebuilds).  ``build_all`` starts one
+``nvcc`` per source at once; ``library`` loads the result with ctypes at
+first use.  Nothing here runs when the module is imported.
+
+``launches`` counts, per kernel, the wrapper calls that launched it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("conv3x3", "htb_tail", "scc_block")
+
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# the share of htb_tail launches that also emitted the next block's stats
+launches["htb_tail_stats"] = 0
+build_logs: Dict[str, str] = {}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _target(name: str) -> Path:
+    """The library path, named by a hash of the source and the shared
+    headers, so any edit rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = KERNELS) -> float:
+    """Compile every named kernel not built yet, one ``nvcc`` each, all
+    started together.  Returns the wall seconds spent; raises with the
+    compiler's output if any build fails."""
+    start = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - start
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built if needed."""
+    with _lock:
+        if name not in _libs:
+            build_all((name,))
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor, or NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def as_arg(t, dtype: torch.dtype):
+    """``t`` as a contiguous ``dtype`` tensor; no op is issued when it is one
+    already (the model hands the kernels their cached weights as they are)."""
+    if t is None or (t.dtype == dtype and t.is_contiguous()):
+        return t
+    return t.to(dtype).contiguous()
+
+
+def check_cuda(name: str, device: torch.device, dtype: torch.dtype,
+               **tensors) -> None:
+    """Raise unless every tensor lies on ``device`` as contiguous ``dtype``."""
+    if device.type != "cuda":
+        raise RuntimeError(f"{name}: the kernel takes CUDA tensors, "
+                           f"got a tensor on {device}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device or t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype} on {t.device}, "
+                            f"expected {dtype} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def raise_on_error(name: str, code: int) -> None:
+    """The C entry points return ``cudaGetLastError()`` (or -1 for a
+    shape they refuse)."""
+    if code == -1:
+        raise ValueError(f"{name}: the kernel refused these shapes")
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
