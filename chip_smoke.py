@@ -7,18 +7,20 @@
 Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
            process per source, all at once) into build/kernels/;
-  kernels  each kernel at the shapes one 192x192 tile of the flagship gives
-           it, against its plain PyTorch version on the same inputs: in
+  kernels  each of the seven kernels at the shapes one 192x192 tile of the
+           flagship gives it, against its plain PyTorch version on the same
+           inputs: in
            float32 (TF32 off) within 2e-4 x max(1, max|plain|), and in
            bfloat16, where the kernel must stay within twice the plain
            bfloat16 version's distance from the float32 plain version (or
            4 bf16 ulps of the output scale); then its time (CUDA events,
            warmed) in bfloat16 and float32, the plain version's, the bound
-           (bfloat16 bytes at 3.35 TB/s or operations at 989 TFLOP/s,
-           whichever is larger) and, where one PyTorch call computes the
+           (bfloat16 bytes at 3.35 TB/s, or operations at 989 TFLOP/s on
+           the tensor cores and 67 TFLOP/s for float32 work on the FP32
+           pipes, whichever is larger) and, where one PyTorch call computes the
            same function, that call's time;
-  serve    the serving entry point (TiledSR over HiTSIR, flagship widths,
-           no fusion gate, synthesized weights) on three requests, bfloat16
+  serve    the serving entry point (TiledSR over HiTSIR, the full flagship
+           with its Fusion gate, synthesized weights) on three requests, bfloat16
            then float32, with every launch counter checked per tile; then
            the command line's path once (``infer.main``, PNG in and out);
   profile  one bfloat16 and one float32 tile under torch.profiler: device
@@ -49,14 +51,23 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_BF16_FLOPS = 989e12                       # H100 SXM, dense
+PEAK_F32_FLOPS = 67e12                         # H100 SXM, FP32 outside the tensor cores
 TILE = 192
 REQUESTS = ((192, 192), (256, 320), (480, 640))   # 1, 4 and 12 tiles
 # launches of each kernel per 192x192 tile of the flagship
-PER_TILE = {"conv3x3": 12, "htb_tail": 36, "htb_tail_stats": 30, "scc_block": 36}
+PER_TILE = {"conv3x3": 9, "conv3x3_shuffled": 1, "conv3x3_shuffled_tail": 1,
+            "fusion_pools": 1, "fused_fusion": 1, "htb_tail": 36, "htb_tail_stats": 30,
+            "scc_block": 36}
 SOURCES = {
     "conv3x3": ("sisr_tpu_torch/csrc/conv3x3.cu", "sisr_tpu/ops/pallas/conv3x3.py:171"),
+    "conv3x3_shuffled": ("sisr_tpu_torch/csrc/conv3x3.cu",
+                         "sisr_tpu/ops/pallas/conv3x3.py:333"),
+    "conv3x3_shuffled_tail": ("sisr_tpu_torch/csrc/shuffled_tail.cu",
+                              "sisr_tpu/ops/pallas/conv3x3.py:490"),
     "htb_tail": ("sisr_tpu_torch/csrc/htb_tail.cu", "sisr_tpu/ops/pallas/ffn.py:328"),
     "scc_block": ("sisr_tpu_torch/csrc/scc_block.cu", "sisr_tpu/ops/pallas/scc_block.py:309"),
+    "fusion_pools": ("sisr_tpu_torch/csrc/fusion.cu", "sisr_tpu/ops/pallas/fusion_ops.py:133"),
+    "fused_fusion": ("sisr_tpu_torch/csrc/fusion.cu", "sisr_tpu/ops/pallas/fusion_ops.py:404"),
 }
 
 
@@ -93,6 +104,17 @@ def _flat(out):
     return [t for o in out for t in _flat(o)]
 
 
+def _upcast(arg):
+    """Every tensor in ``arg`` (nested in tuples and lists) as float32."""
+    import torch
+
+    if isinstance(arg, torch.Tensor):
+        return arg.float()
+    if isinstance(arg, (tuple, list)):
+        return type(arg)(_upcast(a) for a in arg)
+    return arg
+
+
 def _errs(a, b):
     """Per output tensor: (max |a - b|, max |b|)."""
     return [(float((x - y).abs().max()), float(y.abs().max()))
@@ -103,13 +125,20 @@ def _errs(a, b):
 
 class Case:
     """One kernel call at one shape: inputs from a seeded generator, the
-    call, and the work it must do (bytes moved once, operations)."""
+    call, and the work it must do: bytes moved once, operations of the
+    bfloat16 run on the tensor cores (``flops``) and on the FP32 pipes
+    (``flops32``: float32 work the function keeps in float32)."""
 
     def __init__(self, kernel, label, per_tile, make, call, nbytes, flops,
-                 library=None):
+                 library=None, flops32=0.0):
         self.kernel, self.label, self.per_tile = kernel, label, per_tile
         self.make, self.call, self.nbytes, self.flops = make, call, nbytes, flops
-        self.library = library
+        self.library, self.flops32 = library, flops32
+
+    def t_ops(self) -> float:
+        """Least ms for the operations: each type at its peak, the two pipes
+        side by side."""
+        return max(self.flops / PEAK_BF16_FLOPS, self.flops32 / PEAK_F32_FLOPS) * 1e3
 
 
 def conv_cases():
@@ -121,10 +150,7 @@ def conv_cases():
         (192, 192, 180, 180, "none", True, 6),    # RHTB residual convs
         (192, 192, 180, 180, "none", False, 1),   # conv_after_body
         (192, 192, 180, 64, "leaky", False, 1),   # conv_before_upsample
-        (192, 192, 64, 256, "leaky2", False, 1),  # conv_up1 (phase-folded)
-        (384, 384, 64, 256, "leaky2", False, 1),  # conv_up2 (phase-folded)
-        (768, 768, 64, 64, "leaky2", False, 1),   # conv_hr
-        (768, 768, 64, 3, "none", False, 1),      # conv_last
+        (192, 192, 64, 256, "leaky2", False, 1),  # conv_up1 (phase-folded, packed out)
     ]
     cases = []
     for h, w, cin, cout, act, res, n in shapes:
@@ -150,6 +176,91 @@ def conv_cases():
         cases.append(Case("conv3x3", f"{h}x{w} {cin}->{cout} {act}{' +res' if res else ''}",
                           n, make, call, nbytes, 2.0 * h * w * 9 * cin * cout, library))
     return cases
+
+
+def head_cases():
+    """The packed x4 head's conv_up2 (shuffled conv) and conv_hr + conv_last
+    (shuffled tail) at one tile's shapes; no single PyTorch call computes
+    either."""
+    import torch
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled, conv3x3_shuffled_tail
+
+    f = 64
+
+    def gen(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return lambda *s: torch.randn(*s, generator=g, device="cuda")
+
+    def make_up(dt):
+        rn = gen(11)
+        ins = [rn(1, 192, 192, 4 * f), rn(3, 3, f, 4 * f) / math.sqrt(9 * f), rn(4 * f) * 0.1]
+        return [t.to(dt) for t in ins]
+
+    def make_tail(dt):
+        rn = gen(12)
+        ins = [rn(1, 384, 384, 4 * f), rn(3, 3, f, f) / math.sqrt(9 * f), rn(f) * 0.1,
+               rn(3, 3, f, 3) / math.sqrt(9 * f), rn(3) * 0.1]
+        return [t.to(dt) for t in ins]
+
+    up = Case("conv3x3_shuffled", "yp 192x192x256 -> 384x384 64->256 leaky2", 1, make_up,
+              lambda ins, reference: conv3x3_shuffled(*ins, "leaky2", reference=reference),
+              lambda es: es * (192 * 192 * 4 * f + 9 * f * 4 * f + 4 * f + 384 * 384 * 4 * f),
+              2.0 * 384 * 384 * 9 * f * 4 * f)
+    tail = Case("conv3x3_shuffled_tail", "yp 384x384x256 -> 768x768 64->64->3", 1, make_tail,
+                lambda ins, reference: conv3x3_shuffled_tail(
+                    ins[0], ins[1], ins[2], "leaky2", ins[3], ins[4], reference=reference),
+                lambda es: es * (384 * 384 * 4 * f + 9 * f * f + f + 9 * f * 3 + 3
+                                 + 768 * 768 * 3),
+                2.0 * 768 * 768 * 9 * f * (f + 3))
+    return [up, tail]
+
+
+def fusion_cases():
+    """The Fusion gate at one tile's shapes (a, b 1x192x192x180): the pools
+    alone, and the whole gate (pools, maps, gate) with its packed weights
+    made once, as the model keeps them.  Operations, per UA k of three:
+
+    - pools (float32): 19 per input element (a + b; sum and max over C, H
+      and W of a, a + b, b);
+    - maps (float32): per row of h_att (W rows) and w_att (H rows), three
+      outputs (the folded map and two border corrections) of three taps
+      of a C x C product: 2 * 3 * 3 * C^2 each, 2 * 27 * (H + W) * C^2 in
+      all; the 18-tap convs of the pools, 2 * 18 * 3 * (H*W + (H + W) * C);
+    - gate: base = p27 @ k1blk, nine nonzero taps per UA and output element,
+      bfloat16 by bfloat16 in the bfloat16 run: 2 * 9 * 3 per output
+      element; then 20 float32 operations per output element (six adds of
+      the maps, three sigmoids at three, five for the gate)."""
+    import torch
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, fusion_pools, pack_params
+
+    h = w = TILE
+    c = 180
+
+    def make_ab(dt):
+        g = torch.Generator(device="cuda").manual_seed(21)
+        return [torch.randn(1, h, w, c, generator=g, device="cuda").to(dt) for _ in range(2)]
+
+    def make_fused(dt):
+        g = torch.Generator(device="cuda").manual_seed(22)
+        rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+        raws = tuple(((rn(3, 3, 2, 1) / 4.0, 0.01 * rn(1)), (rn(3, 3, 2, 1) / 4.0, 0.01 * rn(1)),
+                      (rn(3, 3, 2, 1) / 4.0, 0.01 * rn(1)),
+                      (rn(3, 3, c, c) / math.sqrt(9 * c), 0.01 * rn(c))) for _ in range(3))
+        a, b = make_ab(dt)
+        return [a, b, raws, pack_params(raws, c, dt)]
+
+    pool_bytes = lambda es: es * (2 * h * w * c + 6 * h * w + 6 * h * c) + 4 * 6 * w * c
+    pool_ops = 19.0 * h * w * c
+    pools = Case("fusion_pools", f"a, b {h}x{w}x{c}", 1, make_ab,
+                 lambda ins, reference: fusion_pools(*ins, reference=reference), pool_bytes,
+                 0.0, flops32=pool_ops)
+    map_ops = 2.0 * 27 * (h + w) * c * c + 2.0 * 18 * 3 * (h * w + (h + w) * c)
+    fused = Case("fused_fusion", f"a, b {h}x{w}x{c}, pools + maps + gate", 1, make_fused,
+                 lambda ins, reference: fused_fusion(ins[0], ins[1], ins[2], ins[3], reference),
+                 lambda es: (es * (3 * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
+                             + 4 * (3 * 3 * 18 + 9 + 3 * c)),
+                 2.0 * 9 * 3 * h * w * c, flops32=pool_ops + map_ops + 20.0 * h * w * c)
+    return [pools, fused]
 
 
 def htb_cases():
@@ -238,7 +349,7 @@ def run_kernels(failures: list) -> list:
 
     f32, b16 = torch.float32, torch.bfloat16
     rows = {}
-    for case in conv_cases() + htb_cases() + scc_cases():
+    for case in conv_cases() + head_cases() + htb_cases() + scc_cases() + fusion_cases():
         try:
             with exact_mode():
                 ins32 = case.make(f32)
@@ -249,9 +360,7 @@ def run_kernels(failures: list) -> list:
                 ins16 = case.make(b16)
                 got16 = case.call(ins16, False)
                 ref16 = case.call(ins16, True)
-                up = [tuple(x.float() for x in t) if isinstance(t, tuple)
-                      else (None if t is None else t.float()) for t in ins16]
-                truth = case.call(up, True)
+                truth = case.call(_upcast(ins16), True)
                 torch.cuda.synchronize()
             # every output tensor on its own scale (the stats sums are large)
             err32 = max(e for e, _ in e32)
@@ -271,8 +380,8 @@ def run_kernels(failures: list) -> list:
                 ms32 = time_ms(lambda: case.call(ins32, False))
                 plain32 = time_ms(lambda: case.call(ins32, True), max_iters=10)
             t_bytes = case.nbytes(2) / HBM_BYTES_PER_S * 1e3
-            t_ops = case.flops / PEAK_BF16_FLOPS * 1e3
-            log(f"  {case.kernel:9s} {case.label:40s} f32 err {err32:.3e} "
+            t_ops = case.t_ops()
+            log(f"  {case.kernel:21s} {case.label:40s} f32 err {err32:.3e} "
                 f"{'ok' if ok32 else 'FAIL'} | bf16 err vs plain {err16:.3e}, vs f32 "
                 f"{err16_k:.3e} (plain bf16 vs f32 {err16_p:.3e}) {'ok' if ok16 else 'FAIL'} "
                 f"| bf16 ms {ms:.4f} plain {plain_ms:.4f} "
@@ -315,7 +424,7 @@ def run_serving(failures: list) -> dict:
         infer.synth_weights(model, seed=0)
         models[dt] = model
     n_params = sum(p.numel() for p in models["float32"].parameters())
-    log(f"  model: HiTSIR flagship widths, is_fusion=False, {n_params:,} parameters")
+    log(f"  model: HiTSIR(**flagship_config()), the Fusion gate on, {n_params:,} parameters")
     main_counts = None
     with torch.inference_mode():
         for dt, model in models.items():
@@ -397,9 +506,11 @@ def run_profile(served: dict, dt: str) -> None:
                   reverse=True)
     busy = sum(r[0] for r in rows)
     # the kernels' names in csrc/ start with these
-    ours = {"conv3x3": "conv3x3_", "htb_tail": "htb_tail_", "scc_block": "scc_"}
-    ours = {name: sum(ms for ms, _, key in rows if f"::{prefix}" in key)
-            for name, prefix in ours.items()}
+    prefixes = {"conv3x3": "::conv3x3_", "conv3x3_shuffled": "::shuffled_conv_",
+                "conv3x3_shuffled_tail": "::tail_", "htb_tail": "::htb_tail_",
+                "scc_block": "::scc_", "fusion_pools": "::pools_",
+                "fusion maps+gate": "::fusion_"}
+    ours = {name: sum(ms for ms, _, key in rows if pre in key) for name, pre in prefixes.items()}
     log(f"  wall {wall:.1f} ms under the profiler, device busy {busy:.1f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle); hand-written kernels "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items())
@@ -436,14 +547,15 @@ def run_check(served: dict, failures: list) -> None:
             for k, y in outs.items():
                 sq[k] += float(((y.clamp(0, 1) - ref) ** 2).mean()) / len(tiles)
     db = {k: 10 * math.log10(1.0 / max(v, 1e-20)) for k, v in sq.items()}
-    # 44 dB is the JAX flagship's bar (with its fusion gate); where the
-    # plain bfloat16 model does not reach it on these weights, the kernels
-    # must come within 3 dB of the plain bfloat16 model
+    # 44 dB is the JAX flagship's bar (test_model_parity.py:124-133); where
+    # the plain bfloat16 model does not reach 47 dB on these weights, the
+    # kernels must come within 3 dB of the plain bfloat16 model
     bar16 = min(44.0, db["p16"] - 3.0)
     ok32, ok16 = err <= 1e-3, db["k16"] >= bar16
     log(f"  over {len(tiles)} tiles: f32 kernels vs f32 plain: max abs {err:.3e} (bar 1e-3) "
         f"{'ok' if ok32 else 'FAIL'}")
-    log(f"  bf16 kernels vs f32 plain: {db['k16']:.2f} dB PSNR (bar {bar16:.2f}) "
+    log(f"  bf16 kernels vs f32 plain: {db['k16']:.2f} dB PSNR (bar {bar16:.2f}: "
+        f"{'44 dB' if bar16 == 44.0 else 'plain bf16 - 3 dB'}) "
         f"{'ok' if ok16 else 'FAIL'}; bf16 plain vs f32 plain: {db['p16']:.2f} dB")
     log(f"  f32 plain vs itself fed the bf16-rounded input: {db['in']:.2f} dB; "
         f"with bf16-rounded weights: {db['w']:.2f} dB")
@@ -491,7 +603,7 @@ def main(argv=None) -> int:
         log("[kernels] per shape of one 192x192 flagship tile")
         rows = run_kernels(failures)
     if "serve" in phases and not failures:
-        log("[serve] TiledSR(tile 192, overlap 16) over HiTSIR(flagship, is_fusion=False)")
+        log("[serve] TiledSR(tile 192, overlap 16) over HiTSIR(**flagship_config())")
         try:
             served = run_serving(failures)
         except Exception:

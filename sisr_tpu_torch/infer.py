@@ -1,9 +1,11 @@
 """Single-image x4 super-resolution with the port (counterpart of the
 root ``test_experiment.py``).
 
-Builds the flagship HiT-SIR-Pro without the fusion gate, loads a reference
-``.pth`` (``{'model': state_dict}``) strictly, runs one LR image through
-``TiledSR`` (192 tiles, overlap 16), clips to [0,1] and writes a PNG.
+Builds the flagship HiT-SIR-Pro (``flagship_config()``, the Fusion gate on,
+10,220,014 parameters), loads a reference ``.pth`` (``{'model':
+state_dict}``, such as the reference's fusion checkpoint named by
+``DEFAULT_WEIGHTS``) strictly, runs one LR image through ``TiledSR`` (192
+tiles, overlap 16), clips to [0,1] and writes a PNG.
 
     python -m sisr_tpu_torch.infer lr.png [-o out.png] [--weights ckpt.pth]
         [--tile 192] [--dtype bfloat16] [--device cuda]
@@ -25,7 +27,7 @@ DEFAULT_WEIGHTS = ("weights/hitsir_pro_loss(l1)_mulsizeconvextract(True)_casa(Tr
 def create_model(dtype: str = "float32", device: str = "cuda"):
     from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
 
-    model = HiTSIR(**flagship_config(is_fusion=False), dtype=getattr(torch, dtype))
+    model = HiTSIR(**flagship_config(), dtype=getattr(torch, dtype))
     return model.to(device).eval()
 
 

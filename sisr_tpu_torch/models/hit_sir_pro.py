@@ -5,8 +5,10 @@
       -> mean-subtract
       -> MultipleSizeConvExtract (packed 9x9 im2col matmul)
       -> patch LayerNorm -> len(depths) x RHTB -> LayerNorm -> conv_after_body
-      -> + shallow (no fusion gate in this slice)
-      -> conv_before_upsample -> nearest+conv x4 head -> mean add-back, crop
+      -> Fusion gate with shallow (three UnionAttentions; or + shallow
+         without the gate)
+      -> conv_before_upsample -> packed nearest+conv x4 head -> mean
+         add-back, crop
 
 Activations are NHWC; parameters keep the reference's torch state-dict
 names and layouts, so a reference ``.pth`` loads with ``load_state_dict``.
@@ -29,12 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
-from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3
+from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
+                                                conv3x3_shuffled_tail)
 from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats, layer_norm
+from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
 from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
                                                       pooling_matrix)
 from sisr_tpu_torch.ops.kernels.scc_block import scc_block
-from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from sisr_tpu_torch.ops.windows import pad_to_multiple
 from sisr_tpu_torch.utils.constants import device_constant
 
@@ -414,32 +417,67 @@ class RHTB(nn.Module):
                        reference)
 
 
-def nearest_conv_up2(conv: nn.Conv2d, x: torch.Tensor, act: str,
-                     reference: bool) -> torch.Tensor:
-    """conv3x3(nearest_x2(x)) as pixel_shuffle(conv3x3(x, folded kernel)):
-    nearest upsampling repeats each pixel 2x2, so per output phase the 3x3
-    taps collapse onto at most 2x2 source pixels (``hit_sir_pro.py``
-    NearestConvUp2, unpacked form).  ``act`` is elementwise, so it commutes
-    with the shuffle."""
-    dt = x.dtype
+def _folded_up2(conv: nn.Conv2d, dt):
+    """conv3x3(nearest_x2(x)) as one conv to 4x the channels, packed:
+    nearest upsampling repeats each pixel 2x2, so per output phase (a, b)
+    the 3x3 taps collapse onto at most 2x2 source pixels, and the phase
+    kernels go in column-phase-major order, so that the conv's output is
+    the packed form of the x2 map (``pixel_shuffle_phase_major``).  Returns
+    the (3, 3, Cin, 4F) kernel and the bias tiled x4, in dt
+    (``hit_sir_pro.py`` NearestConvUp2, ``emit_packed``)."""
+    kernel = conv.weight.permute(2, 3, 1, 0)                  # HWIO
+    cin, feat = kernel.shape[2], kernel.shape[3]
 
-    def folded():
-        kernel = conv.weight.permute(2, 3, 1, 0)              # HWIO
-        cin, feat = kernel.shape[2], kernel.shape[3]
+    def fold(w, phase, axis):
+        rows = [w.select(axis, i) for i in range(3)]
+        zero = torch.zeros_like(rows[0])
+        new = ([rows[0], rows[1] + rows[2], zero] if phase == 0
+               else [zero, rows[0] + rows[1], rows[2]])
+        return torch.stack(new, dim=axis)
 
-        def fold(w, phase, axis):
-            rows = [w.select(axis, i) for i in range(3)]
-            zero = torch.zeros_like(rows[0])
-            new = ([rows[0], rows[1] + rows[2], zero] if phase == 0
-                   else [zero, rows[0] + rows[1], rows[2]])
-            return torch.stack(new, dim=axis)
+    phases = [fold(fold(kernel, a, 0), b, 1) for a in (0, 1) for b in (0, 1)]
+    k_full = torch.stack([phases[2 * a + b] for b in (0, 1) for a in (0, 1)],
+                         dim=3).reshape(3, 3, cin, feat * 4)
+    return k_full.to(dt).contiguous(), conv.bias.repeat(4).to(dt)
 
-        phases = [fold(fold(kernel, a, 0), b, 1) for a in (0, 1) for b in (0, 1)]
-        k_full = torch.stack(phases, dim=-1).reshape(3, 3, cin, feat * 4)
-        return k_full.to(dt).contiguous(), conv.bias.repeat_interleave(4).to(dt)
 
-    y = conv3x3(x, None, *_derived(conv, "up2", dt, x.device, folded), act, reference)
-    return pixel_shuffle(y, 2)
+class UnionAttention(nn.Module):
+    """Joint C/H/W attention parameters (reference :104-133): the 3x3 convs
+    of the mean/max pool pairs over C, H and W, and conv_last over the sum
+    of their broadcast maps.  The math is ``fused_fusion``'s."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        for name in ("conv1", "conv2", "conv3"):
+            setattr(self, name, nn.Conv2d(2, 1, 3, padding=1))
+        self.conv_last = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def raw(self):
+        """((kernel HWIO, bias) of conv1, conv2, conv3, conv_last)."""
+        return tuple((cv.weight.permute(2, 3, 1, 0).contiguous(), cv.bias)
+                     for cv in (self.conv1, self.conv2, self.conv3, self.conv_last))
+
+
+class Fusion(nn.Module):
+    """Deep/shallow fusion gate (reference :136-162), called as
+    ``fusion(deep, shallow)`` like the reference call site: the first
+    positional argument takes the deep output (the reference's parameter
+    names are swapped; parity is with the positional semantics)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+        for i in (1, 2, 3):
+            setattr(self, f"union_attention{i}", UnionAttention(channels))
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor,
+                reference: bool = False) -> torch.Tensor:
+        def make():
+            raws = tuple(getattr(self, f"union_attention{i}").raw() for i in (1, 2, 3))
+            return raws, pack_params(raws, self.channels, a.dtype)
+
+        raws, packed = _derived(self, "fusion", a.dtype, a.device, make)
+        return fused_fusion(a, b, raws, packed, reference)
 
 
 class PatchEmbed(nn.Module):
@@ -453,8 +491,8 @@ class PatchEmbed(nn.Module):
 class HiTSIR(nn.Module):
     """HiT-SIR-Pro network (reference :1065-1344).  NHWC input in [0,1].
 
-    This slice serves ``is_fusion=False`` with the nearest+conv x4 head,
-    MSCE shallow extraction and ``stage='full'``; other settings raise
+    The port serves the nearest+conv x4 head, MSCE shallow extraction and
+    ``stage='full'``, with or without the Fusion gate; other settings raise
     ``NotImplementedError``."""
 
     def __init__(self, is_mult_size_conv_feat_extract: bool = True,
@@ -468,8 +506,6 @@ class HiTSIR(nn.Module):
                  hier_win_ratios: Sequence[float] = (0.5, 1, 2, 4, 6, 8, 10, 12),
                  num_feat: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if is_fusion:
-            raise NotImplementedError("the Fusion gate is not ported yet")
         if upsampler != "nearest+conv" or upscale != 4:
             raise NotImplementedError(
                 f"only the nearest+conv x4 head is ported (got {upsampler!r} "
@@ -484,6 +520,8 @@ class HiTSIR(nn.Module):
         wins = tuple((int(base_win_size[0] * r), int(base_win_size[1] * r))
                      for r in hier_win_ratios)
         self.conv_first = MultipleSizeConvExtract(in_chans, c)
+        # registered here for the reference's state-dict order
+        self.fusion = Fusion(c) if is_fusion else None
         self.patch_embed = PatchEmbed(c)
         self.layers = nn.ModuleList([
             RHTB(c, depth, num_heads[i], tuple(base_win_size), wins, mlp_ratio,
@@ -499,15 +537,20 @@ class HiTSIR(nn.Module):
         self.conv_last = nn.Conv2d(num_feat, in_chans, 3, padding=1)
 
     def _x4_head(self, y: torch.Tensor, reference: bool) -> torch.Tensor:
-        """nearest+conv x4 tail in its plain (unpacked) form: conv_up1 ->
-        conv_up2 (phase-folded convs + pixel shuffle) -> conv_hr ->
-        conv_last (``hit_sir_pro.py`` _x4_head, :1046-1048)."""
+        """The packed nearest+conv x4 tail (``hit_sir_pro.py`` _x4_head,
+        :1014-1042, as the JAX package runs it on its chip): conv_up1 emits
+        the packed x2 map, conv_up2 reads it through the shuffled conv and
+        emits the packed x4 map, and conv_hr + conv_last read that in one
+        kernel; no pixel shuffle is ever materialized."""
         dt, dev = y.dtype, y.device
-        y = nearest_conv_up2(self.conv_up1, y, "leaky2", reference)
-        y = nearest_conv_up2(self.conv_up2, y, "leaky2", reference)
-        hr = conv3x3(y, None, *_conv_weights(self.conv_hr, dt, dev), "leaky2", reference)
-        return conv3x3(hr, None, *_conv_weights(self.conv_last, dt, dev), "none",
-                       reference)
+        y = conv3x3(y, None, *_derived(self.conv_up1, "up2", dt, dev,
+                                       lambda: _folded_up2(self.conv_up1, dt)),
+                    "leaky2", reference)
+        y = conv3x3_shuffled(y, *_derived(self.conv_up2, "up2", dt, dev,
+                                          lambda: _folded_up2(self.conv_up2, dt)),
+                             "leaky2", reference)
+        return conv3x3_shuffled_tail(y, *_conv_weights(self.conv_hr, dt, dev), "leaky2",
+                                     *_conv_weights(self.conv_last, dt, dev), reference)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
                 stage: str = "full") -> torch.Tensor:
@@ -527,7 +570,8 @@ class HiTSIR(nn.Module):
         feat = layer_norm(feat, self.norm.weight, self.norm.bias)
         deep = conv3x3(feat, None, *_conv_weights(self.conv_after_body, dt, x.device),
                        "none", reference)
-        y = deep + shallow
+        y = (self.fusion(deep, shallow, reference) if self.fusion is not None
+             else deep + shallow)
         y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, x.device),
                     "leaky", reference)
         y = self._x4_head(y, reference)

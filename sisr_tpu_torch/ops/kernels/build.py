@@ -7,7 +7,8 @@ is of the source, so an edited source rebuilds).  ``build_all`` starts one
 ``nvcc`` per source at once; ``library`` loads the result with ctypes at
 first use.  Nothing here runs when the module is imported.
 
-``launches`` counts, per kernel, the wrapper calls that launched it.
+``launches`` counts, per kernel, the wrapper calls that launched it (one
+per call, however many launches the call issues).
 """
 
 from __future__ import annotations
@@ -26,11 +27,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("conv3x3", "htb_tail", "scc_block")
+# the sources in csrc/, one library each
+KERNELS = ("conv3x3", "htb_tail", "scc_block", "shuffled_tail", "fusion")
 
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
-# the share of htb_tail launches that also emitted the next block's stats
-launches["htb_tail_stats"] = 0
+# conv3x3.cu serves conv3x3 and conv3x3_shuffled, shuffled_tail.cu
+# conv3x3_shuffled_tail, fusion.cu fusion_pools and fused_fusion;
+# htb_tail_stats counts the htb_tail calls that also emitted the next
+# block's stats
+launches: Dict[str, int] = {name: 0 for name in (
+    "conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
+    "htb_tail_stats", "scc_block", "fusion_pools", "fused_fusion")}
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,17 @@
-"""3x3 same-conv + bias, optional leaky activation and residual.
+"""3x3 same-conv + bias, optional leaky activation and residual; the same
+conv over the phase-major x2 shuffle of a packed input; and the x4 head's
+conv_hr + conv_last over such an input.
 
-Port of ``sisr_tpu/ops/pallas/conv3x3.py::_conv3x3_pallas``: the plain
-version ``conv3x3_reference`` and the CUDA kernel ``csrc/conv3x3.cu``
-behind one public function, ``conv3x3``.  Activations are NHWC and the
-kernel HWIO, as in the JAX package.
+Ports of ``sisr_tpu/ops/pallas/conv3x3.py``:
+
+    conv3x3                 _conv3x3_pallas                csrc/conv3x3.cu
+    conv3x3_shuffled        _conv3x3_shuffled_pallas       csrc/conv3x3.cu (shuffled gather)
+    conv3x3_shuffled_tail   _conv3x3_shuffled_tail_pallas  csrc/shuffled_tail.cu
+
+each over its plain version (``*_reference``).  Activations are NHWC and
+kernels HWIO, as in the JAX package.  A packed input ``yp`` (B, H, W, 4C)
+stands for ``pixel_shuffle_phase_major(yp, 2)`` (B, 2H, 2W, C): shuffled
+pixel (y, x), channel c is ``yp[b, y>>1, x>>1, ((x&1)*2 + (y&1))*C + c]``.
 """
 
 from __future__ import annotations
@@ -14,8 +22,11 @@ import torch
 import torch.nn.functional as F
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
 
 ACTS = {"none": 0, "leaky": 1, "leaky2": 2}
+# conv_hr's channels the tail kernel keeps on chip (csrc/shuffled_tail.cu)
+_TAIL_MAX_C1 = 64
 
 
 def _act(out: torch.Tensor, act: str) -> torch.Tensor:
@@ -42,27 +53,46 @@ def conv3x3_reference(y, res, kernel, bias, act: str = "none"):
     return out.contiguous()
 
 
-def _conv3x3_cuda(y, res, kernel, bias, act: str):
+def conv3x3_shuffled_reference(yp, kernel, bias, act: str = "none"):
+    """``conv3x3_reference`` of ``pixel_shuffle_phase_major(yp, 2)``."""
+    return conv3x3_reference(pixel_shuffle_phase_major(yp, 2), None, kernel,
+                             bias, act)
+
+
+def conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2):
+    """conv_last(act1(conv_hr(shuffle(yp)))): hr is stored in yp's dtype
+    between the two convs, as the TPU kernel keeps it."""
+    return conv3x3_reference(conv3x3_shuffled_reference(yp, k1, b1, act1),
+                             None, k2, b2, "none")
+
+
+def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
+    """The kernel over y (B, H, W, Cin), or over the shuffle of a packed y
+    (B, H/2, W/2, 4Cin) when ``shuffled``."""
+    name = "conv3x3_shuffled" if shuffled else "conv3x3"
     b, h, w, cin = y.shape
+    if shuffled:
+        if cin % 4:
+            raise ValueError(f"{name}: packed channels {cin} are not 4*Cin")
+        h, w, cin = 2 * h, 2 * w, cin // 4
     cout = kernel.shape[-1]
     if tuple(kernel.shape) != (3, 3, cin, cout) or tuple(bias.shape) != (cout,):
-        raise ValueError(f"conv3x3: kernel {tuple(kernel.shape)} / bias "
+        raise ValueError(f"{name}: kernel {tuple(kernel.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit Cin={cin}")
     if res is not None and tuple(res.shape) != (b, h, w, cout):
-        raise ValueError(f"conv3x3: res {tuple(res.shape)} != output shape")
-    build.check_cuda("conv3x3", y.device, y.dtype, y=y, res=res,
-                     kernel=kernel, bias=bias)
+        raise ValueError(f"{name}: res {tuple(res.shape)} != output shape")
+    build.check_cuda(name, y.device, y.dtype, y=y, res=res, kernel=kernel, bias=bias)
     out = torch.empty((b, h, w, cout), dtype=y.dtype, device=y.device)
-    lib = build.library("conv3x3")
-    fn = lib.conv3x3_launch
+    fn = build.library("conv3x3").conv3x3_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res),
-              build.ptr(kernel), build.ptr(bias), build.ptr(out),
-              b, h, w, cin, cout, ACTS[act], build.stream(y.device))
-    build.raise_on_error("conv3x3", code)
-    build.launches["conv3x3"] += 1
+    code = fn(
+        build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res), build.ptr(kernel),
+        build.ptr(bias), build.ptr(out), b, h, w, cin, cout, ACTS[act], int(shuffled),
+        build.stream(y.device))
+    build.raise_on_error(name, code)
+    build.launches[name] += 1
     return out
 
 
@@ -75,4 +105,53 @@ def conv3x3(y, res, kernel, bias, act: str = "none", reference: bool = False):
     if reference or y.device.type == "cpu":
         return conv3x3_reference(y, res, kernel, bias, act)
     return _conv3x3_cuda(y, res, build.as_arg(kernel, y.dtype),
-                         build.as_arg(bias, y.dtype), act)
+                         build.as_arg(bias, y.dtype), act, shuffled=False)
+
+
+def conv3x3_shuffled(yp, kernel, bias, act: str = "none", reference: bool = False):
+    """conv3x3 (no residual) over ``pixel_shuffle_phase_major(yp, 2)``
+    without materializing the shuffle: yp (B, H, W, 4Cin) -> (B, 2H, 2W,
+    Cout).  Device rule as ``conv3x3``."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    if reference or yp.device.type == "cpu":
+        return conv3x3_shuffled_reference(yp, kernel, bias, act)
+    return _conv3x3_cuda(yp, None, build.as_arg(kernel, yp.dtype),
+                         build.as_arg(bias, yp.dtype), act, shuffled=True)
+
+
+def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2):
+    b, h2, w2, c4 = yp.shape
+    cin, c1, cout = c4 // 4, k1.shape[-1], k2.shape[-1]
+    if c4 % 4 or tuple(k1.shape) != (3, 3, cin, c1) or tuple(b1.shape) != (c1,) \
+            or tuple(k2.shape) != (3, 3, c1, cout) or tuple(b2.shape) != (cout,):
+        raise ValueError(f"conv3x3_shuffled_tail: yp {tuple(yp.shape)}, k1 "
+                         f"{tuple(k1.shape)}, k2 {tuple(k2.shape)} do not fit")
+    if c1 > _TAIL_MAX_C1:
+        raise ValueError(f"conv3x3_shuffled_tail: conv_hr width {c1} > {_TAIL_MAX_C1}")
+    build.check_cuda("conv3x3_shuffled_tail", yp.device, yp.dtype, yp=yp, k1=k1, b1=b1,
+                     k2=k2, b2=b2)
+    out = torch.empty((b, 2 * h2, 2 * w2, cout), dtype=yp.dtype, device=yp.device)
+    fn = build.library("shuffled_tail").shuffled_tail_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    code = fn(build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1), build.ptr(b1),
+              build.ptr(k2), build.ptr(b2), build.ptr(out), b, 2 * h2, 2 * w2, cin, c1,
+              cout, ACTS[act1], build.stream(yp.device))
+    build.raise_on_error("conv3x3_shuffled_tail", code)
+    build.launches["conv3x3_shuffled_tail"] += 1
+    return out
+
+
+def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):
+    """conv3x3(act1(conv3x3(pixel_shuffle_phase_major(yp, 2), k1, b1)), k2,
+    b2): the x4 head's conv_hr + conv_last in one kernel that keeps hr on
+    chip.  yp (B, H, W, 4Cin) -> (B, 2H, 2W, Cout).  Device rule as
+    ``conv3x3``."""
+    if act1 not in ACTS:
+        raise ValueError(f"unknown act {act1!r}")
+    if reference or yp.device.type == "cpu":
+        return conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2)
+    cast = lambda t: build.as_arg(t, yp.dtype)
+    return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2))

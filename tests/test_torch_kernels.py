@@ -180,3 +180,82 @@ def test_cuda_tensor_never_reaches_plain_code(cuda_device, monkeypatch):
     assert build.launches["conv3x3"] == before + 1 and not calls
     mod.conv3x3(y, None, k, b, reference=True)
     assert build.launches["conv3x3"] == before + 1 and calls == [1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h2,w2,cin,cout,act", [(8, 12, 64, 256, "leaky2"), (6, 10, 8, 12, "none"),
+                                                (5, 7, 6, 10, "leaky")])
+def test_conv3x3_shuffled_kernel_matches_plain_on_card(cuda_device, dtype, h2, w2, cin, cout,
+                                                       act):
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled
+
+    rng = np.random.default_rng(4)
+    yp, k, b = _on(cuda_device, dtype, _rand(rng, 2, h2, w2, 4 * cin, scale=1.0),
+                   _rand(rng, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rand(rng, cout))
+    out = _check(conv3x3_shuffled, (yp, k, b, act), 1e-4)
+    assert tuple(out.shape) == (2, 2 * h2, 2 * w2, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h2,w2,cin,c1,cout", [(12, 20, 64, 64, 3), (8, 9, 8, 12, 5),
+                                               (7, 15, 6, 10, 3)])
+def test_conv3x3_shuffled_tail_kernel_matches_plain_on_card(cuda_device, dtype, h2, w2, cin, c1,
+                                                            cout):
+    """Output tiles cut by the image border on both sides, conv_hr widths
+    below the kernel's 64, and (6, 10) off the tensor-core path."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail
+
+    rng = np.random.default_rng(5)
+    yp, k1, b1, k2, b2 = _on(cuda_device, dtype, _rand(rng, 2, h2, w2, 4 * cin, scale=1.0),
+                             _rand(rng, 3, 3, cin, c1, scale=(9 * cin) ** -0.5),
+                             _rand(rng, c1), _rand(rng, 3, 3, c1, cout, scale=(9 * c1) ** -0.5),
+                             _rand(rng, cout))
+    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
+        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    out = _check(fn, (yp, k1, b1, k2, b2), 1e-4)
+    assert tuple(out.shape) == (2, 2 * h2, 2 * w2, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 9, 70, 180), (1, 5, 3, 300)])
+def test_fusion_pools_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools
+
+    rng = np.random.default_rng(6)
+    a, b = _on(cuda_device, dtype, _rand(rng, *shape, scale=1.0), _rand(rng, *shape, scale=1.0))
+    cp3, hp3, wp3 = _check(fusion_pools, (a, b), 1e-5)
+    assert cp3.dtype == wp3.dtype == dtype and hp3.dtype == torch.float32
+    # the max slots hold stored values: exact
+    ref = fusion_pools(a, b, reference=True)
+    for got, want in zip((cp3, hp3, wp3), ref):
+        torch.testing.assert_close(got[:, 1::2], want[:, 1::2], atol=0, rtol=0)
+
+
+def _ua_raws(rng, c, device):
+    mk = lambda *s, scale=0.3: torch.from_numpy(_rand(rng, *s, scale=scale)).to(device)
+    return tuple(((mk(3, 3, 2, 1), mk(1)), (mk(3, 3, 2, 1), mk(1)), (mk(3, 3, 2, 1), mk(1)),
+                  (mk(3, 3, c, c, scale=(9 * c) ** -0.5), mk(c))) for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12), (1, 24, 20, 180),
+                                   (1, 1, 5, 8)])
+def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
+    """Pools, maps and gate against the Fusion module's math, including a
+    one-row image (both row corrections on one row)."""
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
+
+    rng = np.random.default_rng(7)
+    a, b = _on(cuda_device, dtype, _rand(rng, *shape, scale=1.0), _rand(rng, *shape, scale=1.0))
+    raws = _ua_raws(rng, shape[-1], cuda_device)
+    packed = pack_params(raws, shape[-1], dtype)
+    before = dict(build.launches)
+    _check(lambda a, b, reference=False: fused_fusion(a, b, raws, packed, reference), (a, b),
+           1e-4)
+    assert build.launches["fused_fusion"] == before["fused_fusion"] + 1
+    assert build.launches["fusion_pools"] == before["fusion_pools"] + 1

@@ -19,7 +19,8 @@ torch.set_num_threads(1)
 
 GOLDEN = Path(__file__).parent / "golden"
 
-# small configs of this slice: no fusion gate, MSCE + CASA on, nearest+conv x4
+# small configs: MSCE + CASA on, nearest+conv x4; "a"/"b" without the
+# Fusion gate, "c"/"d" with it
 CONFIGS = {
     "a": dict(is_mult_size_conv_feat_extract=True, is_channel_spatial_attn=True,
               is_fusion=False, embed_dim=20, depths=(3,), num_heads=(2,),
@@ -31,8 +32,18 @@ CONFIGS = {
               is_fusion=False, embed_dim=24, depths=(4,), num_heads=(2,),
               base_win_size=(8, 8), mlp_ratio=2.0, upsampler="nearest+conv",
               upscale=4, hier_win_ratios=(0.5, 1, 2, 4)),
+    # test_model_parity.py's tiny_full
+    "c": dict(is_mult_size_conv_feat_extract=True, is_channel_spatial_attn=True,
+              is_fusion=True, embed_dim=20, depths=(3,), num_heads=(2,),
+              base_win_size=(4, 4), mlp_ratio=2.0, upsampler="nearest+conv",
+              upscale=4, hier_win_ratios=(0.5, 1, 2)),
+    "d": dict(is_mult_size_conv_feat_extract=True, is_channel_spatial_attn=True,
+              is_fusion=True, embed_dim=24, depths=(2, 2), num_heads=(2, 3),
+              base_win_size=(8, 8), mlp_ratio=2.0, upsampler="nearest+conv",
+              upscale=4, hier_win_ratios=(0.5, 1, 2, 4)),
 }
-INPUTS = {"a": (1, 12, 16, 3), "b": (1, 40, 48, 3)}
+INPUTS = {"a": (1, 12, 16, 3), "b": (1, 40, 48, 3), "c": (1, 12, 10, 3),
+          "d": (1, 24, 40, 3)}
 
 
 def _manifest():
@@ -52,8 +63,7 @@ def test_state_dict_round_trip_through_jax_layout():
     from sisr_tpu_torch.models.jax_port import state_dict_from_jax
     from sisr_tpu_torch.utils.param_synth import synth_state_dict
 
-    manifest = [(n, s) for n, s in _manifest() if not n.startswith("fusion.")]
-    sd = synth_state_dict(manifest)
+    sd = synth_state_dict(_manifest())
     back = state_dict_from_jax(convert_hit_sir_state_dict(sd))
     assert back.keys() == sd.keys()
     for name, value in sd.items():
@@ -72,11 +82,24 @@ def test_flagship_without_fusion_names_shapes_and_count():
     assert sum(p.numel() for p in model.parameters()) == 9_344_503
 
 
+def test_flagship_names_shapes_and_count():
+    """The full flagship (Fusion gate on) has exactly the reference state
+    dict, in the reference order: 10,220,014 params."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+
+    with torch.device("meta"):
+        model = HiTSIR(**flagship_config())
+    got = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
+    assert got == _manifest()
+    assert sum(p.numel() for p in model.parameters()) == 10_220_014
+
+
 def test_unported_settings_raise():
     from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
 
     with torch.device("meta"):
-        for over in ({}, {"is_fusion": False, "upsampler": "pixelshuffle"}):
+        for over in ({"upsampler": "pixelshuffle"}, {"upsampler": "pixelshuffledirect"},
+                     {"is_mult_size_conv_feat_extract": False}):
             with pytest.raises(NotImplementedError):
                 HiTSIR(**flagship_config(**over))
     model = _port_model(CONFIGS["a"])
@@ -135,3 +158,44 @@ def test_derived_weights_follow_load_state_dict():
             outs.append(model(x))
             np.testing.assert_array_equal(outs[-1].numpy(), fresh(x).numpy())
     assert not torch.equal(outs[0], outs[1])
+
+
+def test_fusion_module_matches_jax():
+    """The port's Fusion against the JAX module, weights carried across,
+    called positionally as fusion(deep, shallow)."""
+    from sisr_tpu.models.hit_sir_pro import Fusion as JaxFusion
+    from sisr_tpu_torch.models.hit_sir_pro import Fusion
+    from sisr_tpu_torch.models.jax_port import state_dict_from_jax
+
+    c = 12
+    rng = np.random.default_rng(14)
+    a, b = (rng.normal(size=(2, 16, 8, c)).astype(np.float32) for _ in range(2))
+    jmod = JaxFusion(c)
+    variables = jmod.init(jax.random.PRNGKey(3), jnp.asarray(a), jnp.asarray(b))
+    ref = np.asarray(jmod.apply(variables, jnp.asarray(a), jnp.asarray(b)))
+    mod = Fusion(c)
+    mod.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
+                         state_dict_from_jax(variables).items()}, strict=True)
+    with torch.inference_mode():
+        got = mod(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_packed_head_matches_jax():
+    """The packed x4 head (folded conv_up1, shuffled conv_up2, shuffled
+    conv_hr + conv_last) against the JAX head (stage='head') on the CPU."""
+    from sisr_tpu_torch.models.jax_port import state_dict_from_jax
+    from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
+
+    cfg = CONFIGS["c"]
+    jmodel, variables = _jax_params(cfg, None, seed=15)
+    y = np.random.default_rng(16).normal(size=(1, 6, 10, 64)).astype(np.float32) * 0.5
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(y), stage="head"))
+    model = _port_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           state_dict_from_jax(variables).items()}, strict=True)
+    mean = np.asarray(IMAGENET_ISH_RGB_MEAN, np.float32)   # stage='head' adds it back
+    with torch.inference_mode():
+        got = model._x4_head(torch.from_numpy(y), reference=False).numpy() + mean
+    assert got.shape == ref.shape == (1, 24, 40, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)

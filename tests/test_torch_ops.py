@@ -59,14 +59,19 @@ def test_pad_to_multiple_matches_jax(shape, window):
 
 
 def test_pixel_shuffle_matches_jax_and_torch():
+    """The phase-major shuffle is nn.PixelShuffle (and the JAX package's
+    pixel_shuffle) once the channels are reordered from torch's
+    ``c*r*r + i*r + j`` to ``(j*r + i)*C + c``."""
     from sisr_tpu.ops.pixel_shuffle import pixel_shuffle as ps_jax
-    from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+    from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
 
-    x = np.random.default_rng(1).normal(size=(2, 3, 5, 12)).astype(np.float32)
-    got = pixel_shuffle(_t(x), 2)
-    _close(got, ps_jax(jnp.asarray(x), 2), 0, 0)
+    r, c = 2, 3
+    x = np.random.default_rng(1).normal(size=(2, 3, 5, c * r * r)).astype(np.float32)
+    order = [ch * r * r + i * r + j for j in range(r) for i in range(r) for ch in range(c)]
+    got = pixel_shuffle_phase_major(_t(x[..., order]), r)
+    _close(got, ps_jax(jnp.asarray(x), r), 0, 0)
     # channel order of nn.PixelShuffle on the NCHW view
-    ref = torch.nn.functional.pixel_shuffle(_t(x).permute(0, 3, 1, 2), 2)
+    ref = torch.nn.functional.pixel_shuffle(_t(x).permute(0, 3, 1, 2), r)
     _close(got, ref.permute(0, 2, 3, 1), 0, 0)
 
 
@@ -250,3 +255,102 @@ def test_scc_block_plain_matches_pallas(win, base, heads, c, with_sca, mode,
     got = scc_block(*pt_args)
     ref = _scc_block_pallas(*jx_args, interpret=True)
     _close(got, ref, 2e-3, 2e-3)
+
+
+def test_pixel_shuffle_phase_major_matches_jax():
+    from sisr_tpu.ops.pixel_shuffle import pixel_shuffle_phase_major as ps_jax
+    from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
+
+    x = np.random.default_rng(8).normal(size=(2, 3, 5, 4 * 6)).astype(np.float32)
+    _close(pixel_shuffle_phase_major(_t(x), 2), ps_jax(jnp.asarray(x), 2), 0, 0)
+
+
+# --- kernel 5: conv3x3 over the phase-major shuffle of a packed input ---------
+
+@pytest.mark.parametrize("act", ["leaky2", "none"])
+@pytest.mark.parametrize("h2,w2,f", [(8, 16, 8), (16, 32, 12), (4, 300, 8)])
+def test_conv3x3_shuffled_plain_matches_pallas(h2, w2, f, act):
+    from sisr_tpu.ops.pallas.conv3x3 import _conv3x3_shuffled_pallas
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled
+
+    rng = np.random.default_rng(5)
+    mk = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)
+    yp, k, b = mk(1, h2, w2, 4 * f), mk(3, 3, f, f), mk(f)
+    got = conv3x3_shuffled(_t(yp), _t(k), _t(b), act)
+    ref = _conv3x3_shuffled_pallas(*map(jnp.asarray, (yp, k, b)), act, interpret=True)
+    _close(got, ref, 1e-5, 1e-5)
+
+
+# --- kernel 6: conv_hr + conv_last over the shuffle --------------------------
+
+@pytest.mark.parametrize("h2,w2,f,cout", [(8, 16, 8, 3), (16, 32, 12, 3),
+                                          (24, 300, 8, 3), (4, 300, 8, 5)])
+def test_conv3x3_shuffled_tail_plain_matches_pallas(h2, w2, f, cout):
+    from sisr_tpu.ops.pallas.conv3x3 import _conv3x3_shuffled_tail_pallas
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail
+
+    rng = np.random.default_rng(6)
+    mk = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)
+    yp, k1, b1, k2, b2 = mk(1, h2, w2, 4 * f), mk(3, 3, f, f), mk(f), mk(3, 3, f, cout), mk(cout)
+    got = conv3x3_shuffled_tail(_t(yp), _t(k1), _t(b1), "leaky2", _t(k2), _t(b2))
+    ref = _conv3x3_shuffled_tail_pallas(jnp.asarray(yp), jnp.asarray(k1), jnp.asarray(b1),
+                                        "leaky2", jnp.asarray(k2), jnp.asarray(b2),
+                                        interpret=True)
+    assert got.shape == ref.shape == (1, 2 * h2, 2 * w2, cout)
+    _close(got, ref, 1e-5, 1e-5)
+
+
+# --- kernels 8-9: the Fusion gate ---------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 16, 640, 12), (1, 16, 576, 12)])
+def test_fusion_pools_plain_matches_pallas(shape):
+    from sisr_tpu.ops.pallas.fusion_ops import _fusion_pools_pallas
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools
+
+    rng = np.random.default_rng(2)
+    a, b = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    gots = fusion_pools(_t(a), _t(b))
+    refs = _fusion_pools_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    for got, ref in zip(gots, refs):
+        assert tuple(got.shape) == ref.shape
+        _close(got, ref, 1e-5, 1e-5)
+
+
+def _ua_raws(rng, c):
+    mk = lambda *s: rng.normal(size=s).astype(np.float32) * 0.3
+    return tuple(((mk(3, 3, 2, 1), mk(1)), (mk(3, 3, 2, 1), mk(1)),
+                  (mk(3, 3, 2, 1), mk(1)), (mk(3, 3, c, c), mk(c))) for _ in range(3))
+
+
+def _nest(raws, fn):
+    return tuple(tuple((fn(k), fn(b)) for k, b in ua) for ua in raws)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12)])
+def test_fused_fusion_plain_matches_pallas(shape):
+    from sisr_tpu.ops.pallas.fusion_ops import _fused_fusion_pallas
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
+
+    rng = np.random.default_rng(5)
+    a, b = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    raws = _nest(_ua_raws(rng, shape[-1]), _t)
+    got = fused_fusion(_t(a), _t(b), raws, pack_params(raws, shape[-1], torch.float32))
+    ref = _fused_fusion_pallas(jnp.asarray(a), jnp.asarray(b),
+                               _nest(raws, lambda t: jnp.asarray(t.numpy())), interpret=True)
+    _close(got, ref, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fusion_pack_params_match_jax(dtype):
+    """The gate kernel's packed weights, rounded as JAX rounds them."""
+    from sisr_tpu.ops.pallas.fusion_ops import _pack_params
+    from sisr_tpu_torch.ops.kernels.fusion_ops import pack_params
+
+    c = 12
+    raws = _ua_raws(np.random.default_rng(9), c)
+    got = pack_params(_nest(raws, _t), c, getattr(torch, dtype))
+    ref = _pack_params(_nest(raws, jnp.asarray), c, getattr(jnp, dtype))
+    assert len(got) == len(ref) == 7
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == r.shape and str(g.dtype).endswith(str(r.dtype))
+        _close(g.float(), np.asarray(r, dtype=np.float32), 1e-6, 1e-6)

@@ -70,13 +70,14 @@ def test_tiny_image_pads_symmetric():
 
 
 def test_infer_main_end_to_end_on_cpu(tmp_path, monkeypatch):
-    """``infer.main`` on a tiny PNG: missing weights warn and fall back to
-    seeded synthesis; a saved reference-layout .pth loads strictly."""
+    """``infer.main`` on a tiny PNG through a small model with the Fusion
+    gate: missing weights warn and fall back to seeded synthesis; a saved
+    reference-layout .pth loads strictly."""
     from PIL import Image
     from sisr_tpu_torch import infer
 
     monkeypatch.setattr(infer, "create_model",
-                        lambda dtype, device: _port_model(CONFIGS["a"]))
+                        lambda dtype, device: _port_model(CONFIGS["c"]))
     lr = np.random.default_rng(24).integers(0, 256, (12, 10, 3), dtype=np.uint8)
     src = tmp_path / "lr.png"
     Image.fromarray(lr).save(src)
@@ -85,10 +86,31 @@ def test_infer_main_end_to_end_on_cpu(tmp_path, monkeypatch):
     first = np.asarray(Image.open(out))
     assert first.shape == (48, 40, 3)
 
-    model = _port_model(CONFIGS["a"])
+    model = _port_model(CONFIGS["c"])
     infer.load_model_weights(model, str(tmp_path / "none.pth"))
     ckpt = tmp_path / "w.pth"
     torch.save({"start_epoch": 3, "model": model.state_dict()}, ckpt)
     out2 = infer.main(str(src), str(tmp_path / "sr2.png"), str(ckpt),
                       tile="16", device="cpu")
     np.testing.assert_array_equal(np.asarray(Image.open(out2)), first)
+
+
+def test_infer_builds_the_flagship_and_loads_a_fusion_checkpoint(tmp_path):
+    """``create_model`` is the full flagship (Fusion gate on), and a
+    checkpoint in the reference's layout with the golden manifest's names
+    (the ``fusion.*`` tensors included) loads into it strictly."""
+    from test_torch_model import _manifest
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.utils.param_synth import synth_state_dict
+
+    model = infer.create_model("float32", "cpu")
+    assert sum(p.numel() for p in model.parameters()) == 10_220_014
+    sd = synth_state_dict(_manifest(), seed=3)
+    assert any(name.startswith("fusion.") for name in sd)
+    ckpt = tmp_path / "best_psnr_ssim_lpips_model.pth"
+    torch.save({"start_epoch": 7, "model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               ckpt)
+    infer.load_model_weights(model, str(ckpt))
+    got = model.state_dict()
+    for name in ("fusion.union_attention2.conv_last.weight", "conv_hr.bias"):
+        np.testing.assert_array_equal(got[name].numpy(), sd[name])
