@@ -36,12 +36,30 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// four consecutive values as floats (16-byte aligned for float32, 8-byte
+// for bfloat16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // cp.async of 8 bytes from global to shared memory; with pred false the
 // 8 bytes are zero-filled and src is not read
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
                "r"(pred ? 8 : 0));
+}
+// the same for 4 bytes (both addresses 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 4 : 0));
 }
 // the same for 16 bytes (both addresses 16-byte aligned)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {

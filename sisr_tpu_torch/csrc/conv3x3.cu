@@ -202,7 +202,8 @@ extern "C" int conv3x3_launch(int dtype, const void* y, const void* res, const v
                               const void* bias, void* out, int B, int H, int W, int Cin,
                               int Cout, int act, int shuf, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || act < 0 || act > 2) return -1;
-  if (shuf && (H % 2 || W % 2)) return -1;
+  // the shuffled gather's offset inside one image is a 32-bit int
+  if (shuf && (H % 2 || W % 2 || (long long)H * W * Cin >= (1LL << 31))) return -1;
   const Args a{y, res, w, bias, out, B, H, W, Cin, Cout, act, (cudaStream_t)stream};
   if (dtype == 0) return shuf ? dispatch<float, true>(a) : dispatch<float, false>(a);
   if (dtype == 1) return shuf ? dispatch<bf16, true>(a) : dispatch<bf16, false>(a);

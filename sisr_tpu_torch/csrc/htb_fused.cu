@@ -1,0 +1,514 @@
+// One whole HierarchicalTransformerBlock for degenerate windows (window ==
+// base window: the 4- and 8-windows, L = 16 or 64 tokens, 12 of the
+// flagship's 36 blocks), without the attention output ever reaching device
+// memory:
+//   qkv  = x + SCA(x)
+//   attn = proj(SCC(qkv))                      (scc_block.cu's function)
+//   x2   = x + LN1(attn);  h = gelu(x2 @ W1 + b1)
+//   out  = x2 + LN2((h + gelu(dw5x5(h) + dwb)) @ W2 + b2)   (+ next block's stats)
+//
+// Replaces sisr_tpu/ops/pallas/htb_block.py::htb_fused (_make_fused_kernel).
+// The TPU kernel walks window-row bands in order as one lagged pipeline and
+// carries x2 and h of the previous band in VMEM for the depthwise conv's
+// halo.  CUDA blocks carry nothing, so two launches:
+//   A (htb_fused_attn_fc1): a block of 512 threads takes 64 tokens of whole
+//     windows (4 windows of 4x4 or one of 8x8), computes qkv, the degenerate
+//     SCC, the projection, x2 and h in shared memory and writes only x2 and
+//     h.  16 warps a block, and in bfloat16 two blocks per SM (97 KB of
+//     shared memory each; 188 KB in float32, one), hide latency.  The
+//     attention map lives in the block's shared memory (Qt below, between
+//     the projection and LN1) and nowhere else.
+//   B (htb_fused_tail_*): htb_tail.cuh's tail stage over 8x8 tiles, reading
+//     h with its halo and x2 as stored (htb_tail rebuilds x from attn).
+//
+// Bound on the H100: per token ~16 k (k), 32 k (proj), 65 k (fc1), 65 k
+// (fc2), ~25 k (the L <= 64 attention) multiply-adds against ~1.5 KB of
+// bf16 traffic (x, x2, h, out, h read again): arithmetic.  Design of A:
+// the degenerate window pools by one scalar (KP = pw*k + pb), so the
+// spatial branch is the plain version's own form, per head scores
+// S = q KP^T / d + bias (L x L) then S @ VP, and the channel branch is
+// reassociated for L < C/2: out_c = ((v k^T) / L) q (L x L, not C/2 x C/2).
+// Both run on the FP32 pipes in either type (the plain version keeps the
+// spatial branch in float32), a thread taking 4 consecutive tokens of one
+// window, so that one 4-token load and one broadcast value feed 4
+// independent FMAs.  The three large products (k, proj, fc1) are
+// block_gemm: bfloat16 on the tensor cores (wmma, operands channel-major in
+// shared memory read as col-major A fragments), float32 as register tiles on
+// the FP32 pipes.  Values are rounded to the storage type where the plain
+// version stores them: qkv, k, [out_s | out_c], attn (as the two-kernel
+// chain stores it, before LN1), LN1's output, x2 and h.
+#include "htb_tail.cuh"
+
+#include <type_traits>
+
+namespace {
+
+constexpr int TOK = 64;           // tokens of a launch-A block: whole windows
+constexpr int NTA = 512;          // threads of a launch-A block
+constexpr int NWA = NTA / 32;
+constexpr int LDP = TOK + 8;      // token stride of the channel-major tiles
+constexpr int KMAX = MAX_C;       // channel rows, padded to whole MMA depths
+constexpr int HMAX = 96;          // C/2 rows of k
+constexpr int NB = 64;            // output columns per block_gemm chunk
+constexpr int LDB = NB + 8, LDC = NB + 4;
+constexpr int NPAT = 18;          // SCA patch taps per token
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBR;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragAcc;
+
+struct FArgs {
+  const void *x, *patches, *w9a, *b9a, *w9m, *b9m, *s1, *s2;  // patches NULL: no SCA
+  const void *wkv, *bb, *pmat;
+  const float* pb;
+  const void *bias, *proj, *projb, *ln1s, *ln1b, *w1, *b1;
+  void *x2, *hbuf;
+  int B, H, W, C, heads, wh, ww, Ch;
+};
+
+struct Geo {
+  int L, half, d, nwh, nww, nwin, nwb;  // nwb: windows a block
+};
+
+// pixel of token l of window win
+__device__ __forceinline__ long long token_pixel(const FArgs& a, const Geo& g, int win, int l) {
+  const int wx = win % g.nww, wy = (win / g.nww) % g.nwh, bi = win / (g.nww * g.nwh);
+  return ((long long)bi * a.H + wy * a.wh + l / a.ww) * a.W + wx * a.ww + l % a.ww;
+}
+
+// block_gemm: v(p, n) = sum_{k < K} At[k][p] * Bw[k][n] for p < TOK, n < N,
+// handed to epi(p, n, v).  At is channel-major in shared memory (row stride
+// LDP) with rows [K, K rounded up to 16) zero; Bw (K x N) row-major in
+// device memory, staged NB columns at a time by 4-byte cp.async copies, all
+// of a chunk in flight at once (N even, Bw 4-byte aligned).  Starts and
+// ends with a barrier, so At may be written before and after.
+
+// float32: 2 tokens x 4 columns a thread; stage holds KMAX x NB floats
+template <typename Epi>
+__device__ void block_gemm(const float* At, int K, const float* __restrict__ Bw, int N,
+                           unsigned char* stage, Epi epi) {
+  static_assert(TOK / 2 * (NB / 4) == NTA, "thread tile");
+  float* Bs = (float*)stage;
+  const int tid = threadIdx.x, pg = tid / (NB / 4), jg = tid % (NB / 4);
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    __syncthreads();
+    for (int e = tid; e < K * NB; e += NTA) {
+      const int k = e / NB, j = e % NB;
+      const bool ok = n0 + j < N;
+      cp_async4(Bs + e, ok ? Bw + (long long)k * N + n0 + j : Bw, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float acc[2][4] = {};
+    for (int k = 0; k < K; ++k) {
+      const float2 x = *reinterpret_cast<const float2*>(At + k * LDP + 2 * pg);
+      const float4 w = *reinterpret_cast<const float4*>(Bs + k * NB + 4 * jg);
+      const float xs[2] = {x.x, x.y}, ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ws[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + 4 * jg + j < N) epi(2 * pg + i, n0 + 4 * jg + j, acc[i][j]);
+  }
+  __syncthreads();
+}
+
+// bfloat16 on the tensor cores: 4 x 4 fragments of a chunk, one a warp;
+// stage holds the Bw chunk (KMAX x LDB bf16), then over it the
+// accumulators (TOK x LDC floats)
+constexpr size_t STAGE_TC = sizeof(bf16) * KMAX * LDB > sizeof(float) * TOK * LDC
+                                ? sizeof(bf16) * KMAX * LDB : sizeof(float) * TOK * LDC;
+
+template <typename Epi>
+__device__ void block_gemm(const bf16* At, int K, const bf16* __restrict__ Bw, int N,
+                           unsigned char* stage, Epi epi) {
+  bf16* Bs = (bf16*)stage;
+  float* Cs = (float*)stage;
+  const int kp = (K + 15) & ~15;
+  static_assert((TOK / 16) * (NB / 16) == NWA, "a fragment a warp");
+  const int tid = threadIdx.x, warp = tid >> 5, mt = warp / (NB / 16), nt = warp % (NB / 16);
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    __syncthreads();
+    for (int e = tid; e < kp * (NB / 2); e += NTA) {   // bf16 pairs (N even)
+      const int k = e / (NB / 2), j = 2 * (e % (NB / 2));
+      const bool ok = k < K && n0 + j < N;
+      cp_async4(Bs + k * LDB + j, ok ? Bw + (long long)k * N + n0 + j : Bw, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    FragAcc acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k = 0; k < kp; k += 16) {
+      FragAT fa;
+      FragBR fb;
+      wmma::load_matrix_sync(fa, At + k * LDP + mt * 16, LDP);
+      wmma::load_matrix_sync(fb, Bs + k * LDB + nt * 16, LDB);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    __syncthreads();   // every read of Bs is done before Cs overwrites it
+    wmma::store_matrix_sync(Cs + mt * 16 * LDC + nt * 16, acc, LDC, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < TOK * NB; e += NTA) {
+      const int p = e / NB, j = e % NB;
+      if (n0 + j < N) epi(p, n0 + j, Cs[p * LDC + j]);
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return std::is_same<T, bf16>::value ? STAGE_TC : sizeof(float) * KMAX * NB;
+}
+
+// the stage also holds the SCA weights and patches (before the first
+// product) and the scores St (between the first product and the second)
+static_assert(STAGE_TC >= sizeof(float) * TOK * TOK &&
+              STAGE_TC >= sizeof(float) * (22 * MAX_C + TOK * NPAT), "stage reuse");
+
+// 97 KB in bfloat16: two blocks per SM; 188 KB in float32: one
+template <typename T>
+constexpr size_t smem_a() {
+  return sizeof(T) * (2 * KMAX + HMAX) * LDP + stage_bytes<T>() + sizeof(long long) * TOK;
+}
+
+// round to the storage type and back
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f<T>(from_f<T>(v)); }
+
+template <typename T>
+__global__ void __launch_bounds__(NTA, 2) htb_fused_attn_fc1(FArgs a, Geo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qt = (T*)smem;                       // KMAX x LDP: qkv, then attn
+  T* Ot = Qt + KMAX * LDP;                // KMAX x LDP: [out_s | out_c], then x2
+  T* Kt = Ot + KMAX * LDP;                // HMAX x LDP: k
+  unsigned char* stage = (unsigned char*)(Kt + HMAX * LDP);
+  float* St = (float*)stage;              // L x TOK: scores, token-minor, over the stage
+  long long* pix = (long long*)(stage + stage_bytes<T>());   // TOK: each token's pixel
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int C = a.C, half = g.half, L = g.L, d = g.d;
+  const int win0 = blockIdx.x * g.nwb;
+  const int tv = min(g.nwb, g.nwin - win0) * L;   // the block's tokens
+  const T* x = (const T*)a.x;
+  const T zero = from_f<T>(0.0f);
+
+  for (int e = tid; e < (2 * KMAX + HMAX) * LDP; e += NTA) Qt[e] = zero;
+  for (int t = tid; t < tv; t += NTA) pix[t] = token_pixel(a, g, win0 + t / L, t % L);
+
+  // qkv = x + (leaky(P9a w9a + b9a) s1 + leaky(P9m w9m + b9m) s2) / 2
+  float* Sw = (float*)stage;      // 22 x C: w9a (9 rows), w9m (9), b9a, b9m, s1, s2
+  float* Pt = Sw + 22 * C;        // TOK x NPAT: the tokens' patches
+  const bool sca = a.patches != nullptr;
+  const int img_wins = g.nww * g.nwh, bi0 = win0 / img_wins;
+  // loads of device memory UQ at a time, all issued before any is stored,
+  // so that their latencies overlap
+  constexpr int UQ = 8;
+  const auto stage_in = [&](int n, auto load, auto store) {
+    for (int e0 = tid; e0 < n; e0 += UQ * NTA) {
+      float v[UQ];
+#pragma unroll
+      for (int u = 0; u < UQ; ++u) v[u] = e0 + u * NTA < n ? load(e0 + u * NTA) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < UQ; ++u)
+        if (e0 + u * NTA < n) store(e0 + u * NTA, v[u]);
+    }
+  };
+  if (sca)
+    stage_in(22 * C, [&](int e) {
+      const int r = e / C, c = e % C;
+      // s1, s2 of the block's first image (a later one reads its own below)
+      const T* src = r < 9 ? (const T*)a.w9a + r * C
+                     : r < 18 ? (const T*)a.w9m + (r - 9) * C
+                     : r == 18 ? (const T*)a.b9a : r == 19 ? (const T*)a.b9m
+                     : (const T*)(r == 20 ? a.s1 : a.s2) + (long long)bi0 * C;
+      return to_f<T>(src[c]);
+    }, [&](int e, float v) { Sw[e] = v; });
+  __syncthreads();   // pix is written
+  if (sca)
+    stage_in(tv * NPAT,
+             [&](int e) { return to_f<T>(((const T*)a.patches)[pix[e / NPAT] * NPAT + e % NPAT]); },
+             [&](int e, float v) { Pt[e] = v; });
+  __syncthreads();
+  for (int e0 = tid; e0 < tv * C; e0 += UQ * NTA) {
+    float xv[UQ];
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      const int e = e0 + u * NTA;
+      xv[u] = e < tv * C ? to_f<T>(x[pix[e / C] * C + e % C]) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      const int e = e0 + u * NTA, t = e / C, c = e % C;
+      if (e >= tv * C) break;
+      float v = xv[u];
+      if (sca) {
+        const int bi = (win0 + t / L) / img_wins;
+        const float* p = Pt + t * NPAT;
+        float sa = Sw[18 * C + c], sm2 = Sw[19 * C + c];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          sa = fmaf(p[i], Sw[i * C + c], sa);
+          sm2 = fmaf(p[9 + i], Sw[(9 + i) * C + c], sm2);
+        }
+        const float s1 = bi == bi0 ? Sw[20 * C + c] : to_f<T>(((const T*)a.s1)[(long long)bi * C + c]);
+        const float s2 = bi == bi0 ? Sw[21 * C + c] : to_f<T>(((const T*)a.s2)[(long long)bi * C + c]);
+        v += (leaky_f(sa, 0.2f) * s1 + leaky_f(sm2, 0.2f) * s2) * 0.5f;
+      }
+      Qt[c * LDP + t] = from_f<T>(v);
+    }
+  }
+
+  // k = qkv @ [w1; w2] + bb
+  const T* bb = (const T*)a.bb;
+  block_gemm(Qt, C, (const T*)a.wkv, half, stage, [&](int p, int n, float v) {
+    Kt[n * LDP + p] = from_f<T>(v + to_f<T>(bb[n]));
+  });
+
+  // The attention, 4 consecutive tokens (of one window: L % 4 == 0) a
+  // thread: one 4-token load and one broadcast value feed 4 FMAs.
+  // Channel branch: St[j][t] = (v_t . k_j) / L over the token's window,
+  // then out_c[t] = sum_j St[j][t] q_j.
+  const float inv_l = 1.0f / (float)L;
+  for (int e = tid; e < L * (TOK / 4); e += NTA) {
+    const int j = e / (TOK / 4), t0 = 4 * (e % (TOK / 4));
+    if (t0 >= tv) continue;
+    const T* v = Qt + half * LDP + t0;
+    const T* k = Kt + t0 / L * L + j;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int c = 0; c < half; ++c) {
+      const float4 vc = load4(v + c * LDP);
+      const float kc = to_f<T>(k[c * LDP]);
+      s = make_float4(fmaf(vc.x, kc, s.x), fmaf(vc.y, kc, s.y), fmaf(vc.z, kc, s.z),
+                      fmaf(vc.w, kc, s.w));
+    }
+    *reinterpret_cast<float4*>(St + j * TOK + t0) =
+        make_float4(rnd<T>(s.x * inv_l), rnd<T>(s.y * inv_l), rnd<T>(s.z * inv_l),
+                    rnd<T>(s.w * inv_l));
+  }
+  __syncthreads();
+  for (int e = tid; e < half * (TOK / 4); e += NTA) {
+    const int c = e / (TOK / 4), t0 = 4 * (e % (TOK / 4));
+    if (t0 >= tv) continue;
+    const T* q = Qt + c * LDP + t0 / L * L;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < L; ++j) {
+      const float4 a = load4(St + j * TOK + t0);
+      const float qj = to_f<T>(q[j]);
+      s = make_float4(fmaf(a.x, qj, s.x), fmaf(a.y, qj, s.y), fmaf(a.z, qj, s.z),
+                      fmaf(a.w, qj, s.w));
+    }
+    T* o = Ot + (half + c) * LDP + t0;
+    o[0] = from_f<T>(s.x);
+    o[1] = from_f<T>(s.y);
+    o[2] = from_f<T>(s.z);
+    o[3] = from_f<T>(s.w);
+  }
+  // Spatial branch, head by head: KP = pw k + pb, VP = pw v + pb, with pw k
+  // rounded to the storage type as pmat @ k is; k and v are not read
+  // unrounded past this point, so pw k and pw v replace them in place.
+  // S = q KP^T / d + bias, out_s = S VP.
+  const float pw = to_f<T>(((const T*)a.pmat)[0]), pb = *a.pb;
+  for (int e = tid; e < 2 * half * TOK; e += NTA) {
+    const int r = e % (half * TOK);
+    T* kv = (e < half * TOK ? Kt : Qt + half * LDP) + r / TOK * LDP + r % TOK;
+    *kv = from_f<T>(pw * to_f<T>(*kv));
+  }
+  const float inv_d = 1.0f / (float)d;
+  const T* bias = (const T*)a.bias;       // (L, heads * L)
+  for (int hd = 0; hd < a.heads; ++hd) {
+    __syncthreads();   // KP and VP are in place / the previous readers of St are done
+    for (int e = tid; e < L * (TOK / 4); e += NTA) {
+      const int j = e / (TOK / 4), t0 = 4 * (e % (TOK / 4));
+      if (t0 >= tv) continue;
+      const T* q = Qt + t0;
+      const T* kp = Kt + t0 / L * L + j;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int c = hd * d; c < (hd + 1) * d; ++c) {
+        const float4 qc = load4(q + c * LDP);
+        const float kc = to_f<T>(kp[c * LDP]) + pb;
+        s = make_float4(fmaf(qc.x, kc, s.x), fmaf(qc.y, kc, s.y), fmaf(qc.z, kc, s.z),
+                        fmaf(qc.w, kc, s.w));
+      }
+      const T* b = bias + (long long)(t0 % L) * a.heads * L + hd * L + j;
+      const long long bs = (long long)a.heads * L;   // bias rows of the 4 tokens
+      *reinterpret_cast<float4*>(St + j * TOK + t0) =
+          make_float4(s.x * inv_d + to_f<T>(b[0]), s.y * inv_d + to_f<T>(b[bs]),
+                      s.z * inv_d + to_f<T>(b[2 * bs]), s.w * inv_d + to_f<T>(b[3 * bs]));
+    }
+    __syncthreads();
+    for (int e = tid; e < d * (TOK / 4); e += NTA) {
+      const int c = hd * d + e / (TOK / 4), t0 = 4 * (e % (TOK / 4));
+      if (t0 >= tv) continue;
+      const T* vp = Qt + (half + c) * LDP + t0 / L * L;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < L; ++j) {
+        const float4 sj = load4(St + j * TOK + t0);
+        const float vj = to_f<T>(vp[j]) + pb;
+        s = make_float4(fmaf(sj.x, vj, s.x), fmaf(sj.y, vj, s.y), fmaf(sj.z, vj, s.z),
+                        fmaf(sj.w, vj, s.w));
+      }
+      T* o = Ot + c * LDP + t0;
+      o[0] = from_f<T>(s.x);
+      o[1] = from_f<T>(s.y);
+      o[2] = from_f<T>(s.z);
+      o[3] = from_f<T>(s.w);
+    }
+  }
+
+  // attn = [out_s | out_c] @ proj + projb over qkv in Qt: the attention
+  // map of these tokens, in shared memory only
+  const T* projb = (const T*)a.projb;
+  block_gemm(Ot, C, (const T*)a.proj, C, stage, [&](int p, int n, float v) {
+    Qt[n * LDP + p] = from_f<T>(v + to_f<T>(projb[n]));
+  });
+
+  // x2 = x + LN1(attn): a warp a token, into device memory and into Ot as
+  // fc1's operand (Ot's rows past C are still zero)
+  const T* ln1s = (const T*)a.ln1s;
+  const T* ln1b = (const T*)a.ln1b;
+  T* x2 = (T*)a.x2;
+  for (int t = warp; t < tv; t += NWA) {
+    constexpr int CPL = MAX_C / 32;
+    float av[CPL], s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      av[i] = c < C ? to_f<T>(Qt[c * LDP + t]) : 0.0f;
+      s1 += av[i];
+      s2 += av[i] * av[i];
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float mean = s1 / (float)C;
+    const float rstd = rsqrtf(fmaxf(s2 / (float)C - mean * mean, 0.0f) + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= C) continue;
+      const float ln = rnd<T>((av[i] - mean) * rstd * to_f<T>(ln1s[c]) + to_f<T>(ln1b[c]));
+      const T v = from_f<T>(to_f<T>(x[pix[t] * C + c]) + ln);
+      x2[pix[t] * C + c] = v;
+      Ot[c * LDP + t] = v;
+    }
+  }
+
+  // h = gelu(x2 @ W1 + b1)
+  const T* b1 = (const T*)a.b1;
+  T* hbuf = (T*)a.hbuf;
+  block_gemm(Ot, C, (const T*)a.w1, a.Ch, stage, [&](int p, int n, float v) {
+    if (p < tv)
+      hbuf[pix[p] * a.Ch + n] =
+          from_f<T>(gelu_f(v + to_f<T>(b1[n])));
+  });
+}
+
+// launch B: the tail stage, with the residual read from x2
+__global__ void __launch_bounds__(NT, 2)
+htb_fused_tail_f32(const float* __restrict__ x2, const float* __restrict__ hbuf,
+                   const float* __restrict__ dw, const float* __restrict__ dwb,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ ln2s, const float* __restrict__ ln2b,
+                   float* __restrict__ out, float* __restrict__ cmean, float* __restrict__ cmax,
+                   float* __restrict__ psum, float* __restrict__ pmax, int H, int W, int C,
+                   int Ch) {
+  extern __shared__ __align__(16) float sm[];
+  f32k::tail_out(sm, nullptr, 0, 0, nullptr, nullptr, nullptr, x2, hbuf, dw, dwb, w2, b2, ln2s,
+                 ln2b, out, cmean, cmax, psum, pmax, H, W, C, Ch);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+htb_fused_tail_bf16(const bf16* __restrict__ x2, const bf16* __restrict__ hbuf,
+                    const bf16* __restrict__ dw, const bf16* __restrict__ dwb,
+                    const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+                    const bf16* __restrict__ ln2s, const bf16* __restrict__ ln2b,
+                    bf16* __restrict__ out, float* __restrict__ cmean, float* __restrict__ cmax,
+                    float* __restrict__ psum, float* __restrict__ pmax, int H, int W, int C,
+                    int Ch) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  tck::tail_out(smem, nullptr, 0, 0, nullptr, nullptr, nullptr, x2, hbuf, dw, dwb, w2, b2, ln2s,
+                ln2b, out, cmean, cmax, psum, pmax, H, W, C, Ch);
+}
+
+template <typename T>
+int launch(const FArgs& a, const void* const* tw, void* out, float* const* st, cudaStream_t s) {
+  constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+  Geo g;
+  g.L = a.wh * a.ww;
+  g.half = a.C / 2;
+  g.d = g.half / a.heads;
+  g.nwh = a.H / a.wh;
+  g.nww = a.W / a.ww;
+  g.nwin = a.B * g.nwh * g.nww;
+  g.nwb = TOK / g.L;
+  // launch B's copies: 16-byte (float32) or 8-byte (bfloat16) aligned h and W2
+  // and launch A's 4-byte copies of wkv, proj and W1
+  const size_t align = is_bf16 ? 8 : 16;
+  const auto al4 = [](const void* p) { return (uintptr_t)p % 4 == 0; };
+  if (g.L > TOK || g.L % 4 || a.C > KMAX || g.half > HMAX || a.C % 4 || a.Ch % 4 ||
+      (uintptr_t)a.hbuf % align || (uintptr_t)tw[2] % align || !al4(a.wkv) ||
+      !al4(a.proj) || !al4(a.w1))
+    return -1;
+  const size_t sa = smem_a<T>(), sb = is_bf16 ? tck::SMEM2 : f32k::SMEM2;
+  const int refused = is_bf16 ? set_smem(htb_fused_tail_bf16, sb) : set_smem(htb_fused_tail_f32, sb);
+  if (set_smem(htb_fused_attn_fc1<T>, sa) || refused) return -1;
+  // the window blocks on gridDim.x (up to 2^31 - 1)
+  const unsigned nblk = (unsigned)((g.nwin + g.nwb - 1) / g.nwb);
+  htb_fused_attn_fc1<T><<<nblk, NTA, sa, s>>>(a, g);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, a.B);
+  const T* const* w = (const T* const*)tw;   // dw, dwb, w2, b2, ln2s, ln2b
+  if constexpr (is_bf16)
+    htb_fused_tail_bf16<<<grid, NT, sb, s>>>((const bf16*)a.x2, (const bf16*)a.hbuf, w[0], w[1],
+                                             w[2], w[3], w[4], w[5], (bf16*)out, st[0], st[1],
+                                             st[2], st[3], a.H, a.W, a.C, a.Ch);
+  else
+    htb_fused_tail_f32<<<grid, NT, sb, s>>>((const float*)a.x2, (const float*)a.hbuf, w[0], w[1],
+                                            w[2], w[3], w[4], w[5], (float*)out, st[0], st[1],
+                                            st[2], st[3], a.H, a.W, a.C, a.Ch);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16.  x/out (B, H, W, C) with H % wh == W % ww
+// == 0 (no window padding); the SCC arguments as scc_block_launch's
+// (patches NULL: no SCA; pmat (L, L) = pw * I, of which only pmat[0] is
+// read; pb one float32 on the device); then the tail weights as
+// htb_tail_launch's: ln1 scale and bias (C), W1 (C, Ch), b1 (Ch), dw (5, 5,
+// Ch), dwb (Ch), W2 (Ch, C), b2 (C), ln2 scale and bias (C).  x2 (B, H, W,
+// C) and hbuf (B, H, W, Ch) are scratch in the storage type.  With cmean
+// non-NULL also cmean/cmax (B, H, W) and psum/pmax (B, nblocks, C) as
+// htb_tail_launch.  Returns cudaGetLastError() after the launches, or -1
+// for refused shapes.
+extern "C" int htb_fused_launch(int dtype, const void* x, const void* patches, const void* w9a,
+                                const void* b9a, const void* w9m, const void* b9m,
+                                const void* s1, const void* s2, const void* wkv, const void* bb,
+                                const void* pmat, const void* pb, const void* bias,
+                                const void* proj, const void* projb, const void* ln1s,
+                                const void* ln1b, const void* w1, const void* b1, const void* dw,
+                                const void* dwb, const void* w2, const void* b2,
+                                const void* ln2s, const void* ln2b, void* x2, void* hbuf,
+                                void* out, void* cmean, void* cmax, void* psum, void* pmax,
+                                int B, int H, int W, int C, int heads, int wh, int ww, int Ch,
+                                void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 2 || heads <= 0 || (C / 2) % heads ||
+      wh <= 0 || ww <= 0 || H % wh || W % ww || Ch <= 0)
+    return -1;
+  const FArgs a{x, patches, w9a, b9a, w9m, b9m, s1, s2, wkv, bb, pmat, (const float*)pb, bias,
+                proj, projb, ln1s, ln1b, w1, b1, x2, hbuf, B, H, W, C, heads, wh, ww, Ch};
+  const void* tw[6] = {dw, dwb, w2, b2, ln2s, ln2b};
+  float* st[4] = {(float*)cmean, (float*)cmax, (float*)psum, (float*)pmax};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch<float>(a, tw, out, st, s);
+  if (dtype == 1) return launch<bf16>(a, tw, out, st, s);
+  return -1;
+}

@@ -186,7 +186,7 @@ __global__ void __launch_bounds__(NT) scc_a1(Args a, Dims D, const float* qkv, f
   float* Qt = Q + TC * C;         // C x LDT: the same, channel-major
   float* Kc = Qt + C * LDT;       // TC x half: k of the chunk
   float* Pc = Kc + TC * half;     // lb x TC: pmat columns of the chunk
-  const int split = blockIdx.x, win = blockIdx.y, tid = threadIdx.x;
+  const int win = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const T* wkv = (const T*)a.wkv;
   const T* pmat = (const T*)a.pmat;
@@ -332,7 +332,7 @@ __global__ void __launch_bounds__(NTA) scc_a1_bf16(Args a, Dims D, const float* 
   float* VPs = KPs + LBM * LDF;        // LBM x LDF
 
   const int half = D.half, lb = a.lb, L = D.L, C = a.C;
-  const int split = blockIdx.x, win = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
+  const int win = blockIdx.x, split = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
   const bf16* wkv = (const bf16*)a.wkv;
   const bf16* bb = (const bf16*)a.bb;
   const bf16* pmat = (const bf16*)a.pmat;
@@ -490,17 +490,6 @@ __global__ void __launch_bounds__(NT) scc_m(Args a, Dims D, const float* tot, fl
   }
 }
 
-// four consecutive values as floats (8-byte aligned for bfloat16)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 // B: per (token tile, window) [out_s | out_c] into out, over the tile's
 // qkv.  Warp w takes tokens 4w..4w+3 of the tile, lane l the output
 // channels l, l+32, l+64 of out_s and of out_c; q, v and the bias rows are
@@ -525,7 +514,7 @@ __global__ void __launch_bounds__(NT, 2) scc_b(Args a, Dims D, const float* qkv,
   float* Gs = Ms + up4(half * d);                     // half x half
   float* VPs = Gs + up4(half * half);                 // lb x half
   T* Bt = (T*)(VPs + up4(lb * half));                 // hl x LDT: bias rows, column-major
-  const int win = blockIdx.y, l0 = blockIdx.x * TC, tid = threadIdx.x;
+  const int win = blockIdx.x, l0 = blockIdx.y * TC, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int nt = min(TC, L - l0);
   const T* bias = (const T*)a.bias;
@@ -767,17 +756,19 @@ int launch(const Args& a, float* scratch, cudaStream_t stream) {
   float* Mw = part + (long long)D.nwin * D.nsplit * D.part_floats;
   // a window of one split has its totals in part already
   float* tot = D.nsplit == 1 ? part : Mw + (long long)D.nwin * half * half;
+  // windows on gridDim.x (up to 2^31 - 1; a 1088x1920 map has 130,560 of
+  // 4x4), splits and token tiles on gridDim.y (at most 32 and 128)
   scc_qkv<T><<<dim3((unsigned)((hw + TQ - 1) / TQ), a.B), NT, s0, stream>>>(a, qkv);
   if constexpr (is_bf16)
-    tca::scc_a1_bf16<<<dim3(D.nsplit, D.nwin), tca::NTA, s1, stream>>>(a, D, qkv, part);
+    tca::scc_a1_bf16<<<dim3(D.nwin, D.nsplit), tca::NTA, s1, stream>>>(a, D, qkv, part);
   else
-    scc_a1<T><<<dim3(D.nsplit, D.nwin), NT, s1, stream>>>(a, D, qkv, part);
+    scc_a1<T><<<dim3(D.nwin, D.nsplit), NT, s1, stream>>>(a, D, qkv, part);
   if (D.nsplit > 1) {
     const long long nsum = (long long)D.nwin * D.part_floats;
     scc_a2<<<(unsigned)((nsum + NT - 1) / NT), NT, 0, stream>>>(a, D, part, tot);
   }
   scc_m<<<D.nwin, NT, s2, stream>>>(a, D, tot, Mw);
-  scc_b<T><<<dim3((D.L + TC - 1) / TC, D.nwin), NT, s3, stream>>>(a, D, qkv, tot, Mw);
+  scc_b<T><<<dim3(D.nwin, (D.L + TC - 1) / TC), NT, s3, stream>>>(a, D, qkv, tot, Mw);
   if (tc_p)
     tcp::scc_proj_bf16<<<(unsigned)((npix + tcp::BM - 1) / tcp::BM), NT, s4, stream>>>(
         (bf16*)a.out, (const bf16*)a.proj, (const bf16*)a.projb, npix, a.C);
@@ -789,12 +780,14 @@ int launch(const Args& a, float* scratch, cudaStream_t stream) {
 
 }  // namespace
 
-// Float32 scratch the launch needs (the caller allocates it).
+// Float32 scratch the launch needs (the caller allocates it): qkv, the
+// partials, M, and the totals where a window has several splits.
 extern "C" long long scc_block_scratch_floats(int B, int Hp, int Wp, int C, int wh, int ww,
                                               int lb) {
   const Dims D = dims_of(B, Hp, Wp, C, 1, wh, ww, lb);
-  return (long long)B * Hp * Wp * C +  // qkv
-         (long long)D.nwin * ((D.nsplit + 1) * D.part_floats + (long long)D.half * D.half);
+  return (long long)B * Hp * Wp * C +
+         (long long)D.nwin * ((D.nsplit + (D.nsplit > 1)) * D.part_floats +
+                              (long long)D.half * D.half);
 }
 
 // dtype: 0 float32, 1 bfloat16.  x/out (B, Hp, Wp, C); patches (B, Hp, Wp,

@@ -191,8 +191,8 @@ extern "C" int shuffled_tail_launch(int dtype, const void* yp, const void* w1, c
                                     const void* w2, const void* b2, void* out, int B, int H,
                                     int W, int Cin, int C1, int Cout, int act, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || H % 2 || W % 2 || Cin <= 0 || C1 <= 0 || C1 > BN ||
-      Cout <= 0 || act < 0 || act > 2)
-    return -1;
+      Cout <= 0 || act < 0 || act > 2 || (long long)H * W * Cin >= (1LL << 31))
+    return -1;   // (the last: the shuffled gather's offset inside one image is a 32-bit int)
   cudaStream_t s = (cudaStream_t)stream;
   const int C1P = (C1 + 3) & ~3;
   const size_t w2_bytes = sizeof(float) * 9 * C1P * Cout;

@@ -10,6 +10,10 @@
       -> conv_before_upsample -> packed nearest+conv x4 head -> mean
          add-back, crop
 
+``stage`` splits the forward for whole-image evaluation as in JAX:
+'features' stops after conv_before_upsample, 'head' runs the x4 head and
+the mean add-back on such a map (``parallel/tiling.py::BandedHeadSR``).
+
 Activations are NHWC; parameters keep the reference's torch state-dict
 names and layouts, so a reference ``.pth`` loads with ``load_state_dict``.
 Parameters stay float32; what a module derives from them for its kernels
@@ -32,9 +36,11 @@ from torch import nn
 
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
 from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
-                                                conv3x3_shuffled_tail)
+                                                conv3x3_shuffled_tail,
+                                                conv3x3_shuffled_tail_packed)
 from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats, layer_norm
 from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
+from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
 from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
                                                       pooling_matrix)
 from sisr_tpu_torch.ops.kernels.scc_block import scc_block
@@ -286,6 +292,13 @@ class SCC(nn.Module):
 
     def forward(self, x: torch.Tensor, stats=None,
                 reference: bool = False) -> torch.Tensor:
+        sca, rest = self.bundle(x, stats)
+        return scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
+
+    def bundle(self, x: torch.Tensor, stats=None):
+        """(sca, the rest of scc_block's arguments up to proj_b) for x:
+        the SCA parameter tuple (None without SCA), with the threaded
+        (cmean, cmax) maps when ``stats`` are given."""
         b, hp, wp, c = x.shape
         dt = x.dtype
         sca_w, se_w, *rest = _derived(self, "scc", dt, x.device,
@@ -310,7 +323,7 @@ class SCC(nn.Module):
             sca = sca_w + tuple(s)
             if cmean is not None:
                 sca = sca + (cmean, cmax)
-        return scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
+        return sca, rest
 
 
 class DepthwiseConv(nn.Module):
@@ -334,12 +347,24 @@ class ConvFFN(nn.Module):
 
 
 class HierarchicalTransformerBlock(nn.Module):
-    """pad -> SCC -> (crop) post-norm residual -> ConvFFN (reference :605-710)."""
+    """pad -> SCC -> (crop) post-norm residual -> ConvFFN (reference :605-710).
+
+    ``fused_htb`` (off by default, as JAX's ``SISR_FUSED_HTB``) runs the
+    blocks whose window equals its base window, on maps the window divides,
+    as one ``htb_fused`` call."""
 
     def __init__(self, dim: int, num_heads: int, base_win_size, window_size,
-                 mlp_ratio: float = 2.0, is_channel_spatial_attn: bool = True):
+                 mlp_ratio: float = 2.0, is_channel_spatial_attn: bool = True,
+                 fused_htb: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
+        wh, ww = self.window_size
+        # JAX's semantic conditions (hit_sir_pro.py:698-706, htb_block.py:212);
+        # its TPU-layout ones (w % 8, (wh*w) % 128, wh*w <= 8192, the FFN
+        # row tile equal to wh) size VMEM blocks and have no counterpart here
+        self.fused_htb = (fused_htb and is_channel_spatial_attn
+                          and min(wh, base_win_size[0]) == wh
+                          and min(ww, base_win_size[1]) == ww)
         self.norm1 = nn.LayerNorm(dim)
         self.correlation = SCC(dim, base_win_size, window_size, num_heads,
                                is_channel_spatial_attn)
@@ -350,6 +375,12 @@ class HierarchicalTransformerBlock(nn.Module):
                 reference: bool = False):
         _, h, w, _ = x.shape
         dt = x.dtype
+        tail = _derived(self, "tail", dt, x.device, lambda: self._tail_weights(dt),
+                        sources=(self.norm1, self.mlp, self.norm2))
+        if self.fused_htb and h % self.window_size[0] == 0 and w % self.window_size[1] == 0:
+            sca, rest = self.correlation.bundle(x, stats)
+            return htb_fused(x, sca, *rest, self.correlation.num_heads, self.window_size,
+                             *tail, emit_stats=emit_stats, reference=reference)
         xp = pad_to_multiple(x, self.window_size)
         if stats is not None and xp.shape[1:3] != (h, w):
             # the threaded stats describe the UNPADDED x: channel pools
@@ -364,8 +395,7 @@ class HierarchicalTransformerBlock(nn.Module):
             stats = (cmean, cmax, ssum, smax)
         attn = self.correlation(xp, stats=stats, reference=reference)
 
-        args = (x,) + _derived(self, "tail", dt, x.device, lambda: self._tail_weights(dt),
-                               sources=(self.norm1, self.mlp, self.norm2))
+        args = (x,) + tail
         # the (possibly window-padded) attn goes in whole: the tail reads
         # only its first h rows and w columns
         if emit_stats:
@@ -396,13 +426,13 @@ class RHTB(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, base_win_size,
                  window_sizes, mlp_ratio: float = 2.0,
-                 is_channel_spatial_attn: bool = True):
+                 is_channel_spatial_attn: bool = True, fused_htb: bool = False):
         super().__init__()
         self.is_channel_spatial_attn = is_channel_spatial_attn
         self.residual_group = ResidualGroup([
             HierarchicalTransformerBlock(dim, num_heads, base_win_size,
                                          window_sizes[i], mlp_ratio,
-                                         is_channel_spatial_attn)
+                                         is_channel_spatial_attn, fused_htb)
             for i in range(depth)])
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
@@ -491,9 +521,12 @@ class PatchEmbed(nn.Module):
 class HiTSIR(nn.Module):
     """HiT-SIR-Pro network (reference :1065-1344).  NHWC input in [0,1].
 
-    The port serves the nearest+conv x4 head, MSCE shallow extraction and
-    ``stage='full'``, with or without the Fusion gate; other settings raise
-    ``NotImplementedError``."""
+    The port serves the nearest+conv x4 head and MSCE shallow extraction,
+    with or without the Fusion gate; other settings raise
+    ``NotImplementedError``.  ``head_packed`` makes ``stage='head'`` return
+    the packed (B, H, W/16, 16*in_chans) layout (JAX's attribute, set by
+    ``BandedHeadSR``); ``fused_htb`` runs the degenerate-window blocks as
+    one ``htb_fused`` call each.  Neither adds parameters."""
 
     def __init__(self, is_mult_size_conv_feat_extract: bool = True,
                  is_channel_spatial_attn: bool = True, is_fusion: bool = True,
@@ -504,7 +537,8 @@ class HiTSIR(nn.Module):
                  mlp_ratio: float = 2.0, upscale: int = 4,
                  img_range: float = 1.0, upsampler: str = "nearest+conv",
                  hier_win_ratios: Sequence[float] = (0.5, 1, 2, 4, 6, 8, 10, 12),
-                 num_feat: int = 64, dtype: torch.dtype = torch.float32):
+                 num_feat: int = 64, dtype: torch.dtype = torch.float32,
+                 head_packed: bool = False, fused_htb: bool = False):
         super().__init__()
         if upsampler != "nearest+conv" or upscale != 4:
             raise NotImplementedError(
@@ -517,6 +551,7 @@ class HiTSIR(nn.Module):
         self.img_range = img_range
         self.upscale = upscale
         self.dtype = dtype
+        self.head_packed = head_packed
         wins = tuple((int(base_win_size[0] * r), int(base_win_size[1] * r))
                      for r in hier_win_ratios)
         self.conv_first = MultipleSizeConvExtract(in_chans, c)
@@ -525,7 +560,7 @@ class HiTSIR(nn.Module):
         self.patch_embed = PatchEmbed(c)
         self.layers = nn.ModuleList([
             RHTB(c, depth, num_heads[i], tuple(base_win_size), wins, mlp_ratio,
-                 is_channel_spatial_attn)
+                 is_channel_spatial_attn, fused_htb)
             for i, depth in enumerate(depths)])
         self.norm = nn.LayerNorm(c)
         self.conv_after_body = nn.Conv2d(c, c, 3, padding=1)
@@ -536,12 +571,14 @@ class HiTSIR(nn.Module):
         self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, padding=1)
         self.conv_last = nn.Conv2d(num_feat, in_chans, 3, padding=1)
 
-    def _x4_head(self, y: torch.Tensor, reference: bool) -> torch.Tensor:
+    def _x4_head(self, y: torch.Tensor, reference: bool, packed: bool = False) -> torch.Tensor:
         """The packed nearest+conv x4 tail (``hit_sir_pro.py`` _x4_head,
         :1014-1042, as the JAX package runs it on its chip): conv_up1 emits
         the packed x2 map, conv_up2 reads it through the shuffled conv and
         emits the packed x4 map, and conv_hr + conv_last read that in one
-        kernel; no pixel shuffle is ever materialized."""
+        kernel; no pixel shuffle is ever materialized.  With ``packed``
+        that kernel writes the packed layout (the width 4*w1 must be a
+        multiple of 16)."""
         dt, dev = y.dtype, y.device
         y = conv3x3(y, None, *_derived(self.conv_up1, "up2", dt, dev,
                                        lambda: _folded_up2(self.conv_up1, dt)),
@@ -549,16 +586,28 @@ class HiTSIR(nn.Module):
         y = conv3x3_shuffled(y, *_derived(self.conv_up2, "up2", dt, dev,
                                           lambda: _folded_up2(self.conv_up2, dt)),
                              "leaky2", reference)
-        return conv3x3_shuffled_tail(y, *_conv_weights(self.conv_hr, dt, dev), "leaky2",
-                                     *_conv_weights(self.conv_last, dt, dev), reference)
+        tail = conv3x3_shuffled_tail_packed if packed else conv3x3_shuffled_tail
+        return tail(y, *_conv_weights(self.conv_hr, dt, dev), "leaky2",
+                    *_conv_weights(self.conv_last, dt, dev), reference)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
                 stage: str = "full") -> torch.Tensor:
-        if stage != "full":
-            raise NotImplementedError(f"stage {stage!r} is not ported")
+        """``stage``: 'full' the whole network; 'features' stops at the
+        pre-upsample feature map (B, H, W, num_feat), without the mean
+        added back; 'head' takes that map and returns the x4 head's output
+        plus the mean, uncropped (packed with ``head_packed``, the mean
+        then tiled to match)."""
+        if stage not in ("full", "features", "head"):
+            raise ValueError(f"unknown stage {stage!r}")
         _, h, w, cin = x.shape
         dt = self.dtype
         x = x.to(dt)
+        if stage == "head":
+            mean = device_constant(_input_mean, (self.in_chans,), dt, x.device)
+            out = self._x4_head(x, reference, self.head_packed)
+            if out.shape[-1] != self.in_chans and mean.numel() == self.in_chans:
+                mean = mean.repeat(out.shape[-1] // self.in_chans)
+            return out / self.img_range + mean
         mean = device_constant(_input_mean, (cin,), dt, x.device)
         x = (x - mean) * self.img_range
 
@@ -574,6 +623,8 @@ class HiTSIR(nn.Module):
              else deep + shallow)
         y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, x.device),
                     "leaky", reference)
+        if stage == "features":
+            return y
         y = self._x4_head(y, reference)
         y = y / self.img_range + mean
         return y[:, :h * self.upscale, :w * self.upscale, :]

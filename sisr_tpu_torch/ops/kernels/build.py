@@ -28,15 +28,16 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # the sources in csrc/, one library each
-KERNELS = ("conv3x3", "htb_tail", "scc_block", "shuffled_tail", "fusion")
+KERNELS = ("conv3x3", "htb_tail", "scc_block", "shuffled_tail", "fusion", "htb_fused")
 
 # conv3x3.cu serves conv3x3 and conv3x3_shuffled, shuffled_tail.cu
-# conv3x3_shuffled_tail, fusion.cu fusion_pools and fused_fusion;
-# htb_tail_stats counts the htb_tail calls that also emitted the next
-# block's stats
+# conv3x3_shuffled_tail and conv3x3_shuffled_tail_packed, fusion.cu
+# fusion_pools and fused_fusion, htb_fused.cu htb_fused; htb_tail_stats
+# counts the htb_tail calls that also emitted the next block's stats
 launches: Dict[str, int] = {name: 0 for name in (
-    "conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
-    "htb_tail_stats", "scc_block", "fusion_pools", "fused_fusion")}
+    "conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail",
+    "conv3x3_shuffled_tail_packed", "htb_tail", "htb_tail_stats", "scc_block",
+    "fusion_pools", "fused_fusion", "htb_fused")}
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}

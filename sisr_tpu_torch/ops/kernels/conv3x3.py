@@ -4,14 +4,23 @@ conv_hr + conv_last over such an input.
 
 Ports of ``sisr_tpu/ops/pallas/conv3x3.py``:
 
-    conv3x3                 _conv3x3_pallas                csrc/conv3x3.cu
-    conv3x3_shuffled        _conv3x3_shuffled_pallas       csrc/conv3x3.cu (shuffled gather)
-    conv3x3_shuffled_tail   _conv3x3_shuffled_tail_pallas  csrc/shuffled_tail.cu
+    conv3x3                       _conv3x3_pallas                       csrc/conv3x3.cu
+    conv3x3_shuffled              _conv3x3_shuffled_pallas              csrc/conv3x3.cu (shuffled gather)
+    conv3x3_shuffled_tail         _conv3x3_shuffled_tail_pallas         csrc/shuffled_tail.cu
+    conv3x3_shuffled_tail_packed  _conv3x3_shuffled_tail_packed_pallas  csrc/shuffled_tail.cu
 
 each over its plain version (``*_reference``).  Activations are NHWC and
 kernels HWIO, as in the JAX package.  A packed input ``yp`` (B, H, W, 4C)
 stands for ``pixel_shuffle_phase_major(yp, 2)`` (B, 2H, 2W, C): shuffled
 pixel (y, x), channel c is ``yp[b, y>>1, x>>1, ((x&1)*2 + (y&1))*C + c]``.
+
+The packed tail's output (B, H, W/16, 16*Cout) groups 16 output pixels of a
+row into one row of channels.  On the TPU that layout fills the 128 lanes
+a (..., 3) array would pad, and its kernel builds it with pair-form hr
+weights and grouped conv_last weights (``_pair_hr_weights``,
+``_group_last_weights``).  On the card a contiguous (B, H, W/16, 16*Cout)
+tensor has exactly the bytes of the NHWC (B, H, W, Cout) output, so the
+tail kernel writes straight into it and none of that has a counterpart.
 """
 
 from __future__ import annotations
@@ -120,7 +129,21 @@ def conv3x3_shuffled(yp, kernel, bias, act: str = "none", reference: bool = Fals
                          build.as_arg(bias, yp.dtype), act, shuffled=True)
 
 
-def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2):
+def tail_pack_group() -> int:
+    """Output pixels per row of the packed tail's output (JAX
+    ``conv3x3.tail_pack_group``)."""
+    return 16
+
+
+def conv3x3_shuffled_tail_packed_reference(yp, k1, b1, act1, k2, b2):
+    """The plain tail output (B, H, W, Cout) as (B, H, W/16, 16*Cout)."""
+    out = conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2)
+    b, h, w, cout = out.shape
+    g = tail_pack_group()
+    return out.reshape(b, h, w // g, g * cout)
+
+
+def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     b, h2, w2, c4 = yp.shape
     cin, c1, cout = c4 // 4, k1.shape[-1], k2.shape[-1]
     if c4 % 4 or tuple(k1.shape) != (3, 3, cin, c1) or tuple(b1.shape) != (c1,) \
@@ -129,9 +152,12 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2):
                          f"{tuple(k1.shape)}, k2 {tuple(k2.shape)} do not fit")
     if c1 > _TAIL_MAX_C1:
         raise ValueError(f"conv3x3_shuffled_tail: conv_hr width {c1} > {_TAIL_MAX_C1}")
-    build.check_cuda("conv3x3_shuffled_tail", yp.device, yp.dtype, yp=yp, k1=k1, b1=b1,
-                     k2=k2, b2=b2)
-    out = torch.empty((b, 2 * h2, 2 * w2, cout), dtype=yp.dtype, device=yp.device)
+    name = "conv3x3_shuffled_tail_packed" if packed else "conv3x3_shuffled_tail"
+    g = tail_pack_group()
+    build.check_cuda(name, yp.device, yp.dtype, yp=yp, k1=k1, b1=b1, k2=k2, b2=b2)
+    # the packed layout is the NHWC output's bytes: the kernel writes it as is
+    shape = (b, 2 * h2, 2 * w2 // g, g * cout) if packed else (b, 2 * h2, 2 * w2, cout)
+    out = torch.empty(shape, dtype=yp.dtype, device=yp.device)
     fn = build.library("shuffled_tail").shuffled_tail_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
@@ -139,8 +165,8 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2):
     code = fn(build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1), build.ptr(b1),
               build.ptr(k2), build.ptr(b2), build.ptr(out), b, 2 * h2, 2 * w2, cin, c1,
               cout, ACTS[act1], build.stream(yp.device))
-    build.raise_on_error("conv3x3_shuffled_tail", code)
-    build.launches["conv3x3_shuffled_tail"] += 1
+    build.raise_on_error(name, code)
+    build.launches[name] += 1
     return out
 
 
@@ -155,3 +181,19 @@ def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):
         return conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2)
     cast = lambda t: build.as_arg(t, yp.dtype)
     return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2))
+
+
+def conv3x3_shuffled_tail_packed(yp, k1, b1, act1, k2, b2, reference: bool = False):
+    """``conv3x3_shuffled_tail`` with its output packed 16 pixels to a row:
+    yp (B, H, W, 4Cin) -> (B, 2H, 2W/16, 16*Cout), values equal to the
+    unpacked output reshaped; 2W must be a multiple of 16.  Device rule as
+    ``conv3x3``."""
+    if act1 not in ACTS:
+        raise ValueError(f"unknown act {act1!r}")
+    if (2 * yp.shape[2]) % tail_pack_group():
+        raise ValueError(f"conv3x3_shuffled_tail_packed: output width {2 * yp.shape[2]} "
+                         f"is not a multiple of {tail_pack_group()}")
+    if reference or yp.device.type == "cpu":
+        return conv3x3_shuffled_tail_packed_reference(yp, k1, b1, act1, k2, b2)
+    cast = lambda t: build.as_arg(t, yp.dtype)
+    return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2), packed=True)

@@ -63,6 +63,21 @@ def stats_reference(out):
     return of.mean(-1), of.amax(-1), of.sum((1, 2)), of.amax((1, 2))
 
 
+def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool):
+    """The tail stage's device buffers: h = gelu(fc1), which passes between
+    the two launches, and the statistics (cmean, cmax, and the per-tile
+    partials psum, pmax), all None without ``stats``."""
+    hbuf = torch.empty((b, h, w, ch), dtype=dt, device=dev)
+    if not stats:
+        return hbuf, (None,) * 4
+    f32 = torch.float32
+    tiles = -(-h // _TILE) * -(-w // _TILE)
+    return hbuf, (torch.empty((b, h, w), dtype=f32, device=dev),
+                  torch.empty((b, h, w), dtype=f32, device=dev),
+                  torch.empty((b, tiles, c), dtype=f32, device=dev),
+                  torch.empty((b, tiles, c), dtype=f32, device=dev))
+
+
 def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     b, h, w, c = shortcut.shape
     ch = weights[2].shape[1]
@@ -84,17 +99,7 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
                      **{f"w{i}": t for i, t in enumerate(weights)})
     dev = shortcut.device
     out = torch.empty_like(shortcut)
-    nby, nbx = -(-h // _TILE), -(-w // _TILE)
-    f32 = torch.float32
-    if stats:
-        cmean = torch.empty((b, h, w), dtype=f32, device=dev)
-        cmax = torch.empty((b, h, w), dtype=f32, device=dev)
-        psum = torch.empty((b, nby * nbx, c), dtype=f32, device=dev)
-        pmax = torch.empty((b, nby * nbx, c), dtype=f32, device=dev)
-    else:
-        cmean = cmax = psum = pmax = None
-    # h = gelu(fc1) passes between the kernel's two launches in device memory
-    hbuf = torch.empty((b, h, w, ch), dtype=dt, device=dev)
+    hbuf, (cmean, cmax, psum, pmax) = _tail_buffers(b, h, w, c, ch, dt, dev, stats)
     lib = build.library("htb_tail")
     fn = lib.htb_tail_launch
     fn.restype = ctypes.c_int

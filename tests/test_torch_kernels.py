@@ -259,3 +259,112 @@ def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
            1e-4)
     assert build.launches["fused_fusion"] == before["fused_fusion"] + 1
     assert build.launches["fusion_pools"] == before["fusion_pools"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h2,w2,cin,c1,cout", [(12, 24, 64, 64, 3), (7, 8, 8, 12, 5)])
+def test_conv3x3_shuffled_tail_packed_kernel_matches_plain_on_card(cuda_device, dtype, h2, w2,
+                                                                   cin, c1, cout):
+    """The packed output holds the unpacked kernel's bytes, and the shapes
+    whose output width is not a multiple of 16 are refused."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_shuffled_tail,
+                                                    conv3x3_shuffled_tail_packed)
+
+    rng = np.random.default_rng(8)
+    yp, k1, b1, k2, b2 = _on(cuda_device, dtype, _rand(rng, 2, h2, w2, 4 * cin, scale=1.0),
+                             _rand(rng, 3, 3, cin, c1, scale=(9 * cin) ** -0.5),
+                             _rand(rng, c1), _rand(rng, 3, 3, c1, cout, scale=(9 * c1) ** -0.5),
+                             _rand(rng, cout))
+    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail_packed(
+        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    out = _check(fn, (yp, k1, b1, k2, b2), 1e-4)
+    assert tuple(out.shape) == (2, 2 * h2, 2 * w2 // 16, 16 * cout)
+    flat = conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
+    torch.testing.assert_close(out.reshape(flat.shape), flat, atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        conv3x3_shuffled_tail_packed(yp[:, :, :w2 - 2], k1, b1, "leaky2", k2, b2)
+
+
+def _fused_args(rng, win, heads, c, ch, nh, nw, with_sca, device, dtype, b=1):
+    scc = _scc_args(rng, win, win, heads, c, 1, with_sca, device, dtype, b=b)
+    x = torch.from_numpy(_rand(rng, b, nh * win, nw * win, c)).to(device, dtype)
+    tail = _on(device, dtype, *_tail_args(rng, 1, 1, c, ch)[2:])
+    return (x,) + scc[1:] + tuple(tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("win,heads,c,ch,nh,nw,with_sca", [
+    (4, 2, 20, 40, 4, 3, True), (4, 2, 48, 96, 3, 5, True), (8, 2, 20, 40, 2, 3, True),
+    (4, 2, 20, 40, 3, 3, False), (8, 6, 180, 360, 3, 4, True)])
+def test_htb_fused_kernel_matches_plain_on_card(cuda_device, dtype, stats, win, heads, c, ch,
+                                                nh, nw, with_sca):
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+
+    args = _fused_args(np.random.default_rng(9), win, heads, c, ch, nh, nw, with_sca,
+                       cuda_device, dtype, b=2)
+    before = build.launches["htb_fused"]
+    fn = lambda *a, reference=False: htb_fused(*a, emit_stats=stats, reference=reference)
+    got = _check(fn, args, 2e-3)
+    assert build.launches["htb_fused"] == before + 1
+    if stats:
+        out, st = got
+        f32 = out.to(torch.float32)
+        own = (f32.mean(-1), f32.amax(-1), f32.sum((1, 2)), f32.amax((1, 2)))
+        for g, want in zip(st, own):
+            torch.testing.assert_close(g, want, rtol=1e-5,
+                                       atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+def test_htb_fused_takes_threaded_channel_maps_on_card(cuda_device):
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+
+    args = list(_fused_args(np.random.default_rng(10), 4, 2, 24, 48, 3, 4, True, cuda_device,
+                            torch.float32))
+    x = args[0]
+    args[1] = args[1] + (x.mean(-1) + 0.1, x.amax(-1) - 0.1)
+    _check(lambda *a, reference=False: htb_fused(*a, reference=reference), args, 2e-3)
+
+
+@pytest.mark.cuda
+def test_scc_block_kernel_over_65535_windows_on_card(cuda_device):
+    """1032 x 1040 at window 4 is 67,080 windows, past gridDim.y's 65,535."""
+    from sisr_tpu_torch.ops.kernels.scc_block import scc_block
+
+    args = list(_scc_args(np.random.default_rng(11), 4, 8, 2, 24, 1, True, cuda_device,
+                          torch.float32))
+    args[0] = torch.from_numpy(_rand(np.random.default_rng(12), 1, 1032, 1040, 24)).to(
+        cuda_device)
+    _check(scc_block, args, 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,band,fused", [((40, 32), 16, False), ((50, 22), 16, False),
+                                           ((48, 24), 16, True)])
+def test_banded_head_matches_whole_forward_on_card(cuda_device, hw, band, fused):
+    """BandedHeadSR (stacked and packed; canvas and unpacked) equals the
+    whole forward on the kernels, and stays within the parity bar of the
+    plain model."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+    from sisr_tpu_torch.parallel.tiling import BandedHeadSR
+    from sisr_tpu_torch.utils.param_synth import synth_state_dict
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    model = HiTSIR(embed_dim=24, depths=(4,), num_heads=(2,), base_win_size=(8, 8),
+                   hier_win_ratios=(0.5, 1, 2, 4), fused_htb=fused).to(cuda_device).eval()
+    manifest = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           synth_state_dict(manifest, 1).items()})
+    img = torch.from_numpy(np.random.default_rng(13).random((*hw, 3), dtype=np.float32)).to(
+        cuda_device)
+    with torch.inference_mode(), exact_mode():
+        banded = BandedHeadSR(model, band_rows=band)(img)
+        whole = model(img[None])[0]
+        plain = model(img[None], reference=True)[0]
+    assert banded.shape == whole.shape == (4 * hw[0], 4 * hw[1], 3)
+    torch.testing.assert_close(banded, whole, atol=1e-5, rtol=0)
+    assert float((banded - plain).abs().max()) < 1e-3

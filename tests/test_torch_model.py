@@ -103,8 +103,8 @@ def test_unported_settings_raise():
             with pytest.raises(NotImplementedError):
                 HiTSIR(**flagship_config(**over))
     model = _port_model(CONFIGS["a"])
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 8, 8, 3), stage="features")
+    with pytest.raises(ValueError):
+        model(torch.zeros(1, 8, 8, 3), stage="body")
 
 
 def _jax_params(cfg, shape, seed):
@@ -199,3 +199,79 @@ def test_packed_head_matches_jax():
         got = model._x4_head(torch.from_numpy(y), reference=False).numpy() + mean
     assert got.shape == ref.shape == (1, 24, 40, 3)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _loaded_pair(name, seed, **port_kw):
+    """The JAX model and its variables, and the port's model with the same
+    weights loaded strictly."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+    from sisr_tpu_torch.models.jax_port import state_dict_from_jax
+
+    jmodel, variables = _jax_params(CONFIGS[name], None, seed=seed)
+    model = HiTSIR(**CONFIGS[name], **port_kw).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           state_dict_from_jax(variables).items()}, strict=True)
+    return jmodel, variables, model
+
+
+def _parity(got, ref):
+    assert got.shape == ref.shape
+    err = np.abs(got - ref)
+    assert err.max() < 1e-3, f"max abs err {err.max():.3e}"
+    assert np.sqrt(np.mean(err ** 2)) < 5e-5, "rms err"
+
+
+@pytest.mark.parametrize("name,packed,shape", [("c", False, INPUTS["c"]), ("c", True, (1, 12, 8, 3)),
+                                               ("b", True, INPUTS["b"])])
+def test_stages_match_jax(name, packed, shape):
+    """stage='features' and stage='head' (plain and packed output) against
+    JAX's ``apply(..., stage=...)`` and ``.clone(head_packed=True)``."""
+    jmodel, variables, model = _loaded_pair(name, seed=17, head_packed=packed)
+    x = np.random.default_rng(18).random(shape, dtype=np.float32)
+    feat_ref = np.array(jmodel.apply(variables, jnp.asarray(x), stage="features"))
+    jhead = jmodel.clone(head_packed=True) if packed else jmodel
+    head_ref = np.asarray(jhead.apply(variables, jnp.asarray(feat_ref), stage="head"))
+    with torch.inference_mode():
+        feat = model(torch.from_numpy(x), stage="features").numpy()
+        head = model(torch.from_numpy(feat_ref), stage="head").numpy()
+    assert feat.shape == (*shape[:3], 64)
+    _parity(feat, feat_ref)
+    w4 = 4 * shape[2]
+    assert head.shape == ((1, 4 * shape[1], w4 // 16, 48) if packed
+                          else (1, 4 * shape[1], w4, 3))
+    _parity(head, head_ref)
+
+
+def test_fused_htb_model_matches_jax():
+    """fused_htb=True on the CPU (the degenerate-window blocks through
+    htb_fused's plain version) against the JAX forward, on a map the 4- and
+    8-windows divide and one they do not."""
+    from sisr_tpu_torch.models.hit_sir_pro import flagship_config
+
+    jmodel, variables, model = _loaded_pair("d", seed=19, fused_htb=True)
+    assert [b.fused_htb for layer in model.layers
+            for b in layer.residual_group.blocks] == [True, True] * 2
+    for shape in (INPUTS["d"], (1, 20, 28, 3)):
+        x = np.random.default_rng(20).random(shape, dtype=np.float32)
+        ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+        with torch.inference_mode():
+            got = model(torch.from_numpy(x)).numpy()
+        _parity(got, ref)
+    with torch.device("meta"):
+        from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+
+        flag = HiTSIR(**flagship_config(), fused_htb=True)
+    fused = [b.fused_htb for layer in flag.layers for b in layer.residual_group.blocks]
+    assert sum(fused) == 12 and fused[:6] == [True, True, False, False, False, False]
+
+
+def test_stage_and_fused_settings_add_no_parameters():
+    """Neither fused_htb nor head_packed adds parameters: a state dict from
+    JAX loads strictly, and the flagship still counts 10,220,014."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+
+    _loaded_pair("c", seed=21, fused_htb=True, head_packed=True)
+    with torch.device("meta"):
+        model = HiTSIR(**flagship_config(), fused_htb=True, head_packed=True)
+    assert [(k, tuple(v.shape)) for k, v in model.state_dict().items()] == _manifest()
+    assert sum(p.numel() for p in model.parameters()) == 10_220_014

@@ -300,6 +300,102 @@ def test_conv3x3_shuffled_tail_plain_matches_pallas(h2, w2, f, cout):
     _close(got, ref, 1e-5, 1e-5)
 
 
+# --- kernel 7: the same tail with its output packed 16 pixels to a row -------
+
+@pytest.mark.parametrize("h2,w2,f,cout", [(8, 16, 64, 3), (24, 64, 64, 3), (8, 40, 64, 5)])
+def test_conv3x3_shuffled_tail_packed_plain_matches_pallas(h2, w2, f, cout):
+    from sisr_tpu.ops.pallas.conv3x3 import (_conv3x3_shuffled_tail_packed_pallas,
+                                             tail_pack_group as jx_group)
+    from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_shuffled_tail_packed,
+                                                    tail_pack_group)
+
+    assert tail_pack_group() == jx_group() == 16
+    rng = np.random.default_rng(7)
+    mk = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)
+    yp, k1, b1, k2, b2 = mk(1, h2, w2, 4 * f), mk(3, 3, f, f), mk(f), mk(3, 3, f, cout), mk(cout)
+    got = conv3x3_shuffled_tail_packed(_t(yp), _t(k1), _t(b1), "leaky2", _t(k2), _t(b2))
+    ref = _conv3x3_shuffled_tail_packed_pallas(jnp.asarray(yp), jnp.asarray(k1),
+                                               jnp.asarray(b1), "leaky2", jnp.asarray(k2),
+                                               jnp.asarray(b2), interpret=True)
+    assert got.shape == ref.shape == (1, 2 * h2, 2 * w2 // 16, 16 * cout)
+    _close(got, ref, 1e-5, 1e-5)
+
+
+# --- kernel 10: the whole degenerate-window HTB -------------------------------
+
+def _htb_fused_args(win=4, heads=2, c=20, ch=40, nw=3, nh=4, b=1, with_sca=True, seed=7):
+    """test_pallas_ops.py's _htb_fused_args in numpy (the normal-form
+    params built by the JAX package)."""
+    from sisr_tpu.ops.pallas.scc_attention import blockdiag_kgen, head_mask, pooling_matrix
+
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32) * 0.3
+    d = c // (2 * heads)
+    x = mk(b, nh * win, nw * win, c)
+    sca = (mk(9, c), mk(c), mk(9, c), mk(c), mk(b, 1, 1, c), mk(b, 1, 1, c)) if with_sca else None
+    w1, w2, bb = blockdiag_kgen(*map(jnp.asarray, (mk(d, d), mk(d), mk(d, d), mk(d))), heads)
+    pmat, pb = pooling_matrix(jnp.asarray(mk(1, 1)), jnp.asarray(mk(1)), win, win, win, win,
+                              jnp.float32)
+    mask = head_mask(heads, win * win, c // 2, jnp.float32)
+    scc = (x, sca, *[np.asarray(a) for a in (w1, w2, bb, pmat, pb, mask)],
+           mk(win * win, heads * win * win), mk(c, c), mk(c), heads, (win, win))
+    ffn = (mk(c) + 1.0, mk(c), mk(c, ch), mk(ch), mk(5, 5, ch), mk(ch), mk(ch, c), mk(c),
+           mk(c) + 1.0, mk(c))
+    return scc + ffn
+
+
+def _both(args):
+    """(JAX arguments, port arguments) of a numpy argument tuple."""
+    conv = lambda f: [f(a) if isinstance(a, np.ndarray) else
+                      (tuple(map(f, a)) if isinstance(a, tuple) and a and
+                       isinstance(a[0], np.ndarray) else a) for a in args]
+    return conv(jnp.asarray), conv(_t)
+
+
+@pytest.mark.parametrize("win,heads,c,ch,with_sca,nh", [
+    (4, 2, 20, 40, True, 4), (4, 2, 48, 96, True, 3), (8, 2, 20, 40, True, 2),
+    (4, 2, 20, 40, False, 3)])
+def test_htb_fused_plain_matches_pallas(win, heads, c, ch, with_sca, nh):
+    """test_pallas_ops.py's cases and tolerance (3e-3)."""
+    from sisr_tpu.ops.pallas.htb_block import htb_fused as jx
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused, htb_fused_reference
+
+    jx_args, pt_args = _both(_htb_fused_args(win=win, heads=heads, c=c, ch=ch,
+                                             with_sca=with_sca, nh=nh))
+    ref = jx(*jx_args, interpret=True)
+    got = htb_fused(*pt_args)
+    _close(got, ref, 3e-3, 3e-3)
+    np.testing.assert_array_equal(got.numpy(), htb_fused_reference(*pt_args).numpy())
+
+
+def test_htb_fused_stats_plain_matches_pallas():
+    from sisr_tpu.ops.pallas.htb_block import htb_fused as jx
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+
+    jx_args, pt_args = _both(_htb_fused_args(win=4, heads=2, c=24, ch=48, nh=4, nw=8, b=2))
+    ref_out, ref_stats = jx(*jx_args, emit_stats=True, interpret=True)
+    out, stats = htb_fused(*pt_args, emit_stats=True)
+    _close(out, ref_out, 3e-3, 3e-3)
+    for got, ref in zip(stats, ref_stats):
+        _close(got, ref, 3e-3, 3e-3)
+
+
+def test_htb_fused_plain_takes_threaded_stats_as_pallas():
+    """sca carrying (cmean, cmax) maps at positions 6-7, shifted off x's own
+    pools so that using them shows."""
+    from sisr_tpu.ops.pallas.htb_block import htb_fused as jx
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+
+    args = list(_htb_fused_args(win=4, heads=2, c=20, ch=40, nh=4))
+    x = args[0]
+    args[1] = args[1] + (x.mean(-1) + 0.1, x.max(-1) - 0.1)
+    jx_args, pt_args = _both(tuple(args))
+    base = htb_fused(*_both(_htb_fused_args(win=4, heads=2, c=20, ch=40, nh=4))[1])
+    got = htb_fused(*pt_args)
+    _close(got, jx(*jx_args, interpret=True), 3e-3, 3e-3)
+    assert float((got - base).abs().max()) > 1e-3
+
+
 # --- kernels 8-9: the Fusion gate ---------------------------------------------
 
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 16, 640, 12), (1, 16, 576, 12)])

@@ -1,6 +1,7 @@
 """The port's TiledSR and single-image app vs the JAX package."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ torch.set_num_threads(1)
 
 
 def _pair(seed=21):
+    """The JAX model of config "a" and the port's, same weights."""
     from sisr_tpu_torch.models.jax_port import state_dict_from_jax
 
     jmodel, variables = _jax_params(CONFIGS["a"], None, seed=seed)
@@ -114,3 +116,49 @@ def test_infer_builds_the_flagship_and_loads_a_fusion_checkpoint(tmp_path):
     got = model.state_dict()
     for name in ("fusion.union_attention2.conv_last.weight", "conv_hr.bias"):
         np.testing.assert_array_equal(got[name].numpy(), sd[name])
+
+
+@pytest.mark.parametrize("hw,band,align", [
+    ((20, 16), 8, 0),     # stacked (a 4-multiple divisor of 20 near the target)
+    ((26, 12), 16, 0),    # canvas (26 has none)
+    ((16, 20), 16, 0),    # one call (h <= band + halos)
+    ((6, 12), 8, 0),
+    ((21, 13), 8, 8),     # aligned to 24 x 16 first, then cropped
+])
+def test_banded_head_matches_jax(hw, band, align):
+    """BandedHeadSR (test_tiling.py's four forms and an aligned input)
+    against JAX's, and against the port's own whole forward."""
+    from sisr_tpu.parallel.tiling import BandedHeadSR as JaxBanded
+    from sisr_tpu_torch.parallel.tiling import BandedHeadSR
+
+    jmodel, variables, model = _pair(seed=25)
+    img = np.random.default_rng(26).random((*hw, 3), dtype=np.float32)
+    ref = np.asarray(JaxBanded(jmodel, band_rows=band, align=align)(variables, jnp.asarray(img)))
+    runner = BandedHeadSR(model, band_rows=band, align=align)
+    with torch.inference_mode():
+        got = runner(torch.from_numpy(img)).numpy()
+        if not align:
+            whole = model(torch.from_numpy(img)[None])[0].numpy()
+            np.testing.assert_allclose(got, whole, atol=1e-5)
+    assert got.shape == ref.shape == (4 * hw[0], 4 * hw[1], 3)
+    err = np.abs(got - ref)
+    assert err.max() < 1e-3 and np.sqrt(np.mean(err ** 2)) < 5e-5
+
+
+def test_banded_head_plan():
+    """The forms, band sizes and starts of a 1080p frame aligned to 64 (as
+    bench.py runs it) and of chip_smoke.py's smaller requests."""
+    from sisr_tpu_torch.parallel.tiling import BandedHeadSR
+
+    runner = BandedHeadSR(_pair()[2], band_rows=120)
+    form, tbe, pos, packed = runner.plan(1088, 1920)
+    assert (form, tbe, packed) == ("stacked", 136, True)
+    assert [kb for _, kb in pos] == list(range(0, 1088, 136))
+    assert pos[0][0] == 0 and pos[-1][0] == 1088 - 140
+    assert runner.plan(120, 160)[0] == "single"
+    assert runner.plan(256, 320)[:2] == ("stacked", 128)
+    form, tbe, pos, packed = runner.plan(250, 330)
+    assert (form, tbe, packed) == ("canvas", 120, False)
+    assert [kb for _, kb in pos] == [0, 120, 130]
+    with pytest.raises(ValueError):
+        BandedHeadSR(runner.model, band_rows=10)
