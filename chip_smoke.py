@@ -7,14 +7,20 @@
 Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
            process per source, all at once) into build/kernels/;
-  kernels  each of the nine kernels against its plain PyTorch version on
-           the same inputs, first at the shapes one 192x192 tile of the
-           flagship gives it, then at the 1080p frame's: the packed tail at
-           a head band, htb_fused at window 4 and 8 on 1088x1920, and one
-           case of each earlier kernel that a tile never gives it (scc_block
-           with 130,560 windows of 4x4 and at window 48 on a padded map,
-           htb_tail_stats with a padded attn, conv3x3 180->180,
-           fused_fusion, conv3x3_shuffled at a band).  In float32 (TF32 off)
+  kernels  each of the eleven kernel functions against its plain PyTorch
+           version on the same inputs, first at the shapes one 192x192 tile
+           of the flagship gives it, then at the 1080p frame's: the packed
+           tail at a head band, htb_fused at window 4 and 8 on 1088x1920,
+           and one case of each earlier kernel that a tile never gives it
+           (scc_block with 130,560 windows of 4x4 and at window 48 on a
+           padded map, htb_tail_stats with a padded attn, conv3x3
+           180->180, fused_fusion, conv3x3_shuffled at a band); then
+           every kernel shape a training step launches (batch 2, LR
+           64x64: each conv, the x4 head, the Fusion gate, scc_block at
+           each window, 64x64 or reflect-padded to 96x96, htb_tail,
+           dwconv5x5 forward and dx through ``dwconv_vjp``), with its calls
+           a step, and dwconv5x5 at a tile's (1, 192, 192, 360).  In
+           float32 (TF32 off)
            within 2e-4 x max(1, max|plain|), and in bfloat16, where the
            kernel must stay within twice the plain bfloat16 version's
            distance from the float32 plain version (or 4 bf16 ulps of the
@@ -22,8 +28,9 @@ Phases:
            and float32, the plain version's, the bound (bfloat16 bytes at
            3.35 TB/s, or operations at 989 TFLOP/s on the tensor cores and
            67 TFLOP/s for float32 work on the FP32 pipes, whichever is
-           larger) and, where one PyTorch call computes the same function,
-           that call's time;
+           larger; for the training step's cases float32 bytes, and every
+           operation on the FP32 pipes) and, where one PyTorch call
+           computes the same function, that call's time;
   serve    the serving entry point (TiledSR over HiTSIR, the full flagship
            with its Fusion gate, synthesized weights) on three requests, bfloat16
            then float32, with every launch counter checked per tile; then
@@ -36,6 +43,15 @@ Phases:
            peak device memory; then 120x160, 256x320 and 250x330 with
            align 0 (one call; stacked with the packed tail; canvas with the
            unpacked tail); every launch counter checked per request;
+  train    training steps of the full flagship in float32 through
+           ``train_state.make_train_step`` (L1 loss, Adam 2e-5, betas (0.9,
+           0.99)) on seeded batches, LR (2, 64, 64, 3) -> HR (2, 256, 256,
+           3): 2 warm-up steps, then 5 timed (median and min ms, LR MP/s,
+           peak device memory, every launch counter checked per step); one
+           more step split into forward, backward and optimizer by CUDA
+           events and one under torch.profiler (device busy time, idle
+           share); the same 2 + 5 steps on the plain path
+           (``reference=True``) as a yardstick;
   profile  one bfloat16 and one float32 tile, and a bfloat16 1080p frame
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
@@ -47,10 +63,20 @@ Phases:
            weights amplify any rounding), within 3 dB of it.  Then
            BandedHeadSR on 256x320 and 250x330: float32 within 1e-5 of the
            whole forward and 1e-3 of the plain model, bfloat16 at the same
-           PSNR bar, fused_htb within 1e-4 of the unfused model.
+           PSNR bar, fused_htb within 1e-4 of the unfused model.  Then the
+           training step (float32, TF32 off) from the same weights and
+           two batches on the kernel and the plain path: the L1 losses within
+           1e-5 relative, every parameter's gradient finite and within a
+           relative norm error of max(1e-3, 3x the plain path's own move
+           when the input or every weight moves by one float32 ulp, or the
+           input by 1e-6 relative); as its control, the same step with a
+           fault planted in dwconv5x5's backward (dx from the unflipped
+           filter; dx 2^-8 relative too large) must fail that bar; and the
+           losses of 5 Adam steps within 1e-4 relative.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-as the last line when every phase passed,
+Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
+...}`` and ``{"kernels": [...]}`` lines and, as the last line when every
+phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result line, when there is no CUDA card or any
 check fails.
@@ -59,6 +85,7 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -69,6 +96,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_BF16_FLOPS = 989e12                       # H100 SXM, dense
 PEAK_F32_FLOPS = 67e12                         # H100 SXM, FP32 outside the tensor cores
+SPIN_CYCLES_PER_S = 1.98e9                     # H100 SXM boost clock, for torch.cuda._sleep
 TILE = 192
 REQUESTS = ((192, 192), (256, 320), (480, 640))   # 1, 4 and 12 tiles
 # the whole-image path as bench.py runs it: an LR 1080x1920 frame, align
@@ -95,7 +123,21 @@ SOURCES = {
     "conv3x3_shuffled_tail_packed": ("sisr_tpu_torch/csrc/shuffled_tail.cu",
                                      "sisr_tpu/ops/pallas/conv3x3.py:705"),
     "htb_fused": ("sisr_tpu_torch/csrc/htb_fused.cu", "sisr_tpu/ops/pallas/htb_block.py:217"),
+    "dwconv5x5": ("sisr_tpu_torch/csrc/dwconv.cu", "sisr_tpu/ops/pallas/dwconv.py:74"),
 }
+# the training step: the flagship in float32 at the reference's crop (LR 64,
+# x4) and the command line's batch 2; launches of each kernel per step (the
+# forward runs 36 blocks of scc_block + htb_tail, no stats tail; the tails'
+# backward runs dwconv5x5 twice each: its recomputed forward and dx)
+TRAIN_BATCH, TRAIN_LR = 2, 64
+TRAIN_WARM, TRAIN_STEPS = 2, 5
+PER_STEP = {"conv3x3": 9, "conv3x3_shuffled": 1, "conv3x3_shuffled_tail": 1,
+            "conv3x3_shuffled_tail_packed": 0, "fusion_pools": 1, "fused_fusion": 1,
+            "scc_block": 36, "htb_tail": 36, "htb_tail_stats": 0, "htb_fused": 0,
+            "dwconv5x5": 72}
+# declared and checkpointed by the reference but never read (reference
+# models/hit_sir_pro.py:62): their gradient stays None on both paths
+UNUSED_PARAMS = ("conv_first.norm.weight", "conv_first.norm.bias")
 
 
 def log(msg: str) -> None:
@@ -103,7 +145,11 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, target_s: float = 0.25, max_iters: int = 50, min_iters: int = 3) -> float:
-    """Mean device ms of ``fn`` over a warmed run of launches (CUDA events)."""
+    """Mean device ms of ``fn`` over a warmed run of launches (CUDA events).
+    The device first spins for as long as one call took on the host clock
+    times the calls (at most 0.1 s), so that the host queues the calls
+    ahead of the device and a call shorter than its launch overhead is
+    timed on the device, not at the host's launch rate."""
     import torch
 
     fn()
@@ -115,6 +161,7 @@ def time_ms(fn, target_s: float = 0.25, max_iters: int = 50, min_iters: int = 3)
     n = max(min_iters, min(max_iters, int(target_s / max(est, 1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(n * est, 0.1) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(n):
         fn()
@@ -165,9 +212,14 @@ class Case:
         self.library, self.flops32, self.scope = library, flops32, scope
 
     def t_ops(self) -> float:
-        """Least ms for the operations: each type at its peak, the two pipes
-        side by side."""
+        """Least ms for the bfloat16 run's operations: each type at its
+        peak, the two pipes side by side."""
         return max(self.flops / PEAK_BF16_FLOPS, self.flops32 / PEAK_F32_FLOPS) * 1e3
+
+    def t_ops32(self) -> float:
+        """Least ms for the float32 run's operations, all on the FP32 pipes
+        (the float32 kernels do not use TF32)."""
+        return (self.flops + self.flops32) / PEAK_F32_FLOPS * 1e3
 
 
 def _gen(seed):
@@ -177,8 +229,13 @@ def _gen(seed):
     return lambda *s: torch.randn(*s, generator=g, device="cuda")
 
 
-def conv_cases(shapes, scope="tile"):
-    """shapes: (h, w, cin, cout, act, res, calls)."""
+def _bx(b):
+    """A label's batch prefix: "" for one image, "2x" for two."""
+    return f"{b}x" if b > 1 else ""
+
+
+def conv_cases(shapes, scope="tile", b=1):
+    """shapes: (h, w, cin, cout, act, res, calls); ``b`` images."""
     import torch.nn.functional as F
     from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3
 
@@ -186,7 +243,7 @@ def conv_cases(shapes, scope="tile"):
     for h, w, cin, cout, act, res, n in shapes:
         def make(dt, h=h, w=w, cin=cin, cout=cout, res=res):
             rn = _gen(h * 7 + cin + cout)
-            ins = [rn(1, h, w, cin), rn(1, h, w, cout) if res else None,
+            ins = [rn(b, h, w, cin), rn(b, h, w, cout) if res else None,
                    rn(3, 3, cin, cout) / math.sqrt(9 * cin), rn(cout) * 0.1]
             return [None if t is None else t.to(dt) for t in ins]
 
@@ -199,17 +256,18 @@ def conv_cases(shapes, scope="tile"):
             return F.conv2d(y.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), b, padding=1)
 
         def nbytes(es, h=h, w=w, cin=cin, cout=cout, res=res):
-            return es * (h * w * cin + 9 * cin * cout + cout
-                         + h * w * cout * (2 if res else 1))
+            return es * (b * h * w * cin + 9 * cin * cout + cout
+                         + b * h * w * cout * (2 if res else 1))
 
-        cases.append(Case("conv3x3", f"{h}x{w} {cin}->{cout} {act}{' +res' if res else ''}",
-                          n, make, call, nbytes, 2.0 * h * w * 9 * cin * cout, library,
+        cases.append(Case("conv3x3",
+                          f"{_bx(b)}{h}x{w} {cin}->{cout} {act}{' +res' if res else ''}",
+                          n, make, call, nbytes, 2.0 * b * h * w * 9 * cin * cout, library,
                           scope=scope))
     return cases
 
 
-def shuffled_case(h2, w2, count, scope="tile"):
-    """conv_up2 of the packed x4 head: yp (1, h2, w2, 256) -> (1, 2h2, 2w2,
+def shuffled_case(h2, w2, count, scope="tile", b=1):
+    """conv_up2 of the packed x4 head: yp (b, h2, w2, 256) -> (b, 2h2, 2w2,
     256); no single PyTorch call computes it."""
     from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled
 
@@ -217,18 +275,18 @@ def shuffled_case(h2, w2, count, scope="tile"):
 
     def make(dt):
         rn = _gen(11)
-        ins = [rn(1, h2, w2, 4 * f), rn(3, 3, f, 4 * f) / math.sqrt(9 * f), rn(4 * f) * 0.1]
+        ins = [rn(b, h2, w2, 4 * f), rn(3, 3, f, 4 * f) / math.sqrt(9 * f), rn(4 * f) * 0.1]
         return [t.to(dt) for t in ins]
 
     return Case("conv3x3_shuffled",
-                f"yp {h2}x{w2}x256 -> {2 * h2}x{2 * w2} 64->256 leaky2", count, make,
+                f"yp {_bx(b)}{h2}x{w2}x256 -> {2 * h2}x{2 * w2} 64->256 leaky2", count, make,
                 lambda ins, reference: conv3x3_shuffled(*ins, "leaky2", reference=reference),
-                lambda es: es * (h2 * w2 * 4 * f + 9 * f * 4 * f + 4 * f + 4 * h2 * w2 * 4 * f),
-                2.0 * 4 * h2 * w2 * 9 * f * 4 * f, scope=scope)
+                lambda es: es * (5 * b * h2 * w2 * 4 * f + 9 * f * 4 * f + 4 * f),
+                2.0 * 4 * b * h2 * w2 * 9 * f * 4 * f, scope=scope)
 
 
-def tail_case(h2, w2, count, packed=False, scope="tile"):
-    """conv_hr + conv_last of the packed x4 head over yp (1, h2, w2, 256),
+def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
+    """conv_hr + conv_last of the packed x4 head over yp (b, h2, w2, 256),
     plain or with the output packed 16 pixels to a row; no single PyTorch
     call computes it."""
     from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_shuffled_tail,
@@ -240,22 +298,22 @@ def tail_case(h2, w2, count, packed=False, scope="tile"):
 
     def make(dt):
         rn = _gen(12)
-        ins = [rn(1, h2, w2, 4 * f), rn(3, 3, f, f) / math.sqrt(9 * f), rn(f) * 0.1,
+        ins = [rn(b, h2, w2, 4 * f), rn(3, 3, f, f) / math.sqrt(9 * f), rn(f) * 0.1,
                rn(3, 3, f, 3) / math.sqrt(9 * f), rn(3) * 0.1]
         return [t.to(dt) for t in ins]
 
     out = f"{hout}x{wout // 16}x48" if packed else f"{hout}x{wout}x3"
     return Case("conv3x3_shuffled_tail_packed" if packed else "conv3x3_shuffled_tail",
-                f"yp {h2}x{w2}x256 -> {out} 64->64->3", count, make,
+                f"yp {_bx(b)}{h2}x{w2}x256 -> {out} 64->64->3", count, make,
                 lambda ins, reference: fn(ins[0], ins[1], ins[2], "leaky2", ins[3], ins[4],
                                           reference=reference),
-                lambda es: es * (h2 * w2 * 4 * f + 9 * f * f + f + 9 * f * 3 + 3
-                                 + hout * wout * 3),
-                2.0 * hout * wout * 9 * f * (f + 3), scope=scope)
+                lambda es: es * (b * h2 * w2 * 4 * f + 9 * f * f + f + 9 * f * 3 + 3
+                                 + b * hout * wout * 3),
+                2.0 * b * hout * wout * 9 * f * (f + 3), scope=scope)
 
 
-def fusion_cases(h, w, pools=True, scope="tile"):
-    """The Fusion gate (a, b 1 x h x w x 180): the pools alone, and the
+def fusion_cases(h, w, pools=True, scope="tile", nb=1):
+    """The Fusion gate (a, b nb x h x w x 180): the pools alone, and the
     whole gate (pools, maps, gate) with its packed weights made once, as
     the model keeps them.  Operations, per UA k of three:
 
@@ -275,7 +333,7 @@ def fusion_cases(h, w, pools=True, scope="tile"):
 
     def make_ab(dt):
         rn = _gen(21)
-        return [rn(1, h, w, c).to(dt) for _ in range(2)]
+        return [rn(nb, h, w, c).to(dt) for _ in range(2)]
 
     def make_fused(dt):
         rn = _gen(22)
@@ -285,18 +343,19 @@ def fusion_cases(h, w, pools=True, scope="tile"):
         a, b = make_ab(dt)
         return [a, b, raws, pack_params(raws, c, dt)]
 
-    pool_bytes = lambda es: es * (2 * h * w * c + 6 * h * w + 6 * h * c) + 4 * 6 * w * c
-    pool_ops = 19.0 * h * w * c
-    map_ops = 2.0 * 27 * (h + w) * c * c + 2.0 * 18 * 3 * (h * w + (h + w) * c)
-    fused = Case("fused_fusion", f"a, b {h}x{w}x{c}, pools + maps + gate", 1, make_fused,
+    pool_bytes = lambda es: nb * (es * (2 * h * w * c + 6 * h * w + 6 * h * c) + 4 * 6 * w * c)
+    pool_ops = 19.0 * nb * h * w * c
+    map_ops = nb * (2.0 * 27 * (h + w) * c * c + 2.0 * 18 * 3 * (h * w + (h + w) * c))
+    fused = Case("fused_fusion", f"a, b {_bx(nb)}{h}x{w}x{c}, pools + maps + gate", 1,
+                 make_fused,
                  lambda ins, reference: fused_fusion(ins[0], ins[1], ins[2], ins[3], reference),
-                 lambda es: (es * (3 * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
+                 lambda es: (es * (3 * nb * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
                              + 4 * (3 * 3 * 18 + 9 + 3 * c)),
-                 2.0 * 9 * 3 * h * w * c, flops32=pool_ops + map_ops + 20.0 * h * w * c,
+                 2.0 * 9 * 3 * nb * h * w * c, flops32=pool_ops + map_ops + 20.0 * nb * h * w * c,
                  scope=scope)
     if not pools:
         return [fused]
-    return [Case("fusion_pools", f"a, b {h}x{w}x{c}", 1, make_ab,
+    return [Case("fusion_pools", f"a, b {_bx(nb)}{h}x{w}x{c}", 1, make_ab,
                  lambda ins, reference: fusion_pools(*ins, reference=reference), pool_bytes,
                  0.0, flops32=pool_ops, scope=scope), fused]
 
@@ -308,9 +367,9 @@ def _tail_inputs(rn, c, ch):
             1 + 0.05 * rn(c), 0.01 * rn(c)]
 
 
-def htb_cases(h, w, variants, pad=0, scope="tile"):
-    """variants: (stats, calls); attn is ``pad`` rows taller than the
-    shortcut (a window-padded SCC output)."""
+def htb_cases(h, w, variants, pad=(0, 0), scope="tile", b=1):
+    """variants: (stats, calls); attn is ``pad`` (rows, columns) larger
+    than the shortcut (a window-padded SCC output); ``b`` images."""
     from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats
 
     c, ch = 180, 360
@@ -318,7 +377,7 @@ def htb_cases(h, w, variants, pad=0, scope="tile"):
     for stats, n in variants:
         def make(dt):
             rn = _gen(5)
-            ins = [rn(1, h + pad, w, c), rn(1, h, w, c)] + _tail_inputs(rn, c, ch)
+            ins = [rn(b, h + pad[0], w + pad[1], c), rn(b, h, w, c)] + _tail_inputs(rn, c, ch)
             return [t.to(dt) for t in ins]
 
         fn = htb_tail_stats if stats else htb_tail
@@ -328,17 +387,18 @@ def htb_cases(h, w, variants, pad=0, scope="tile"):
 
         def nbytes(es, stats=stats):
             weights = 2 * c * ch + 25 * ch + 2 * ch + 6 * c
-            stat = 4 * (2 * h * w + 2 * c) if stats else 0
-            return es * (3 * h * w * c + weights) + stat
+            stat = 4 * b * (2 * h * w + 2 * c) if stats else 0
+            return es * (3 * b * h * w * c + weights) + stat
 
-        flops = 2.0 * h * w * (2 * c * ch + 25 * ch)
-        label = f"{h}x{w} C={c} Ch={ch}{' +stats' if stats else ''}"
-        cases.append(Case("htb_tail", label + (f", attn {h + pad}x{w}" if pad else ""),
+        flops = 2.0 * b * h * w * (2 * c * ch + 25 * ch)
+        label = f"{_bx(b)}{h}x{w} C={c} Ch={ch}{' +stats' if stats else ''}"
+        cases.append(Case("htb_tail", label + (f", attn {h + pad[0]}x{w + pad[1]}"
+                                               if any(pad) else ""),
                           n, make, call, nbytes, flops, scope=scope))
     return cases
 
 
-def _scc_inputs(rn, dt, h, w, win, base=8, c=180, heads=6):
+def _scc_inputs(rn, dt, h, w, win, base=8, c=180, heads=6, b=1):
     """x and the SCC arguments of one block (as the model derives them)."""
     import torch
     from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
@@ -347,9 +407,9 @@ def _scc_inputs(rn, dt, h, w, win, base=8, c=180, heads=6):
     half, d = c // 2, c // (2 * heads)
     bh = min(win, base)
     lb, big_l, rh = bh * bh, win * win, win // bh
-    x = rn(1, h, w, c)
+    x = rn(b, h, w, c)
     sca = (rn(9, c) / 3.0, 0.01 * rn(c), rn(9, c) / 3.0, 0.01 * rn(c),
-           0.3 * rn(1, 1, 1, c), 0.3 * rn(1, 1, 1, c))
+           0.3 * rn(b, 1, 1, c), 0.3 * rn(b, 1, 1, c))
     w1, w2, bb = blockdiag_kgen(rn(d, d) / math.sqrt(d), 0.01 * rn(d),
                                 rn(d, d) / math.sqrt(d), 0.01 * rn(d), heads)
     pmat, pb = pooling_matrix(rn(rh * rh, 1) / rh, 0.01 * rn(1), win, win, bh, bh,
@@ -373,8 +433,8 @@ def _scc_work(h, w, win, base=8, c=180, heads=6):
     return nbytes, 2.0 * h * w * per_token + 2.0 * (h * w // big_l) * lb * half * d
 
 
-def scc_cases(shapes, scope="tile"):
-    """shapes: (h, w, window, calls)."""
+def scc_cases(shapes, scope="tile", b=1):
+    """shapes: (h, w, window, calls); ``b`` images."""
     from sisr_tpu_torch.ops.kernels.scc_block import scc_block
 
     heads = 6
@@ -383,14 +443,66 @@ def scc_cases(shapes, scope="tile"):
         lb, big_l = min(win, 8) ** 2, win * win
 
         def make(dt, h=h, w=w, win=win):
-            return _scc_inputs(_gen(win), dt, h, w, win)
+            return _scc_inputs(_gen(win), dt, h, w, win, b=b)
 
         def call(ins, reference, win=win):
             return scc_block(*ins, heads, (win, win), reference=reference)
 
-        nb, flops = _scc_work(h, w, win)
-        cases.append(Case("scc_block", f"{h}x{w} window {win} (L={big_l}, l_base={lb})",
+        nb, flops = _scc_work(b * h, w, win)
+        cases.append(Case("scc_block", f"{_bx(b)}{h}x{w} window {win} "
+                          f"(L={big_l}, l_base={lb})",
                           n, make, call, lambda es, nb=nb: es * nb, flops, scope=scope))
+    return cases
+
+
+def dwconv_cases(shapes, scope):
+    """The 5x5 depthwise conv, shapes (b, h, w, c, calls per step of each):
+    the forward, and dx as the backward computes it (``dwconv_vjp``: the
+    kernel on dy with the filter flipped in both spatial axes and a zero
+    bias), held against plain autograd's dx of the plain version.  Work:
+    one element in and one out, 25 FMAs on the FP32 pipes per output
+    element.  The library calls: the grouped ``F.conv2d`` on the permuted
+    tensor (what the plain version calls), and for dx
+    ``F.conv_transpose2d`` of dy with the same filter."""
+    import torch
+    import torch.nn.functional as F
+    from sisr_tpu_torch.ops.kernels.dwconv import (_kernel, depthwise_conv_reference,
+                                                   dwconv5x5, dwconv_vjp)
+
+    def plain_dx(x, w, b, dy):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            return torch.autograd.grad(depthwise_conv_reference(xg, w, b), xg, dy)[0]
+
+    def call_dx(ins, reference):
+        if reference:
+            return plain_dx(*ins)
+        return dwconv_vjp(_kernel, ins[:3], (True, False, False), (ins[3],))[0]
+
+    cases = []
+    for b, h, w, c, n in shapes:
+        def make(dt, b=b, h=h, w=w, c=c, dx=False):
+            rn = _gen(40 + h)
+            ins = [rn(b, h, w, c), rn(5, 5, c) / 5.0, 0.01 * rn(c)]
+            if dx:
+                ins.append(rn(b, h, w, c))
+            return [t.to(dt) for t in ins]
+
+        def library(ins, c=c):
+            x, wt, bias = ins[:3]
+            wt = wt.permute(2, 0, 1).unsqueeze(1)
+            if len(ins) == 4:
+                return F.conv_transpose2d(ins[3].permute(0, 3, 1, 2), wt, padding=2, groups=c)
+            return F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=2, groups=c)
+
+        nbytes = lambda es, b=b, h=h, w=w, c=c: es * (2 * b * h * w * c + 26 * c)
+        ops = 2.0 * 25 * b * h * w * c
+        cases.append(Case("dwconv5x5", f"{b}x{h}x{w}x{c} forward", n, make,
+                          lambda ins, reference: dwconv5x5(*ins, reference=reference),
+                          nbytes, 0.0, library, flops32=ops, scope=scope))
+        cases.append(Case("dwconv5x5", f"{b}x{h}x{w}x{c} dx (dwconv_vjp)", n,
+                          lambda dt, make=make: make(dt, dx=True), call_dx,
+                          nbytes, 0.0, library, flops32=ops, scope=scope))
     return cases
 
 
@@ -462,23 +574,52 @@ def frame_cases():
     return ([tail_case(2 * rows, 2 * w, 8, packed=True, scope="frame")]
             + htb_fused_cases(h, w, ((4, False, 6), (8, True, 6)))
             + scc_cases([(h, w, 4, 0), (up48(h), up48(w), 48, 0)], scope="frame")
-            + htb_cases(h, w, ((True, 0),), pad=up48(h) - h, scope="frame")
+            + htb_cases(h, w, ((True, 0),), pad=(up48(h) - h, 0), scope="frame")
             + conv_cases([(h, w, 180, 180, "none", True, 0)], scope="frame")
             + fusion_cases(h, w, pools=False, scope="frame")
             + [shuffled_case(rows, w, 0, scope="frame")])
 
 
+STEP_WINDOWS = (4, 8, 16, 32, 48, 64)   # each RHTB's six blocks
+
+
+def step_cases():
+    """Every kernel shape a training step (batch 2, LR 64x64, float32)
+    launches, with its calls a step (they sum to ``PER_STEP``): the body's
+    convs and the x4 head at batch 2, the Fusion gate, scc_block at each
+    window (the window-48 block reflect-pads 64x64 to 96x96, the others
+    pad none), htb_tail (the window-48 blocks' attn 96x96), dwconv5x5's
+    forward and dx; and dwconv5x5 at a tile's (1, 192, 192, 360) (calls
+    0)."""
+    n, b = TRAIN_LR, TRAIN_BATCH
+    pad = lambda win: -(-n // win) * win
+    return (conv_cases([(n, n) + c for c in TILE_CONVS], scope="step", b=b)
+            + [shuffled_case(n, n, 1, scope="step", b=b),
+               tail_case(2 * n, 2 * n, 1, scope="step", b=b)]
+            + fusion_cases(n, n, scope="step", nb=b)
+            + scc_cases([(pad(win), pad(win), win, 6) for win in STEP_WINDOWS],
+                        scope="step", b=b)
+            + htb_cases(n, n, ((False, 30),), scope="step", b=b)
+            + htb_cases(n, n, ((False, 6),), pad=(pad(48) - n, pad(48) - n), scope="step",
+                        b=b)
+            + dwconv_cases([(b, n, n, 360, 36), (1, TILE, TILE, 360, 0)], scope="step"))
+
+
 def run_kernels(failures: list) -> tuple:
     """Hold every kernel against its plain version; time both.  Returns
-    (rows, extra): rows[(kernel, scope)] sums a kernel's cases over a tile
-    or a frame, weighted by their calls; extra[kernel] lists its frame
-    cases of no calls (shapes the tile never gives it)."""
+    (rows, extra): rows[(kernel, scope)] sums a kernel's cases over a tile,
+    a frame or a training step, weighted by their calls; extra[kernel]
+    lists its cases of no calls (shapes its path's unit never gives it)."""
     import torch
     from sisr_tpu_torch.utils.precision import exact_mode
 
     f32, b16 = torch.float32, torch.bfloat16
     rows, extra = {}, {}
-    for case in tile_cases() + frame_cases():
+    steps = step_cases()
+    per_step = {k: sum(c.count for c in steps if c.kernel == k) for k in PER_STEP}
+    if per_step != PER_STEP:
+        failures.append(f"the step's cases make {per_step} calls, a step launches {PER_STEP}")
+    for case in tile_cases() + frame_cases() + steps:
         # a frame case runs for seconds: time it over one call after the warm-up
         few = dict(min_iters=1) if case.scope == "frame" else {}
         try:
@@ -514,38 +655,42 @@ def run_kernels(failures: list) -> tuple:
             with exact_mode():
                 ms32 = time_ms(lambda: case.call(ins32, False), **few)
                 plain32 = time_ms(lambda: case.call(ins32, True), max_iters=10, **few)
+                lib32 = time_ms(lambda: case.library(ins32), **few) if case.library else None
             del ins32
             torch.cuda.empty_cache()
             t_bytes = case.nbytes(2) / HBM_BYTES_PER_S * 1e3
             t_ops = case.t_ops()
+            t_bytes32, t_ops32 = case.nbytes(4) / HBM_BYTES_PER_S * 1e3, case.t_ops32()
             log(f"  {case.kernel:21s} {case.label:44s} f32 err {err32:.3e} "
                 f"{'ok' if ok32 else 'FAIL'} | bf16 err vs plain {err16:.3e}, vs f32 "
                 f"{err16_k:.3e} (plain bf16 vs f32 {err16_p:.3e}) {'ok' if ok16 else 'FAIL'} "
                 f"| bf16 ms {ms:.4f} plain {plain_ms:.4f} "
                 f"lib {'-' if lib_ms is None else f'{lib_ms:.4f}'} | f32 ms {ms32:.4f} "
-                f"plain {plain32:.4f} | bound {max(t_bytes, t_ops):.4f} "
-                f"({'bytes' if t_bytes >= t_ops else 'operations'}) x{case.count}/{case.scope} "
+                f"plain {plain32:.4f} lib {'-' if lib32 is None else f'{lib32:.4f}'} "
+                f"| bound bf16 {max(t_bytes, t_ops):.4f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}) f32 "
+                f"{max(t_bytes32, t_ops32):.4f} x{case.count}/{case.scope} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"kernel {case.kernel} {case.label} disagrees with its plain version")
             if case.count == 0:
                 extra.setdefault(case.kernel, []).append(dict(
-                    shape=case.label, max_abs_err=err32, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, ms_f32=ms32, plain_ms_f32=plain32,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations"))
+                    shape=case.label, scope=case.scope, max_abs_err=err32, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, ms_f32=ms32, plain_ms_f32=plain32,
+                    library_ms_f32=lib32, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_ms_f32=max(t_bytes32, t_ops32)))
                 continue
             row = rows.setdefault((case.kernel, case.scope), dict(
-                err=0.0, ms=0.0, plain=0.0, lib=0.0, ms32=0.0, plain32=0.0,
-                has_lib=case.library is not None, t_bytes=0.0, t_ops=0.0))
+                err=0.0, ms=0.0, plain=0.0, lib=0.0, ms32=0.0, plain32=0.0, lib32=0.0,
+                has_lib=case.library is not None, t_bytes=0.0, t_ops=0.0, t_bytes32=0.0,
+                t_ops32=0.0))
             row["err"] = max(row["err"], err32)
-            row["ms"] += case.count * ms
-            row["plain"] += case.count * plain_ms
-            row["lib"] += case.count * (lib_ms or 0.0)
-            row["ms32"] += case.count * ms32
-            row["plain32"] += case.count * plain32
-            row["t_bytes"] += case.count * t_bytes
-            row["t_ops"] += case.count * t_ops
+            for key, value in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms or 0.0),
+                               ("ms32", ms32), ("plain32", plain32), ("lib32", lib32 or 0.0),
+                               ("t_bytes", t_bytes), ("t_ops", t_ops),
+                               ("t_bytes32", t_bytes32), ("t_ops32", t_ops32)):
+                row[key] += case.count * value
         except Exception:  # record, keep checking the other kernels
             failures.append(f"kernel {case.kernel} {case.label}: {traceback.format_exc()}")
             log(f"  {case.kernel} {case.label} FAILED\n{traceback.format_exc()}")
@@ -631,27 +776,31 @@ def run_cli(failures: list) -> None:
 PREFIXES = {"conv3x3": "::conv3x3_", "conv3x3_shuffled": "::shuffled_conv_",
             "conv3x3_shuffled_tail(_packed)": "::tail_", "htb_tail": "::htb_tail_",
             "scc_block": "::scc_", "fusion_pools": "::pools_", "fusion maps+gate": "::fusion_",
-            "htb_fused": "::htb_fused_"}
+            "htb_fused": "::htb_fused_", "dwconv5x5": "::dwconv_"}
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, warm: bool = True) -> dict:
     """Where the time of one ``fn()`` goes: device time by kernel name
-    (torch.profiler), device busy time against the call's wall time."""
+    (torch.profiler), device busy time against the call's wall time;
+    after one unprofiled call unless ``warm`` is False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's own row repeats its kernels' time
+    # device-side events only: a CPU op's own row repeats its kernels' time,
+    # and so does a user annotation's (the optimizer's step) on the device
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     ours = {name: sum(ms for ms, _, key in rows if pre in key) for name, pre in PREFIXES.items()}
@@ -883,18 +1032,347 @@ def run_whole_check(served: dict, failures: list) -> None:
         failures.append("whole-image check against the whole forward and the plain model")
 
 
-# what each path must launch: serving the tiles, and the whole-image path
+def train_model():
+    """The flagship in float32 on the card, weights from
+    ``utils/param_synth.py`` with seed 0."""
+    from sisr_tpu_torch import infer
+
+    model = infer.create_model("float32", "cuda")
+    infer.synth_weights(model, seed=0)
+    return model
+
+
+def train_batches(n: int, seed: int) -> list:
+    """n seeded (LR, HR) batches: (2, 64, 64, 3) and (2, 256, 256, 3) in
+    [0, 1] (the reference's crop 64 x4 at the command line's batch 2; the
+    repo has no dataset)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (TRAIN_BATCH, TRAIN_LR, TRAIN_LR, 3)
+    hr = (TRAIN_BATCH, 4 * TRAIN_LR, 4 * TRAIN_LR, 3)
+    return [(torch.rand(shape, generator=g, device="cuda"),
+             torch.rand(hr, generator=g, device="cuda")) for _ in range(n)]
+
+
+def adam(model):
+    """``hitsir_pro_experiment``'s optimizer: Adam 2e-5, betas (0.9, 0.99)."""
+    from sisr_tpu_torch.configs.model_config import get_optimizer
+
+    return get_optimizer("Adam", model.parameters(), 2e-5,
+                         {"weight_decay": 0, "betas": [0.9, 0.99]})
+
+
+def run_train(failures: list) -> dict:
+    """Training steps of the flagship through ``make_train_step``: 2 warm,
+    5 timed with every launch counter checked per step, on the kernel path
+    then the plain path; one profiled kernel-path step split by CUDA events
+    into forward, backward and optimizer.  Returns the kernel path's
+    launches over its timed steps."""
+    import statistics
+
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_train_step
+
+    summary, counts = {}, None
+    mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
+    for label, reference in (("kernels", False), ("plain", True)):
+        model = train_model()
+        opt = adam(model)
+        step = make_train_step(model, l1_loss, opt, reference=reference)
+        batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
+        for lr_img, hr_img in batches[:TRAIN_WARM]:
+            step(lr_img, hr_img)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        ms, losses = [], []
+        want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
+        for lr_img, hr_img in batches[TRAIN_WARM:]:
+            before = dict(build.launches)
+            t0 = time.perf_counter()
+            loss = step(lr_img, hr_img)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want or not math.isfinite(losses[-1]):
+                failures.append(f"train {label}: loss {losses[-1]}, launches {got}, want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(ms)
+        summary[label] = dict(median_ms=med, min_ms=min(ms), runs_ms=ms,
+                              lr_mp_per_s=mp / (med / 1e3), peak_gib=peak, losses=losses)
+        log(f"  {label:7s} {TRAIN_STEPS} steps (batch {TRAIN_BATCH}, LR {TRAIN_LR}x{TRAIN_LR} "
+            f"-> HR {4 * TRAIN_LR}x{4 * TRAIN_LR}, float32): median {med:.1f} ms, min "
+            f"{min(ms):.1f} ms, {summary[label]['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} "
+            f"GiB, L1 losses {', '.join(f'{v:.5f}' for v in losses)}")
+        if not reference:
+            counts = dict(build.launches)
+            log(f"  launches per step: { {k: v // TRAIN_STEPS for k, v in counts.items()} } "
+                f"(want {PER_STEP})")
+            summary[label]["launches_per_step"] = {k: v // TRAIN_STEPS for k, v in counts.items()}
+            split = summary[label]["split"] = profile_step(model, opt, *batches[-1])
+            # the profiler slows the host: the busy time against the unprofiled median
+            split["idle_share_of_median"] = 1 - split["busy_ms"] / med
+            log(f"  device busy {split['busy_ms']:.1f} ms against the {med:.1f} ms median "
+                f"step: {100 * split['idle_share_of_median']:.1f}% idle")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    summary["plain_over_kernels"] = summary["plain"]["median_ms"] / summary["kernels"]["median_ms"]
+    log(f"  plain path / kernel path step time: {summary['plain_over_kernels']:.2f}x")
+    log(json.dumps({"train": summary}))
+    return counts
+
+
+def profile_step(model, opt, lr_img, hr_img) -> dict:
+    """Two more kernel-path steps: one with CUDA events between its forward
+    (with the loss), backward and optimizer update, one under
+    torch.profiler (which slows the host) for the device busy time."""
+    import torch
+    from sisr_tpu_torch.train.losses import l1_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def one():
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = l1_loss(model(lr_img, deterministic=False), hr_img)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+
+    one()
+    torch.cuda.synchronize()
+    split = dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                 optimizer_ms=ev[2].elapsed_time(ev[3]))
+    log(f"  one more step: forward {split['forward_ms']:.1f} ms, backward "
+        f"{split['backward_ms']:.1f} ms, optimizer {split['optimizer_ms']:.1f} ms (CUDA events)")
+    log("[profile] one float32 training step")
+    prof = profile_call(one, warm=False)
+    split.update(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                 idle_share=1 - prof["busy_ms"] / prof["wall_ms"], kernels_ms=prof["kernels_ms"])
+    return split
+
+
+def step_grads(model, lr_img, hr_img, reference: bool):
+    """The L1 loss of one training forward and every parameter's gradient
+    (None where the forward does not read it)."""
+    from sisr_tpu_torch.train.losses import l1_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = l1_loss(model(lr_img, reference=reference, deterministic=False), hr_img)
+    loss.backward()
+    return float(loss.detach()), {k: None if p.grad is None else p.grad.clone()
+                                  for k, p in model.named_parameters()}
+
+
+def _ulp_move(t, seed: int):
+    """``t`` with every element one float32 ulp up or down at random."""
+    import torch
+
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    up = torch.rand(t.shape, generator=g, device=t.device) < 0.5
+    return torch.nextafter(t, torch.where(up, torch.inf, -torch.inf))
+
+
+def probe_grads(plain_model, lr_img, hr_img) -> list:
+    """The plain path's gradients after moves at float32's rounding level:
+    the LR batch one ulp up or down at random (two seeds) and by 1e-6
+    relative; every weight one ulp up or down at random (two seeds), a
+    move at every layer as the kernels' own rounding is."""
+    import torch
+
+    grads = [step_grads(plain_model, x, hr_img, True)[1]
+             for x in (_ulp_move(lr_img, 11), _ulp_move(lr_img, 12), lr_img * (1 + 1e-6))]
+    moved = train_model()
+    for seed in (13, 14):
+        with torch.no_grad():
+            for i, (p, q) in enumerate(zip(moved.parameters(), plain_model.parameters())):
+                p.copy_(_ulp_move(q, seed * 1000 + i))
+        grads.append(step_grads(moved, lr_img, hr_img, True)[1])
+    return grads
+
+
+# a gradient's bar is max(1e-3, NOISE_MULT x its noise): the largest
+# error/noise of the sound kernel path over the checked batches was 1.85
+# (NVIDIA H100 80GB HBM3, 700.00 W); 3 leaves a margin of 1.6x over it
+NOISE_MULT = 3.0
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """The check's control: the training step with a fault planted in
+    dwconv5x5's backward (which no forward output shows), for as long as
+    the context lasts.  "unflipped": dx from the filter unflipped;
+    "half-ulp": dx 2^-8 relative too large (half a bfloat16 ulp)."""
+    from sisr_tpu_torch.ops.kernels import dwconv
+
+    fn = dwconv.DWCONV5X5
+    sound = fn.vjp
+
+    def unflipped(kernel, leaves, need, grads):
+        x, w, b = leaves
+        return sound(kernel, (x, w.flip((0, 1)), b), need, grads)
+
+    def half_ulp(kernel, leaves, need, grads):
+        dx, dw, db = sound(kernel, leaves, need, grads)
+        return None if dx is None else dx * (1 + 2.0 ** -8), dw, db
+
+    fn.vjp = {"unflipped": unflipped, "half-ulp": half_ulp}[kind]
+    try:
+        yield
+    finally:
+        fn.vjp = sound
+
+
+def _over_bars(grads: dict, ref: dict, bars: dict) -> tuple:
+    """(rows, failures) of ``grads`` against the plain path's ``ref``."""
+    import torch
+
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    rows, bad = [], []
+    for k, g in grads.items():
+        r = ref[k]
+        if k in UNUSED_PARAMS:
+            if g is not None or r is not None:
+                bad.append(f"{k} has a gradient")
+            continue
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            bad.append(f"{k}: gradient None or not finite")
+            continue
+        noise, bar = bars[k]
+        rows.append(dict(name=k, err=rel(g, r), noise=noise, bar=bar))
+        if rows[-1]["err"] > bar:
+            bad.append(f"{k}: relative norm error {rows[-1]['err']:.2e} > bar {bar:.2e}")
+    return rows, bad
+
+
+def gradient_agreement(kernel_model, plain_model, lr_img, hr_img,
+                       faults=("unflipped", "half-ulp")) -> dict:
+    """The kernel path's gradients against the plain path's, float32 with
+    TF32 off, from the same weights and batch.  A parameter's bar is a
+    relative norm error of max(1e-3, NOISE_MULT x its noise), where its
+    noise is the largest relative move of the plain path's own gradient
+    under ``probe_grads``' five moves: gradients that are large sums that
+    cancel (pooling biases, k-generation, squeeze-excite and position-bias
+    MLPs of some blocks) move by up to several 1e-2 when the input moves
+    by one ulp, so no float32 implementation holds them to 1e-3; the
+    kernels' rounding moves them by as much.  Then the same kernel-path
+    step under each planted fault, which the bars must reject.  Returns
+    the losses, per-parameter rows, the failures and, per fault, its
+    rows and failures."""
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    with exact_mode():
+        loss_k, got = step_grads(kernel_model, lr_img, hr_img, False)
+        loss_p, ref = step_grads(plain_model, lr_img, hr_img, True)
+        moved = probe_grads(plain_model, lr_img, hr_img)
+        planted = {}
+        for kind in faults:
+            with planted_fault(kind):
+                planted[kind] = step_grads(kernel_model, lr_img, hr_img, False)
+    bars = {}
+    for k, r in ref.items():
+        if r is not None and all(m[k] is not None for m in moved):
+            noise = max(rel(m[k], r) for m in moved)
+            bars[k] = (noise, max(1e-3, NOISE_MULT * noise))
+    rows, bad = _over_bars(got, ref, bars)
+    controls = {kind: dict(zip(("rows", "bad"), _over_bars(g, ref, bars)),
+                           loss_err=abs(loss - loss_p) / abs(loss_p))
+                for kind, (loss, g) in planted.items()}
+    return dict(loss_kernels=loss_k, loss_plain=loss_p,
+                loss_err=abs(loss_k - loss_p) / abs(loss_p), rows=rows, bad=bad,
+                controls=controls)
+
+
+def run_train_check(failures: list) -> None:
+    """The kernel path against the plain path on the training step, from
+    the same weights, on two batches: the L1 losses within 1e-5 relative;
+    every parameter's gradient finite and within its bar
+    (``gradient_agreement``); then the losses of 5 L1 Adam steps within
+    1e-4 relative."""
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_train_step
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    models = {ref: train_model() for ref in (False, True)}
+    ok = True
+    for seed in (3, 5):
+        res = gradient_agreement(models[False], models[True], *train_batches(1, seed=seed)[0],
+                                 faults=("unflipped", "half-ulp") if seed == 3 else ())
+        rows, bad = res["rows"], res["bad"]
+        ok = ok and res["loss_err"] <= 1e-5 and not bad
+        worst = max(rows, key=lambda r: r["err"])
+        tight = max(rows, key=lambda r: r["err"] / r["bar"])
+        over = [r for r in rows if r["err"] > 1e-3]
+        ratio = max((r["err"] / r["noise"] for r in over), default=0.0)
+        log(f"  batch {seed}: L1 loss {res['loss_kernels']:.7f} vs plain "
+            f"{res['loss_plain']:.7f} (rel {res['loss_err']:.2e}, bar 1e-5); {len(rows)} "
+            f"gradients finite; {len(rows) - len(over)} within 1e-3, {len(over)} beyond it "
+            f"(their error at most {ratio:.2f}x their noise); worst {worst['err']:.2e} "
+            f"({worst['name']}, noise {worst['noise']:.2e}); nearest its bar "
+            f"{tight['err']:.2e} of {tight['bar']:.2e} ({tight['name']}); {len(bad)} failed")
+        for line in bad[:10]:
+            log(f"    {line}")
+        for kind, c in res["controls"].items():
+            seen = bool(c["bad"])
+            ok = ok and seen
+            top = max(c["rows"], key=lambda r: r["err"] / r["bar"])
+            log(f"  control, dwconv5x5 dx {kind}: loss rel {c['loss_err']:.2e}; "
+                f"{len(c['bad'])} of {len(c['rows'])} gradients over their bar, worst "
+                f"{top['err']:.2e} of {top['bar']:.2e} ({top['err'] / top['bar']:.1f}x, "
+                f"{top['name']}) {'rejected' if seen else 'FAIL: the check passes it'}")
+    steps = {}
+    with exact_mode():
+        for ref, model in models.items():
+            step = make_train_step(model, l1_loss, adam(model), reference=ref)
+            steps[ref] = [float(step(*b)) for b in train_batches(5, seed=4)]
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(steps[False], steps[True]))
+    ok = ok and step_err <= 1e-4
+    log(f"  5 L1 Adam steps: kernels {', '.join(f'{v:.6f}' for v in steps[False])}; plain "
+        f"{', '.join(f'{v:.6f}' for v in steps[True])}; worst rel {step_err:.2e} (bar 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("training step check against the plain path")
+
+
+# what each path must launch: serving the tiles, the whole-image path and
+# the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
                  "scc_block", "fusion_pools", "fused_fusion")
+WHOLE_KERNELS = tuple(k for k in SOURCES if k != "dwconv5x5")
+TRAIN_KERNELS = tuple(k for k, v in PER_STEP.items() if v)
 PER = {"tile": "one 192x192 tile (sum over its shapes)",
        "frame": "one 1080p frame, LR 1088x1920 aligned (sum over its calls: 8 bands; "
-                "6 window-4 and 6 window-8 blocks with fused_htb)"}
+                "6 window-4 and 6 window-8 blocks with fused_htb)",
+       "step": "one training step, batch 2, LR 64x64, float32 (sum over its calls; "
+               "dwconv5x5: 36 forward, 36 dx)"}
+TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32"}
+
+
+def scope_numbers(row: dict, scope: str) -> dict:
+    """A kernel's summed cases over one scope, in the scope's own type
+    (bfloat16 for a tile or a frame, float32 for a training step)."""
+    sfx = "32" if TIMED_DTYPE[scope] == "float32" else ""
+    t_bytes, t_ops = row["t_bytes" + sfx], row["t_ops" + sfx]
+    return dict(max_abs_err=row["err"], ms=row["ms" + sfx], plain_ms=row["plain" + sfx],
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=row["lib" + sfx] if row["has_lib"] else None,
+                per=PER[scope], timed_dtype=TIMED_DTYPE[scope], err_dtype="float32",
+                ms_f32=row["ms32"], plain_ms_f32=row["plain32"], ms_bf16=row["ms"],
+                plain_ms_bf16=row["plain"])
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--phases", default="build,kernels,serve,whole,profile,check")
+    p.add_argument("--phases", default="build,kernels,serve,whole,train,profile,check")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -914,7 +1392,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     failures: list = []
-    rows, extra, served, whole = {}, {}, None, None
+    rows, extra, served, whole, trained = {}, {}, None, None, None
 
     log("[build]")
     try:
@@ -944,6 +1422,13 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"whole: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "train" in phases and not failures:
+        log("[train] make_train_step over HiTSIR(**flagship_config()), float32")
+        try:
+            trained = run_train(failures)
+        except Exception:
+            failures.append(f"train: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "profile" in phases and served is not None:
         for dt in ("bfloat16", "float32"):
             log(f"[profile] one {dt} 192x192 tile")
@@ -962,29 +1447,38 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"check: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "check" in phases and "train" in phases:
+        log("[check] the training step against the plain path (reference=True)")
+        try:
+            run_train_check(failures)
+        except Exception:
+            failures.append(f"train check: {traceback.format_exc()}")
+            log(traceback.format_exc())
 
     # each path's counts, set to 0 just before it and read just after
-    paths = {"serve": (served or {}).get("counts"), "whole": whole}
-    for path, names in (("serve", SERVE_KERNELS), ("whole", tuple(SOURCES))):
+    paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained}
+    for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
+                        ("train", TRAIN_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        scope = "tile" if (name, "tile") in rows else "frame"
-        row = rows.get((name, scope))
+        scopes = [sc for sc in PER if (name, sc) in rows]
         by_path = {p: (c or {}).get(name, 0) for p, c in paths.items()}
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path)
-        if row:
-            entry.update(
-                max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain"],
-                bound_ms=max(row["t_bytes"], row["t_ops"]),
-                bound_by="bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
-                library_ms=row["lib"] if row["has_lib"] else None,
-                per=PER[scope], timed_dtype="bfloat16",
-                err_dtype="float32", ms_f32=row["ms32"], plain_ms_f32=row["plain32"])
+        if name == "htb_tail":       # rows 1 and 2 of the TPU kernels: one function
+            entry["also_replaces"] = "sisr_tpu/ops/pallas/ffn.py:438"
+        # the first scope's numbers at the top, a training step's (where
+        # the kernel also serves) under "per_step"
+        for scope in scopes:
+            numbers = scope_numbers(rows[(name, scope)], scope)
+            if scope == scopes[0]:
+                entry.update(numbers)
+            else:
+                entry[f"per_{scope}"] = numbers
         if name in extra:
-            entry["whole_frame_cases"] = extra[name]
+            entry["other_cases"] = extra[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     if failures:
@@ -992,7 +1486,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if not {"build", "kernels", "serve", "whole", "check"} <= phases:
+    if not {"build", "kernels", "serve", "whole", "train", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

@@ -19,10 +19,14 @@ names and layouts, so a reference ``.pth`` loads with ``load_state_dict``.
 Parameters stay float32; what a module derives from them for its kernels
 (cast, transposed, folded or expanded weights, position-bias tables) is
 made once per compute ``dtype`` and device and kept until a parameter
-changes, so a forward issues only the work that depends on its input.
-Evaluation only: there is no dropout or backward.  Every ``forward``
-takes ``reference``: False runs the CUDA kernels for CUDA tensors, True the
-plain versions (the yardstick on the card); CPU tensors always run plain.
+changes, so a forward runs only the work that depends on its input; a
+forward that records gradients makes it anew under autograd instead.
+Every ``forward`` takes ``reference``: False runs the CUDA kernels for CUDA
+tensors, True the plain versions (the yardstick on the card); CPU tensors
+always run plain.  ``deterministic=False`` is the training forward, as in
+JAX: no block threads the SCA statistics to the next (its tail kernel has
+no backward) and ``fused_htb`` is ignored.  There is no dropout (every
+configuration the experiments build leaves its rates at 0).
 """
 
 from __future__ import annotations
@@ -66,11 +70,15 @@ def _derived(module: nn.Module, kind: str, dt, device, make, sources=None):
     or written (its storage or version counter changes; a parameter made
     under inference_mode has no version counter and is followed by its
     storage alone).  The parameter list is taken once: a Parameter object
-    assigned later is not followed."""
+    assigned later is not followed.  When grad mode is on and one of those
+    parameters requires grad, ``make()`` runs anew under autograd and
+    nothing is kept, so that the gradient reaches the parameters."""
     lists = module.__dict__.setdefault("_derived_params", {})
     params = lists.get(kind)
     if params is None:
         params = lists[kind] = [p for m in (sources or (module,)) for p in m.parameters()]
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return make()
     stamp = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
                   for p in params)
     cache = module.__dict__.setdefault("_derived", {})
@@ -372,12 +380,17 @@ class HierarchicalTransformerBlock(nn.Module):
         self.mlp = ConvFFN(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, emit_stats: bool = False, stats=None,
-                reference: bool = False):
+                reference: bool = False, deterministic: bool = True):
+        """``deterministic=False`` (training, JAX's flag) drops ``stats``
+        and runs no ``htb_fused``; ``emit_stats`` is for evaluation."""
         _, h, w, _ = x.shape
         dt = x.dtype
+        if not deterministic:
+            stats = None
         tail = _derived(self, "tail", dt, x.device, lambda: self._tail_weights(dt),
                         sources=(self.norm1, self.mlp, self.norm2))
-        if self.fused_htb and h % self.window_size[0] == 0 and w % self.window_size[1] == 0:
+        if (self.fused_htb and deterministic and h % self.window_size[0] == 0
+                and w % self.window_size[1] == 0):
             sca, rest = self.correlation.bundle(x, stats)
             return htb_fused(x, sca, *rest, self.correlation.num_heads, self.window_size,
                              *tail, emit_stats=emit_stats, reference=reference)
@@ -421,8 +434,9 @@ class ResidualGroup(nn.Module):
 
 class RHTB(nn.Module):
     """depth x HTB with hierarchical windows, then 3x3 conv + residual
-    (reference :755-936).  Each block's tail kernel emits the SCA pool
-    statistics the next block needs."""
+    (reference :755-936).  In evaluation (``deterministic``) each block's
+    tail kernel emits the SCA pool statistics the next block needs; in
+    training every block pools its own input (JAX's ``thread``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, base_win_size,
                  window_sizes, mlp_ratio: float = 2.0,
@@ -436,12 +450,14 @@ class RHTB(nn.Module):
             for i in range(depth)])
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, reference: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reference: bool = False,
+                deterministic: bool = True) -> torch.Tensor:
         blocks = self.residual_group.blocks
         y, stats = x, None
         for i, block in enumerate(blocks):
-            want = i + 1 < len(blocks) and self.is_channel_spatial_attn
-            out = block(y, emit_stats=want, stats=stats, reference=reference)
+            want = deterministic and i + 1 < len(blocks) and self.is_channel_spatial_attn
+            out = block(y, emit_stats=want, stats=stats, reference=reference,
+                        deterministic=deterministic)
             y, stats = out if want else (out, None)
         return conv3x3(y, x, *_conv_weights(self.conv, x.dtype, x.device), "none",
                        reference)
@@ -504,7 +520,10 @@ class Fusion(nn.Module):
                 reference: bool = False) -> torch.Tensor:
         def make():
             raws = tuple(getattr(self, f"union_attention{i}").raw() for i in (1, 2, 3))
-            return raws, pack_params(raws, self.channels, a.dtype)
+            # the kernel's weights; gradients reach raws through fused_fusion
+            with torch.no_grad():
+                packed = pack_params(raws, self.channels, a.dtype)
+            return raws, packed
 
         raws, packed = _derived(self, "fusion", a.dtype, a.device, make)
         return fused_fusion(a, b, raws, packed, reference)
@@ -591,12 +610,13 @@ class HiTSIR(nn.Module):
                     *_conv_weights(self.conv_last, dt, dev), reference)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
-                stage: str = "full") -> torch.Tensor:
+                stage: str = "full", deterministic: bool = True) -> torch.Tensor:
         """``stage``: 'full' the whole network; 'features' stops at the
         pre-upsample feature map (B, H, W, num_feat), without the mean
         added back; 'head' takes that map and returns the x4 head's output
         plus the mean, uncropped (packed with ``head_packed``, the mean
-        then tiled to match)."""
+        then tiled to match).  ``deterministic=False``: the training
+        forward (see the module docstring)."""
         if stage not in ("full", "features", "head"):
             raise ValueError(f"unknown stage {stage!r}")
         _, h, w, cin = x.shape
@@ -615,7 +635,7 @@ class HiTSIR(nn.Module):
         feat = layer_norm(shallow, self.patch_embed.norm.weight,
                           self.patch_embed.norm.bias)
         for layer in self.layers:
-            feat = layer(feat, reference)
+            feat = layer(feat, reference, deterministic)
         feat = layer_norm(feat, self.norm.weight, self.norm.bias)
         deep = conv3x3(feat, None, *_conv_weights(self.conv_after_body, dt, x.device),
                        "none", reference)

@@ -10,7 +10,9 @@ Ports of ``sisr_tpu/ops/pallas/conv3x3.py``:
     conv3x3_shuffled_tail_packed  _conv3x3_shuffled_tail_packed_pallas  csrc/shuffled_tail.cu
 
 each over its plain version (``*_reference``).  Activations are NHWC and
-kernels HWIO, as in the JAX package.  A packed input ``yp`` (B, H, W, 4C)
+kernels HWIO, as in the JAX package.  Each gradient is the vjp of the
+plain version (JAX's ``custom_vjp``s, ``conv3x3.py:241-266, :370-390,
+:767-816``), through ``autograd.KernelFunction``.  A packed input ``yp`` (B, H, W, 4C)
 stands for ``pixel_shuffle_phase_major(yp, 2)`` (B, 2H, 2W, C): shuffled
 pixel (y, x), channel c is ``yp[b, y>>1, x>>1, ((x&1)*2 + (y&1))*C + c]``.
 
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.ops.kernels.autograd import KernelFunction
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
 
 ACTS = {"none": 0, "leaky": 1, "leaky2": 2}
@@ -105,6 +108,18 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
     return out
 
 
+CONV3X3 = KernelFunction(
+    lambda y, res, kernel, bias, act: _conv3x3_cuda(
+        y, res, build.as_arg(kernel, y.dtype), build.as_arg(bias, y.dtype), act,
+        shuffled=False),
+    conv3x3_reference)
+CONV3X3_SHUFFLED = KernelFunction(
+    lambda yp, kernel, bias, act: _conv3x3_cuda(
+        yp, None, build.as_arg(kernel, yp.dtype), build.as_arg(bias, yp.dtype), act,
+        shuffled=True),
+    conv3x3_shuffled_reference)
+
+
 def conv3x3(y, res, kernel, bias, act: str = "none", reference: bool = False):
     """Fused 3x3 conv; ``res`` may be None.  A CPU tensor runs the plain
     version; a CUDA tensor runs the kernel unless ``reference=True`` asks
@@ -113,8 +128,7 @@ def conv3x3(y, res, kernel, bias, act: str = "none", reference: bool = False):
         raise ValueError(f"unknown act {act!r}")
     if reference or y.device.type == "cpu":
         return conv3x3_reference(y, res, kernel, bias, act)
-    return _conv3x3_cuda(y, res, build.as_arg(kernel, y.dtype),
-                         build.as_arg(bias, y.dtype), act, shuffled=False)
+    return CONV3X3(y, res, kernel, bias, act)
 
 
 def conv3x3_shuffled(yp, kernel, bias, act: str = "none", reference: bool = False):
@@ -125,8 +139,7 @@ def conv3x3_shuffled(yp, kernel, bias, act: str = "none", reference: bool = Fals
         raise ValueError(f"unknown act {act!r}")
     if reference or yp.device.type == "cpu":
         return conv3x3_shuffled_reference(yp, kernel, bias, act)
-    return _conv3x3_cuda(yp, None, build.as_arg(kernel, yp.dtype),
-                         build.as_arg(bias, yp.dtype), act, shuffled=True)
+    return CONV3X3_SHUFFLED(yp, kernel, bias, act)
 
 
 def tail_pack_group() -> int:
@@ -170,6 +183,18 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     return out
 
 
+def _shuffled_tail_kernel(packed: bool):
+    def kernel(yp, k1, b1, act1, k2, b2):
+        cast = lambda t: build.as_arg(t, yp.dtype)
+        return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2), packed)
+    return kernel
+
+
+SHUFFLED_TAIL = KernelFunction(_shuffled_tail_kernel(False), conv3x3_shuffled_tail_reference)
+SHUFFLED_TAIL_PACKED = KernelFunction(_shuffled_tail_kernel(True),
+                                      conv3x3_shuffled_tail_packed_reference)
+
+
 def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):
     """conv3x3(act1(conv3x3(pixel_shuffle_phase_major(yp, 2), k1, b1)), k2,
     b2): the x4 head's conv_hr + conv_last in one kernel that keeps hr on
@@ -179,8 +204,7 @@ def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):
         raise ValueError(f"unknown act {act1!r}")
     if reference or yp.device.type == "cpu":
         return conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2)
-    cast = lambda t: build.as_arg(t, yp.dtype)
-    return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2))
+    return SHUFFLED_TAIL(yp, k1, b1, act1, k2, b2)
 
 
 def conv3x3_shuffled_tail_packed(yp, k1, b1, act1, k2, b2, reference: bool = False):
@@ -195,5 +219,4 @@ def conv3x3_shuffled_tail_packed(yp, k1, b1, act1, k2, b2, reference: bool = Fal
                          f"is not a multiple of {tail_pack_group()}")
     if reference or yp.device.type == "cpu":
         return conv3x3_shuffled_tail_packed_reference(yp, k1, b1, act1, k2, b2)
-    cast = lambda t: build.as_arg(t, yp.dtype)
-    return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2), packed=True)
+    return SHUFFLED_TAIL_PACKED(yp, k1, b1, act1, k2, b2)

@@ -14,6 +14,13 @@ The plain version is ``htb_tail_reference``; the CUDA kernel is
 SCA input statistics (``stats_reference``).  ``attn`` may be the
 window-padded SCC output, taller or wider than ``shortcut``: only rows
 [0, H) and columns [0, W) are read.
+
+``htb_tail``'s gradient is the JAX ``custom_vjp``'s (``ffn.py:493-521``):
+the vjp of the plain composition recomputed from the saved inputs, with
+its 5x5 depthwise conv as ``dwconv5x5`` (the dwconv kernel and its
+backward kernel on the card).  ``htb_tail_stats`` has no backward in the
+JAX package (the model threads stats in evaluation only): on a CUDA tensor
+it refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from sisr_tpu_torch.ops.kernels import build
-from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference
+from sisr_tpu_torch.ops.kernels.autograd import KernelFunction, needs_grad
+from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference, dwconv5x5
 
 K = 5
 # the kernel's output tile (csrc/htb_tail.cu TH x TW)
@@ -44,13 +52,14 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 
 
 def htb_tail_reference(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb,
-                       w2, b2, ln2_s, ln2_b):
+                       w2, b2, ln2_s, ln2_b, dwconv=depthwise_conv_reference):
     """Plain version.  attn/shortcut: (B, H, W, C); w1: (C, Ch);
-    dw: (5, 5, Ch); w2: (Ch, C)."""
+    dw: (5, 5, Ch); w2: (Ch, C).  ``dwconv`` computes the depthwise conv:
+    the plain one by default, ``dwconv5x5`` in the backward."""
     dt = attn.dtype
     x = shortcut + layer_norm(attn, ln1_s, ln1_b)
     h = F.gelu(x @ w1.to(dt) + b1.to(dt))
-    h2 = h + F.gelu(depthwise_conv_reference(h, dw.to(dt), dwb.to(dt)))
+    h2 = h + F.gelu(dwconv(h, dw.to(dt), dwb.to(dt)))
     y = h2 @ w2.to(dt) + b2.to(dt)
     return x + layer_norm(y, ln2_s, ln2_b)
 
@@ -119,24 +128,39 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 
 
+def _tail_plain(attn, shortcut, *weights, dwconv=depthwise_conv_reference):
+    """``htb_tail_reference`` on the rows and columns of ``attn`` the tail
+    reads."""
+    h, w = shortcut.shape[1:3]
+    return htb_tail_reference(attn[:, :h, :w], shortcut, *weights, dwconv=dwconv)
+
+
+HTB_TAIL = KernelFunction(
+    lambda attn, shortcut, *weights: _htb_tail_cuda(attn, shortcut, weights, stats=False),
+    lambda *args: _tail_plain(*args, dwconv=dwconv5x5))
+
+
 def htb_tail(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
              ln2_s, ln2_b, reference: bool = False):
     """Fused HTB tail; see the module docstring.  A CPU tensor runs the
     plain version; a CUDA tensor the kernel unless ``reference=True``."""
-    weights = (ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b)
-    h, w = shortcut.shape[1:3]
+    args = (attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b)
     if reference or shortcut.device.type == "cpu":
-        return htb_tail_reference(attn[:, :h, :w], shortcut, *weights)
-    return _htb_tail_cuda(attn, shortcut, weights, stats=False)
+        return _tail_plain(*args)
+    return HTB_TAIL(*args)
 
 
 def htb_tail_stats(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
                    ln2_s, ln2_b, reference: bool = False):
     """``htb_tail`` that also returns the next block's SCA statistics:
-    (out, (cmean, cmax, ssum, smax)), as ``stats_reference(out)``."""
+    (out, (cmean, cmax, ssum, smax)), as ``stats_reference(out)``.  The
+    kernel has no backward: on a CUDA tensor, inputs that need a gradient
+    raise."""
     weights = (ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b)
-    h, w = shortcut.shape[1:3]
     if reference or shortcut.device.type == "cpu":
-        out = htb_tail_reference(attn[:, :h, :w], shortcut, *weights)
+        out = _tail_plain(attn, shortcut, *weights)
         return out, stats_reference(out)
+    if needs_grad(attn, shortcut, weights):
+        raise RuntimeError("htb_tail_stats has no backward: train through htb_tail "
+                           "(the model's forward with deterministic=False)")
     return _htb_tail_cuda(attn, shortcut, weights, stats=True)

@@ -19,6 +19,11 @@ Pools, slot order ``[a_mean, a_max, ab_mean, ab_max, b_mean, b_max]``:
 ``raws`` are the three UnionAttentions' conv parameters as in the JAX
 package: ``((c1k, c1b), (c2k, c2b), (c3k, c3b), (clk, clb))`` each, HWIO
 kernels.  ``pack_params`` derives the kernel's weights from them.
+
+Gradients are the JAX ``custom_vjp``s' (``fusion_ops.py:163-181,
+:492-510``): the vjp of the plain version recomputed from the saved
+inputs.  ``fused_fusion``'s differentiable inputs are a, b and raws; the
+packed weights are derived from raws and get no gradient of their own.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import ctypes
 import torch
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.ops.kernels.autograd import KernelFunction
 from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_reference
 
 
@@ -63,12 +69,15 @@ def _fusion_pools_cuda(a, b):
     return cp3, hp3, wp3
 
 
+FUSION_POOLS = KernelFunction(_fusion_pools_cuda, fusion_pools_reference)
+
+
 def fusion_pools(a, b, reference: bool = False):
     """All nine Fusion pool pairs of a, a + b and b.  A CPU tensor runs the
     plain version; a CUDA tensor the kernel unless ``reference=True``."""
     if reference or a.device.type == "cpu":
         return fusion_pools_reference(a, b)
-    return _fusion_pools_cuda(a, b)
+    return FUSION_POOLS(a, b)
 
 
 def _ua_raw_reference(pools, raw, dt):
@@ -161,6 +170,10 @@ def _fused_fusion_cuda(a, b, packed):
     return out
 
 
+FUSED_FUSION = KernelFunction(lambda a, b, raws, packed: _fused_fusion_cuda(a, b, packed),
+                              lambda a, b, raws, packed: fused_fusion_reference(a, b, raws))
+
+
 def fused_fusion(a, b, raws, packed, reference: bool = False):
     """The whole Fusion gate of a (deep) and b (shallow), (B, H, W, C).  A
     CPU tensor runs the plain version on ``raws``; a CUDA tensor the pools
@@ -169,4 +182,4 @@ def fused_fusion(a, b, raws, packed, reference: bool = False):
     module does), unless ``reference=True``."""
     if reference or a.device.type == "cpu":
         return fused_fusion_reference(a, b, raws)
-    return _fused_fusion_cuda(a, b, packed)
+    return FUSED_FUSION(a, b, raws, packed)

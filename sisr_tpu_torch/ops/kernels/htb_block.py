@@ -6,7 +6,8 @@ version ``htb_fused_reference`` (``scc_block_reference`` then
 ``htb_tail_reference``) and the CUDA kernel ``csrc/htb_fused.cu``, whose
 attention output stays in shared memory.  The block's window must equal its
 base window (the pooling is then one scalar) and divide the map (no window
-padding).  Evaluation only.
+padding).  Evaluation only, as in JAX (``htb_block.py:25``): the kernel has
+no backward, and on a CUDA tensor inputs that need a gradient raise.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import ctypes
 import torch
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.ops.kernels.autograd import needs_grad
 from sisr_tpu_torch.ops.kernels.ffn import (_tail_buffers, htb_tail_reference,
                                             stats_reference)
 from sisr_tpu_torch.ops.kernels.scc_block import _patches, scc_block_reference
@@ -105,5 +107,8 @@ def htb_fused(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
         out = htb_fused_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k,
                                   proj_b, heads, window, *tail)
         return (out, stats_reference(out)) if emit_stats else out
+    if needs_grad(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, tail):
+        raise RuntimeError("htb_fused has no backward: train with fused_htb off "
+                           "(the model's forward with deterministic=False ignores it)")
     return _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads,
                            window, tail, emit_stats)

@@ -12,6 +12,10 @@ over the plain version ``scc_block_reference`` and the CUDA kernel
 
 The SCA patch build and the squeeze-excite vectors s1/s2 are plain torch
 outside the kernel, as in JAX: they need reductions over the whole map.
+
+The gradient is the JAX ``custom_vjp``'s (``scc_block.py:420-445``): the
+vjp of ``scc_block_reference`` recomputed from the saved inputs, the
+``sca`` tuple flattened into the Function's inputs and back.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.ops.kernels.autograd import KernelFunction
 from sisr_tpu_torch.ops.kernels.scc_attention import scc_reference
 
 
@@ -127,6 +132,13 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     return out
 
 
+# the kernel derives the head mask from ``heads``
+SCC_BLOCK = KernelFunction(
+    lambda x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads, window:
+    _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads, window),
+    scc_block_reference)
+
+
 def scc_block(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
               heads: int, window, reference: bool = False):
     """Fused SCA + SCC + proj; see the module docstring.  A CPU tensor runs
@@ -136,5 +148,5 @@ def scc_block(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
     if reference or x.device.type == "cpu":
         return scc_block_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias,
                                    proj_k, proj_b, heads, window)
-    return _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k,
-                           proj_b, heads, window)
+    return SCC_BLOCK(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads,
+                     window)

@@ -368,3 +368,194 @@ def test_banded_head_matches_whole_forward_on_card(cuda_device, hw, band, fused)
     assert banded.shape == whole.shape == (4 * hw[0], 4 * hw[1], 3)
     torch.testing.assert_close(banded, whole, atol=1e-5, rtol=0)
     assert float((banded - plain).abs().max()) < 1e-3
+
+
+# --- training: dwconv5x5, the Functions' gradients, the grad guards -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 192, 192, 360), (2, 64, 64, 360), (1, 13, 17, 24)])
+def test_dwconv5x5_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    """The forward kernel, and dx (the same kernel on dy with the flipped
+    filter) against plain autograd's dx, at the model's two shapes and an
+    odd one (partial tiles and channel slices)."""
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.dwconv import _kernel, dwconv5x5, dwconv_vjp
+
+    rng = np.random.default_rng(20)
+    c = shape[-1]
+    x, w, b, dy = _on(cuda_device, dtype, _rand(rng, *shape, scale=1.0),
+                      _rand(rng, 5, 5, c, scale=0.2), _rand(rng, c), _rand(rng, *shape, scale=1.0))
+    before = build.launches["dwconv5x5"]
+    _check(dwconv5x5, (x, w, b), 1e-5)
+
+    def dx(dy, x, w, b, reference=False):
+        if reference:
+            xg = x.detach().requires_grad_()
+            return torch.autograd.grad(dwconv5x5(xg, w, b, reference=True), xg, dy)[0]
+        return dwconv_vjp(_kernel, (x, w, b), (True, False, False), (dy,))[0]
+
+    _check(dx, (dy, x, w, b), 1e-5)
+    assert build.launches["dwconv5x5"] == before + 2
+
+
+def _grad_cases(device):
+    """name -> (public function, float32 CUDA arguments, the indices of the
+    tensors to differentiate): every kernel Function at small shapes."""
+    from sisr_tpu_torch.ops.kernels import conv3x3 as cv, dwconv, ffn, fusion_ops as fo
+    from sisr_tpu_torch.ops.kernels import scc_block as sb
+
+    rng = np.random.default_rng(21)
+    mk = lambda *s, scale=0.3: torch.from_numpy(_rand(rng, *s, scale=scale)).to(device)
+    f = 16
+    conv = lambda *a, reference=False: cv.conv3x3(*a, "leaky", reference=reference)
+    tail = lambda *a, reference=False: cv.conv3x3_shuffled_tail(
+        a[0], a[1], a[2], "leaky2", a[3], a[4], reference=reference)
+    packed = lambda *a, reference=False: cv.conv3x3_shuffled_tail_packed(
+        a[0], a[1], a[2], "leaky2", a[3], a[4], reference=reference)
+    shuffled = lambda *a, reference=False: cv.conv3x3_shuffled(*a, "leaky2", reference=reference)
+    head = (mk(2, 6, 8, 4 * f, scale=1.0), mk(3, 3, f, f, scale=f ** -1), mk(f),
+            mk(3, 3, f, 3, scale=f ** -1), mk(3))
+    cases = {
+        "conv3x3": (conv, (mk(2, 12, 10, 20, scale=1.0), None, mk(3, 3, 20, 24, scale=0.07),
+                           mk(24))),
+        "conv3x3 +res": (conv, (mk(2, 12, 10, 20, scale=1.0), mk(2, 12, 10, 24),
+                                mk(3, 3, 20, 24, scale=0.07), mk(24))),
+        "conv3x3_shuffled": (shuffled, (mk(2, 6, 8, 4 * f, scale=1.0),
+                                        mk(3, 3, f, 24, scale=f ** -1), mk(24))),
+        "conv3x3_shuffled_tail": (tail, head),
+        "conv3x3_shuffled_tail_packed": (packed, head),
+        "htb_tail": (ffn.htb_tail, tuple(_on(device, torch.float32, *_tail_args(
+            rng, 12, 10, 24, 48, b=2, pad=(4, 6))))),
+        "dwconv5x5": (dwconv.dwconv5x5, (mk(2, 9, 11, 40, scale=1.0), mk(5, 5, 40), mk(40))),
+        "fusion_pools": (fo.fusion_pools, (mk(2, 8, 6, 20, scale=1.0), mk(2, 8, 6, 20, scale=1.0))),
+    }
+    for with_sca in (True, False):
+        args = _scc_args(rng, 8, 8, 2, 24, 2, with_sca, device, torch.float32, b=2)
+        cases[f"scc_block {'+' if with_sca else '-'}sca"] = (
+            lambda *a, reference=False: sb.scc_block(*a, reference=reference), args)
+    raws = _ua_raws(rng, 20, device)
+    cases["fused_fusion"] = (
+        lambda a, b, raws, reference=False: fo.fused_fusion(
+            a, b, raws, fo.pack_params(raws, 20, torch.float32), reference=reference),
+        (mk(2, 8, 6, 20, scale=1.0), mk(2, 8, 6, 20, scale=1.0), raws))
+    return cases
+
+
+def _with_grad(args):
+    """Fresh float32 copies of the tensors in args (nested in tuples) that
+    require grad, and the flat list of them."""
+    leaves = []
+
+    def conv(a):
+        if isinstance(a, torch.Tensor):
+            t = a.detach().clone().requires_grad_(a.is_floating_point())
+            if t.requires_grad:
+                leaves.append(t)
+            return t
+        if isinstance(a, tuple):
+            return tuple(conv(v) for v in a)
+        return a
+
+    return [conv(a) for a in args], leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv3x3", "conv3x3 +res", "conv3x3_shuffled",
+                                  "conv3x3_shuffled_tail", "conv3x3_shuffled_tail_packed",
+                                  "htb_tail", "scc_block +sca", "scc_block -sca",
+                                  "fusion_pools", "fused_fusion", "dwconv5x5"])
+def test_kernel_function_gradients_match_plain_on_card(cuda_device, name):
+    """Forward on the kernel, backward through its Function, against plain
+    autograd of the plain path, float32 with TF32 off: outputs within 1e-4
+    and every input gradient within a relative norm error of 1e-4."""
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    fn, args = _grad_cases(cuda_device)[name]
+    with exact_mode():
+        k_args, k_leaves = _with_grad(args)
+        p_args, p_leaves = _with_grad(args)
+        got, ref = _flat(fn(*k_args)), _flat(fn(*p_args, reference=True))
+        seeds = [torch.randn(r.shape, generator=torch.Generator(cuda_device).manual_seed(i),
+                             device=cuda_device) for i, r in enumerate(ref)]
+        g_k = torch.autograd.grad(got, k_leaves, seeds, allow_unused=True)
+        g_p = torch.autograd.grad(ref, p_leaves, seeds, allow_unused=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=1e-4)
+    for a, b in zip(g_k, g_p):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert bool(torch.isfinite(a).all())
+            err = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            assert err < 1e-4, err
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad(cuda_device):
+    """htb_tail_stats and htb_fused have no backward: inputs that need a
+    gradient raise instead of handing back an output with none; without
+    grad they run."""
+    from sisr_tpu_torch.ops.kernels.ffn import htb_tail_stats
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+
+    rng = np.random.default_rng(22)
+    tail = _on(cuda_device, torch.float32, *_tail_args(rng, 8, 8, 24, 48))
+    fused = _fused_args(rng, 4, 2, 20, 40, 2, 2, True, cuda_device, torch.float32)
+    for fn, args in ((htb_tail_stats, tail), (htb_fused, fused)):
+        args = list(args)
+        with torch.no_grad():
+            fn(*args)
+        args[0] = args[0].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+
+
+@pytest.mark.cuda
+def test_derived_weights_cache_only_without_grad_on_card(cuda_device):
+    """Under inference_mode the derived weights are cached and a forward
+    launches exactly the serving counts; a forward that records gradients
+    makes them anew, keeps nothing, launches no stats tail, and its
+    backward runs dwconv5x5 twice per block (the recomputed forward and
+    dx); the kernel path's gradients match the plain path's."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.param_synth import synth_state_dict
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    model = HiTSIR(embed_dim=24, depths=(3, 3), num_heads=(2, 2), base_win_size=(8, 8),
+                   hier_win_ratios=(0.5, 1, 2)).to(cuda_device)
+    manifest = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           synth_state_dict(manifest, 3).items()})
+    x = torch.from_numpy(np.random.default_rng(23).random((2, 24, 20, 3),
+                                                          dtype=np.float32)).to(cuda_device)
+    serve = dict(conv3x3=5, conv3x3_shuffled=1, conv3x3_shuffled_tail=1, fusion_pools=1,
+                 fused_fusion=1, scc_block=6, htb_tail=6, htb_tail_stats=4)
+    conv = model.conv_after_body
+    with torch.inference_mode():
+        model(x)
+        cached = conv.__dict__["_derived"][("conv", torch.float32, x.device)][1]
+        build.reset_launches()
+        model(x)
+    assert {k: v for k, v in build.launches.items() if v} == serve
+    assert conv.__dict__["_derived"][("conv", torch.float32, x.device)][1] is cached
+
+    conv.__dict__["_derived"].clear()
+    grads = {}
+    with exact_mode():
+        for reference in (False, True):
+            model.zero_grad(set_to_none=True)
+            build.reset_launches()
+            (model(x, reference=reference, deterministic=False) ** 2).mean().backward()
+            counts = {k: v for k, v in build.launches.items() if v}
+            grads[reference] = {k: p.grad.clone() for k, p in model.named_parameters()
+                                if p.grad is not None}
+            if not reference:
+                want = dict(serve, htb_tail_stats=0, dwconv5x5=12)
+                assert counts == {k: v for k, v in want.items() if v}, counts
+    assert not conv.__dict__["_derived"]
+    assert grads[False].keys() == grads[True].keys()
+    assert len(grads[False]) == sum(1 for _ in model.parameters()) - 2   # conv_first.norm
+    for k, g in grads[False].items():
+        err = float((g - grads[True][k]).norm() / grads[True][k].norm().clamp_min(1e-30))
+        assert err < 1e-3, (k, err)

@@ -126,15 +126,48 @@ def test_scc_normal_form_builders_match_jax(win, base, heads, c):
            jx.head_mask(heads, bh * bh, c // 2, jnp.float32), 0, 0)
 
 
-def test_dwconv_reference_matches_jax():
-    from sisr_tpu.ops.pallas.dwconv import depthwise_conv_reference as jx
-    from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference
+@pytest.mark.parametrize("shape", [(1, 9, 11, 6), (1, 8, 12, 16), (2, 16, 20, 24),
+                                   (1, 32, 36, 120)])
+def test_dwconv_reference_matches_jax(shape):
+    """The plain version (``dwconv5x5`` on the CPU) against JAX's reference
+    (1e-5) and its Pallas kernel in interpret mode (test_pallas_ops.py:13's
+    shapes and tolerance, 1e-4)."""
+    from sisr_tpu.ops.pallas.dwconv import _dwconv_pallas, depthwise_conv_reference as jx
+    from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference, dwconv5x5
 
     rng = np.random.default_rng(4)
     x, w, b = (rng.normal(size=s).astype(np.float32)
-               for s in ((1, 9, 11, 6), (5, 5, 6), (6,)))
-    _close(depthwise_conv_reference(_t(x), _t(w), _t(b)),
-           jx(*map(jnp.asarray, (x, w, b))), 1e-5, 1e-5)
+               for s in (shape, (5, 5, shape[-1]), (shape[-1],)))
+    got = dwconv5x5(_t(x), _t(w), _t(b))
+    np.testing.assert_array_equal(got.numpy(),
+                                  depthwise_conv_reference(_t(x), _t(w), _t(b)).numpy())
+    _close(got, jx(*map(jnp.asarray, (x, w, b))), 1e-5, 1e-5)
+    _close(got, _dwconv_pallas(*map(jnp.asarray, (x, w, b)), interpret=True), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 12, 16), (2, 16, 20, 24), (1, 7, 5, 6)])
+def test_dwconv_gradients_match_jax_custom_vjp(shape):
+    """dx (the forward on dy with the flipped filter, as the backward
+    kernel computes it), dw and db against JAX's ``dwconv5x5`` custom_vjp
+    with ``use_pallas=False``."""
+    import jax
+    from sisr_tpu.ops.pallas.dwconv import dwconv5x5 as jx
+    from sisr_tpu_torch.ops.kernels.dwconv import (DWCONV5X5, depthwise_conv_reference,
+                                                   dwconv_vjp)
+
+    rng = np.random.default_rng(5)
+    x, w, b, dy = (rng.normal(size=s).astype(np.float32)
+                   for s in (shape, (5, 5, shape[-1]), (shape[-1],), shape))
+    _, vjp = jax.vjp(lambda *a: jx(*a, False), *map(jnp.asarray, (x, w, b)))
+    refs = vjp(jnp.asarray(dy))
+    gots = dwconv_vjp(depthwise_conv_reference, (_t(x), _t(w), _t(b)), (True,) * 3, (_t(dy),))
+    for got, ref in zip(gots, refs):
+        _close(got, ref, 1e-4, 1e-4)
+    # the same through the Function, the plain version standing in for the kernel
+    ins = [_t(a).requires_grad_() for a in (x, w, b)]
+    out = DWCONV5X5.with_kernel(depthwise_conv_reference)(*ins)
+    for got, ref in zip(torch.autograd.grad(out, ins, _t(dy)), refs):
+        _close(got, ref, 1e-4, 1e-4)
 
 
 # --- kernel 1: conv3x3 ------------------------------------------------------
@@ -450,3 +483,100 @@ def test_fusion_pack_params_match_jax(dtype):
     for g, r in zip(got, ref):
         assert tuple(g.shape) == r.shape and str(g.dtype).endswith(str(r.dtype))
         _close(g.float(), np.asarray(r, dtype=np.float32), 1e-6, 1e-6)
+
+
+# --- the autograd Functions around the kernels --------------------------------
+
+def _function_cases():
+    """name -> (the module's KernelFunction, its public plain function, the
+    numpy arguments): every Function, the plain version standing in for
+    its kernel."""
+    from sisr_tpu_torch.ops.kernels import conv3x3 as cv, dwconv, ffn, fusion_ops as fo
+    from sisr_tpu_torch.ops.kernels import scc_block as sb
+
+    rng = np.random.default_rng(11)
+    mk = lambda *s: (rng.standard_normal(s) * 0.3).astype(np.float32)
+    f = 6
+    conv = (mk(2, 6, 7, 5), None, mk(3, 3, 5, 4), mk(4), "leaky")
+    cases = {
+        "conv3x3": (cv.CONV3X3, cv.conv3x3_reference, conv),
+        "conv3x3 +res": (cv.CONV3X3, cv.conv3x3_reference, conv[:1] + (mk(2, 6, 7, 4),)
+                         + conv[2:]),
+        "conv3x3_shuffled": (cv.CONV3X3_SHUFFLED, cv.conv3x3_shuffled_reference,
+                             (mk(2, 3, 4, 4 * f), mk(3, 3, f, 5), mk(5), "leaky2")),
+        "conv3x3_shuffled_tail": (cv.SHUFFLED_TAIL, cv.conv3x3_shuffled_tail_reference,
+                                  (mk(1, 3, 8, 4 * f), mk(3, 3, f, f), mk(f), "leaky2",
+                                   mk(3, 3, f, 3), mk(3))),
+        "conv3x3_shuffled_tail_packed": (
+            cv.SHUFFLED_TAIL_PACKED, cv.conv3x3_shuffled_tail_packed_reference,
+            (mk(1, 3, 8, 4 * f), mk(3, 3, f, f), mk(f), "leaky2", mk(3, 3, f, 3), mk(3))),
+        # attn window-padded 4 rows below the shortcut
+        "htb_tail": (ffn.HTB_TAIL, ffn._tail_plain, _tail_args(8, 6, 8, 16, b=2, pad=(4, 0),
+                                                               seed=12)),
+        "dwconv5x5": (dwconv.DWCONV5X5, dwconv.depthwise_conv_reference,
+                      (mk(2, 6, 7, 8), mk(5, 5, 8), mk(8))),
+        "fusion_pools": (fo.FUSION_POOLS, fo.fusion_pools_reference, (mk(2, 5, 6, 8),
+                                                                       mk(2, 5, 6, 8))),
+    }
+    for with_sca in (True, False):
+        cases[f"scc_block {'+' if with_sca else '-'}sca"] = (
+            sb.SCC_BLOCK, sb.scc_block_reference,
+            _scc_args(8, 8, 2, 20, 2, with_sca, b=2, seed=13))
+    raws = _ua_raws(rng, 8)
+    cases["fused_fusion"] = (fo.FUSED_FUSION, lambda a, b, r, p: fo.fused_fusion_reference(a, b, r),
+                             (mk(2, 5, 6, 8), mk(2, 5, 6, 8), raws, None))
+    return cases
+
+
+FUNCTIONS = ["conv3x3", "conv3x3 +res", "conv3x3_shuffled", "conv3x3_shuffled_tail",
+             "conv3x3_shuffled_tail_packed", "htb_tail", "scc_block +sca", "scc_block -sca",
+             "fusion_pools", "fused_fusion", "dwconv5x5"]
+
+
+def _torch_args(args, requires_grad):
+    """numpy arguments (nested in tuples) as float32 tensors."""
+    def conv(a):
+        if isinstance(a, np.ndarray):
+            return _t(a).requires_grad_(requires_grad and a.dtype == np.float32)
+        if isinstance(a, tuple) and a and not isinstance(a[0], (int, str)):
+            return tuple(conv(v) for v in a)
+        return a
+    return [conv(a) for a in args]
+
+
+def _leaves(args):
+    if isinstance(args, torch.Tensor):
+        return [args] if args.requires_grad else []
+    if isinstance(args, (tuple, list)):
+        return [t for a in args for t in _leaves(a)]
+    return []
+
+
+@pytest.mark.parametrize("name", FUNCTIONS)
+def test_kernel_function_gradients_match_plain_autograd(name):
+    """Each KernelFunction, with the plain version standing in for its
+    kernel, gives the gradients plain autograd gives, within 1e-6: its
+    inputs saved, the plain version recomputed and differentiated in the
+    backward (dwconv5x5: its own dx/dw/db), nested tuples flattened and
+    rebuilt, None and non-tensor arguments passed over."""
+    fn, plain, args = _function_cases()[name]
+    fn = fn.with_kernel(plain)
+    got_args, ref_args = _torch_args(args, True), _torch_args(args, True)
+    got, ref = fn(*got_args), plain(*ref_args)
+    outs = lambda o: [o] if isinstance(o, torch.Tensor) else list(o)
+    assert all(g.grad_fn is not None for g in outs(got))
+    seeds = [torch.from_numpy(np.random.default_rng(14 + i).standard_normal(tuple(o.shape))
+                              .astype(np.float32)) for i, o in enumerate(outs(ref))]
+    for g, r in zip(outs(got), outs(ref)):
+        np.testing.assert_array_equal(g.detach().numpy(), r.detach().numpy())
+    wrt_got, wrt_ref = _leaves(got_args), _leaves(ref_args)
+    assert len(wrt_got) == len(wrt_ref) > 0
+    g_got = torch.autograd.grad(outs(got), wrt_got, seeds, allow_unused=True)
+    g_ref = torch.autograd.grad(outs(ref), wrt_ref, seeds, allow_unused=True)
+    for a, b in zip(g_got, g_ref):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _close(a, b, 1e-6, 1e-6)
+    # no input needing a gradient: the kernel runs bare, no graph
+    with torch.no_grad():
+        assert all(o.grad_fn is None for o in outs(fn(*_torch_args(args, False))))
