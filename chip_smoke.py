@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,serve,whole   # a part (no result line)
+    python3 chip_smoke.py --ab build/base   # conv3x3, dwconv5x5 against a checkout
 
 Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
-           process per source, all at once) into build/kernels/;
+           process per source, all at once) into build/kernels/; count
+           the HGMMA instructions in the conv3x3 library's SASS (its
+           bfloat16 path runs on wgmma: none fails the run);
   kernels  each of the eleven kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
@@ -30,7 +33,10 @@ Phases:
            67 TFLOP/s for float32 work on the FP32 pipes, whichever is
            larger; for the training step's cases float32 bytes, and every
            operation on the FP32 pipes) and, where one PyTorch call
-           computes the same function, that call's time;
+           computes the same function, that call's time; each case's
+           line adds its TFLOP/s and share of its bound in both types.
+           Then one dwconv5x5 dx through ``dwconv_vjp`` under
+           torch.profiler, which must launch one device kernel;
   serve    the serving entry point (TiledSR over HiTSIR, the full flagship
            with its Fusion gate, synthesized weights) on three requests, bfloat16
            then float32, with every launch counter checked per tile; then
@@ -73,6 +79,12 @@ Phases:
            fault planted in dwconv5x5's backward (dx from the unflipped
            filter; dx 2^-8 relative too large) must fail that bar; and the
            losses of 5 Adam steps within 1e-4 relative.
+
+``--ab BASE`` runs no phase: it times conv3x3 (the four model shapes at a
+tile and a training step) and dwconv5x5 (forward and dx at both maps) in
+bfloat16 and float32, from the package in the checkout BASE and from this
+one, one process each, in the order base, this, this, base, and prints a
+``{"ab": ...}`` line (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
 ...}`` and ``{"kernels": [...]}`` lines and, as the last line when every
@@ -661,6 +673,10 @@ def run_kernels(failures: list) -> tuple:
             t_bytes = case.nbytes(2) / HBM_BYTES_PER_S * 1e3
             t_ops = case.t_ops()
             t_bytes32, t_ops32 = case.nbytes(4) / HBM_BYTES_PER_S * 1e3, case.t_ops32()
+            ops = case.flops + case.flops32
+            rate = (f"| bf16 {ops / ms / 1e9:.1f} TFLOP/s {max(t_bytes, t_ops) / ms:.1%} of "
+                    f"bound, f32 {ops / ms32 / 1e9:.1f} TFLOP/s "
+                    f"{max(t_bytes32, t_ops32) / ms32:.1%} of bound ")
             log(f"  {case.kernel:21s} {case.label:44s} f32 err {err32:.3e} "
                 f"{'ok' if ok32 else 'FAIL'} | bf16 err vs plain {err16:.3e}, vs f32 "
                 f"{err16_k:.3e} (plain bf16 vs f32 {err16_p:.3e}) {'ok' if ok16 else 'FAIL'} "
@@ -669,7 +685,7 @@ def run_kernels(failures: list) -> tuple:
                 f"plain {plain32:.4f} lib {'-' if lib32 is None else f'{lib32:.4f}'} "
                 f"| bound bf16 {max(t_bytes, t_ops):.4f} "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}) f32 "
-                f"{max(t_bytes32, t_ops32):.4f} x{case.count}/{case.scope} "
+                f"{max(t_bytes32, t_ops32):.4f} {rate}x{case.count}/{case.scope} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"kernel {case.kernel} {case.label} disagrees with its plain version")
@@ -1366,13 +1382,109 @@ def scope_numbers(row: dict, scope: str) -> dict:
                 library_ms=row["lib" + sfx] if row["has_lib"] else None,
                 per=PER[scope], timed_dtype=TIMED_DTYPE[scope], err_dtype="float32",
                 ms_f32=row["ms32"], plain_ms_f32=row["plain32"], ms_bf16=row["ms"],
-                plain_ms_bf16=row["plain"])
+                plain_ms_bf16=row["plain"],
+                library_ms_f32=row["lib32"] if row["has_lib"] else None,
+                library_ms_bf16=row["lib"] if row["has_lib"] else None)
+
+
+def check_dx_one_launch(failures: list) -> None:
+    """dx through ``dwconv_vjp`` at a training step's shape, under
+    torch.profiler: every device kernel it launches, which must be one
+    dwconv5x5 kernel (no flip, no fill)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sisr_tpu_torch.ops.kernels.dwconv import _kernel, dwconv_vjp
+
+    rn = _gen(5)
+    shape = (TRAIN_BATCH, TRAIN_LR, TRAIN_LR, 360)
+    x, w, b, dy = rn(*shape), rn(5, 5, 360), rn(360), rn(*shape)
+    call = lambda: dwconv_vjp(_kernel, (x, w, b), (True, False, False), (dy,))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+    log(f"  dwconv5x5 dx through dwconv_vjp, {'x'.join(map(str, shape))} f32, device "
+        f"kernels: {kernels}")
+    if len(kernels) != 1 or kernels[0][1] != 1 or "::dwconv_" not in kernels[0][0]:
+        failures.append(f"dwconv5x5 dx is not one dwconv launch: {kernels}")
+
+
+def ab_worker(tree: str) -> int:
+    """One side of ``--ab``: the conv3x3 cases of a 192x192 tile and of a
+    training step, and the dwconv5x5 cases (forward, and dx through
+    ``dwconv_vjp``, at both maps), run by the package in ``tree``, in
+    bfloat16 and float32; prints one ``AB {...}`` line of device ms per
+    case."""
+    sys.path.insert(0, tree)
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+
+    build.build_all(("conv3x3", "dwconv"))
+    n = TRAIN_LR
+    cases = (conv_cases([(TILE, TILE) + c for c in TILE_CONVS])
+             + conv_cases([(n, n) + c for c in TILE_CONVS], scope="step", b=TRAIN_BATCH)
+             + dwconv_cases([(TRAIN_BATCH, n, n, 360, 0), (1, TILE, TILE, 360, 0)], "step"))
+    times = {}
+    for case in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            ins = case.make(dt)
+            times[f"{case.kernel} {case.label} {dt}"] = time_ms(lambda: case.call(ins, False))
+    print("AB " + json.dumps(times), flush=True)
+    return 0
+
+
+def run_ab(base: str) -> int:
+    """The A/B of the kernels ``ab_worker`` times: the tree ``base`` (a
+    checkout of another commit) against this one, one process each, in the
+    order base, this, this, base on the same card."""
+    from pathlib import Path
+
+    here, base = str(Path(__file__).resolve().parent), str(Path(base).resolve())
+    runs = []
+    for tree in (base, here, here, base):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ab-worker",
+                               tree], capture_output=True, text=True, check=False)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        if proc.returncode or not lines:
+            log(f"ab worker on {tree} failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+            return 1
+        runs.append(json.loads(lines[-1][3:]))
+    rows = {}
+    for key in runs[0]:
+        old, new = (runs[0][key] + runs[3][key]) / 2, (runs[1][key] + runs[2][key]) / 2
+        rows[key] = dict(base_ms=[runs[0][key], runs[3][key]], ms=[runs[1][key], runs[2][key]],
+                         ratio=new / old)
+        log(f"  {key:48s} base {runs[0][key]:.4f} {runs[3][key]:.4f} | this "
+            f"{runs[1][key]:.4f} {runs[2][key]:.4f} | this/base {new / old:.3f}")
+    log(json.dumps({"ab": rows}))
+    return 0
+
+
+def sass_count(kernel: str, opcode: str) -> int:
+    """Lines of ``kernel``'s built library's SASS (cuobjdump) holding
+    ``opcode``."""
+    from pathlib import Path
+
+    from sisr_tpu_torch.ops.kernels import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build._target(kernel))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases", default="build,kernels,serve,whole,train,profile,check")
+    p.add_argument("--ab", metavar="BASE", help="only time conv3x3 and dwconv5x5 against "
+                   "the kernels of the checkout BASE (one process each: base, this, this, "
+                   "base); prints no result line")
+    p.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1382,6 +1494,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
               file=sys.stderr)
         return 1
+    if args.ab_worker:
+        return ab_worker(args.ab_worker)
+    if args.ab:
+        log("[ab] conv3x3 and dwconv5x5, this tree against " + args.ab)
+        return run_ab(args.ab)
     from sisr_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1402,12 +1519,21 @@ def main(argv=None) -> int:
             for line in text.splitlines():
                 if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  {name}: {line.strip()}")
+        hgmma = sass_count("conv3x3", "HGMMA")
+        log(f"  conv3x3 SASS: {hgmma} HGMMA instructions")
+        if hgmma == 0:
+            failures.append("conv3x3's library holds no HGMMA: its bf16 path is not on wgmma")
     except Exception:
         failures.append(f"build: {traceback.format_exc()}")
         log(traceback.format_exc())
     if "kernels" in phases and not failures:
         log("[kernels] per shape of one 192x192 flagship tile, then of the 1080p frame")
         rows, extra = run_kernels(failures)
+        try:
+            check_dx_one_launch(failures)
+        except Exception:
+            failures.append(f"dx profile: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "serve" in phases and not failures:
         log("[serve] TiledSR(tile 192, overlap 16) over HiTSIR(**flagship_config())")
         try:

@@ -23,6 +23,16 @@ weights and grouped conv_last weights (``_pair_hr_weights``,
 ``_group_last_weights``).  On the card a contiguous (B, H, W/16, 16*Cout)
 tensor has exactly the bytes of the NHWC (B, H, W, Cout) output, so the
 tail kernel writes straight into it and none of that has a counterpart.
+
+In bfloat16 the plain conv runs on ``wgmma`` (``csrc/conv3x3.cu``), which
+reads its weights K-major: ``pack_weights`` lays the HWIO kernel out as
+(N, Kpad) rows in the kernel's flat-K order (tap-major, Cin inner), zero
+past Cout and past K = 9 Cin.  The pack is made outside autograd (the
+backward stays the plain vjp on the HWIO kernel) and kept on the kernel
+tensor while that tensor is unchanged: serving hands the kernel the same
+cached weights every call, so it packs once; a training step makes its
+weights anew, so it packs them anew (two small launches, a fill and a
+copy, per conv).
 """
 
 from __future__ import annotations
@@ -39,6 +49,45 @@ from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
 ACTS = {"none": 0, "leaky": 1, "leaky2": 2}
 # conv_hr's channels the tail kernel keeps on chip (csrc/shuffled_tail.cu)
 _TAIL_MAX_C1 = 64
+# the wgmma path's N tiles (all of Cout in one) and K step (csrc/conv3x3.cu)
+WGMMA_WIDTHS = (64, 128, 184, 256)
+K_STEP = 64
+
+
+def wgmma_width(cin: int, cout: int):
+    """The packed N width of the bfloat16 wgmma path for (cin, cout), or
+    None where its shape rule (``csrc/conv3x3.cu::wgmma_ok``) sends the conv
+    to the older kernels: Cin % 4 != 0, an odd Cout, or Cout > 256."""
+    if cin % 4 or cout % 2 or cout > WGMMA_WIDTHS[-1]:
+        return None
+    return next(n for n in WGMMA_WIDTHS if n >= cout)
+
+
+def pack_weights(kernel: torch.Tensor, npad: int) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> (npad, Kpad): row n holds output channel
+    n's weights in flat-K order, k = (3*dy + dx)*Cin + ci (tap-major, Cin
+    inner), zero past Cout and past K = 9*Cin; Kpad is K rounded up to
+    ``K_STEP``."""
+    cin, cout = kernel.shape[2:]
+    k = 9 * cin
+    out = kernel.new_zeros((npad, -(-k // K_STEP) * K_STEP))
+    out[:cout, :k] = kernel.reshape(k, cout).t()
+    return out
+
+
+def _packed(kernel: torch.Tensor, npad: int) -> torch.Tensor:
+    """``pack_weights(kernel, npad)`` outside autograd, kept on ``kernel``
+    while its version counter stays (an inference tensor has none and is
+    packed every call)."""
+    version = None if kernel.is_inference() else kernel._version
+    hit = getattr(kernel, "_wgmma_pack", None)
+    if version is not None and hit is not None and hit[0] == (version, npad):
+        return hit[1]
+    with torch.no_grad():
+        pack = pack_weights(kernel, npad)
+    if version is not None:
+        kernel._wgmma_pack = ((version, npad), pack)
+    return pack
 
 
 def _act(out: torch.Tensor, act: str) -> torch.Tensor:
@@ -94,15 +143,17 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
     if res is not None and tuple(res.shape) != (b, h, w, cout):
         raise ValueError(f"{name}: res {tuple(res.shape)} != output shape")
     build.check_cuda(name, y.device, y.dtype, y=y, res=res, kernel=kernel, bias=bias)
+    npad = None if shuffled or y.dtype != torch.bfloat16 else wgmma_width(cin, cout)
+    packed = None if npad is None else _packed(kernel, npad)
     out = torch.empty((b, h, w, cout), dtype=y.dtype, device=y.device)
     fn = build.library("conv3x3").conv3x3_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     code = fn(
         build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res), build.ptr(kernel),
-        build.ptr(bias), build.ptr(out), b, h, w, cin, cout, ACTS[act], int(shuffled),
-        build.stream(y.device))
+        build.ptr(packed), build.ptr(bias), build.ptr(out), b, h, w, cin, cout, npad or 0,
+        ACTS[act], int(shuffled), build.stream(y.device))
     build.raise_on_error(name, code)
     build.launches[name] += 1
     return out
