@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,serve,whole   # a part (no result line)
-    python3 chip_smoke.py --ab build/base   # conv3x3, dwconv5x5 against a checkout
+    python3 chip_smoke.py --ab build/base   # the redesigned kernels against a checkout
 
 Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
            process per source, all at once) into build/kernels/; count
-           the HGMMA instructions in the conv3x3 library's SASS (its
-           bfloat16 path runs on wgmma: none fails the run);
+           the HGMMA instructions in the SASS of the conv3x3, scc_block
+           and htb_tail libraries (their bfloat16 paths run on wgmma: none
+           fails the run);
   kernels  each of the eleven kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
@@ -37,6 +38,11 @@ Phases:
            line adds its TFLOP/s and share of its bound in both types.
            Then one dwconv5x5 dx through ``dwconv_vjp`` under
            torch.profiler, which must launch one device kernel;
+  split    device time of each kernel launch of one scc_block call at
+           every window of a 192x192 tile (bfloat16 and float32) and at
+           the frame's windows 4 and 48, and of one htb_tail call (with and
+           without stats) at a tile and at the frame (torch.profiler), one
+           ``split ...`` line each;
   serve    the serving entry point (TiledSR over HiTSIR, the full flagship
            with its Fusion gate, synthesized weights) on three requests, bfloat16
            then float32, with every launch counter checked per tile; then
@@ -81,9 +87,12 @@ Phases:
            losses of 5 Adam steps within 1e-4 relative.
 
 ``--ab BASE`` runs no phase: it times conv3x3 (the four model shapes at a
-tile and a training step) and dwconv5x5 (forward and dx at both maps) in
-bfloat16 and float32, from the package in the checkout BASE and from this
-one, one process each, in the order base, this, this, base, and prints a
+tile and a training step), dwconv5x5 (forward and dx at both maps),
+scc_block (every window of a tile, the frame's windows 4 and 48),
+htb_tail and htb_tail_stats (a tile, the frame) and htb_fused (a tile's
+windows 4 and 8) in bfloat16 and float32, from the package in the checkout
+BASE and from this one, one process each, in the order base, this, this,
+base; the first base and this runs also print their launch split; then a
 ``{"ab": ...}`` line (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
@@ -1413,26 +1422,105 @@ def check_dx_one_launch(failures: list) -> None:
         failures.append(f"dwconv5x5 dx is not one dwconv launch: {kernels}")
 
 
-def ab_worker(tree: str) -> int:
-    """One side of ``--ab``: the conv3x3 cases of a 192x192 tile and of a
-    training step, and the dwconv5x5 cases (forward, and dx through
-    ``dwconv_vjp``, at both maps), run by the package in ``tree``, in
-    bfloat16 and float32; prints one ``AB {...}`` line of device ms per
-    case."""
+def split_cases():
+    """The cases the launch split profiles: scc_block at every window of a
+    192x192 tile and at the frame's windows 4 and 48, htb_tail with and
+    without stats at a tile and at the frame."""
+    h, w = FRAME_ALIGNED
+    up48 = lambda n: -(-n // 48) * 48
+    return (scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
+            + scc_cases([(h, w, 4, 1), (up48(h), up48(w), 48, 1)], scope="frame")
+            + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
+            + htb_cases(h, w, ((False, 1),), pad=(up48(h) - h, 0), scope="frame"))
+
+
+def _kernel_name(key: str) -> str:
+    """A device kernel's function name without its namespace, template
+    arguments and parameters."""
+    import re
+
+    found = re.search(r"(\w+)\s*[<(]", key.split("::")[-1] if "(" not in key else
+                      re.sub(r"\(anonymous namespace\)::", "", key))
+    return found.group(1) if found else key[:40]
+
+
+def launch_split(cases, dtypes=("bfloat16", "float32")) -> dict:
+    """Device time of each kernel launch one call issues (torch.profiler,
+    one warmed call per case and type), printed one case a line as
+    ``split <kernel> <shape> <type>: total ms | name ms xN; ...``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for case in cases:
+        for dt in dtypes:
+            if case.scope == "frame" and dt == "float32":
+                continue
+            ins = case.make(getattr(torch, dt))
+            case.call(ins, False)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                case.call(ins, False)
+                torch.cuda.synchronize()
+            parts = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                    name = _kernel_name(e.key)
+                    ms, n = parts.get(name, (0.0, 0))
+                    parts[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+            total = sum(ms for ms, _ in parts.values())
+            key = f"{case.kernel} {case.label} {dt}"
+            out[key] = dict(total_ms=total, launches={k: v[0] for k, v in parts.items()})
+            log(f"  split {key}: total {total:.4f} ms | "
+                + "; ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in
+                            sorted(parts.items(), key=lambda kv: -kv[1][0])))
+            del ins
+            torch.cuda.empty_cache()
+    return out
+
+
+def ab_cases():
+    """What ``--ab`` times: conv3x3 at a 192x192 tile's and a training step's
+    shapes, dwconv5x5 (forward and dx at both maps), scc_block at every
+    window of a tile and at the frame's windows 4 and 48, htb_tail and
+    htb_tail_stats at a tile and at the frame, htb_fused at a tile's
+    windows 4 and 8."""
+    n = TRAIN_LR
+    h, w = FRAME_ALIGNED
+    up48 = lambda m: -(-m // 48) * 48
+    return (conv_cases([(TILE, TILE) + c for c in TILE_CONVS])
+            + conv_cases([(n, n) + c for c in TILE_CONVS], scope="step", b=TRAIN_BATCH)
+            + dwconv_cases([(TRAIN_BATCH, n, n, 360, 0), (1, TILE, TILE, 360, 0)], "step")
+            + scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
+            + scc_cases([(h, w, 4, 0), (up48(h), up48(w), 48, 0)], scope="frame")
+            + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
+            + htb_cases(h, w, ((False, 0), (True, 0)), pad=(up48(h) - h, 0), scope="frame")
+            + htb_fused_cases(TILE, TILE, ((4, False, 1), (8, True, 1)), scope="tile"))
+
+
+def ab_worker(tree: str, split: bool) -> int:
+    """One side of ``--ab``: the ``ab_cases`` run by the package in
+    ``tree``, in bfloat16 and float32; prints one ``AB {...}`` line of
+    device ms per case, and before it, with ``split``, the launch split of
+    scc_block and htb_tail."""
     sys.path.insert(0, tree)
     import torch
     from sisr_tpu_torch.ops.kernels import build
 
-    build.build_all(("conv3x3", "dwconv"))
-    n = TRAIN_LR
-    cases = (conv_cases([(TILE, TILE) + c for c in TILE_CONVS])
-             + conv_cases([(n, n) + c for c in TILE_CONVS], scope="step", b=TRAIN_BATCH)
-             + dwconv_cases([(TRAIN_BATCH, n, n, 360, 0), (1, TILE, TILE, 360, 0)], "step"))
+    build.build_all(("conv3x3", "dwconv", "scc_block", "htb_tail", "htb_fused"))
+    if split:
+        log(f"[split] {tree}")
+        launch_split(split_cases(), dtypes=("bfloat16",))
     times = {}
-    for case in cases:
+    for case in ab_cases():
         for dt in (torch.bfloat16, torch.float32):
             ins = case.make(dt)
-            times[f"{case.kernel} {case.label} {dt}"] = time_ms(lambda: case.call(ins, False))
+            few = dict(min_iters=1) if case.scope == "frame" else {}
+            times[f"{case.kernel} {case.label} {dt}"] = time_ms(lambda: case.call(ins, False),
+                                                                **few)
+            del ins
+            torch.cuda.empty_cache()
     print("AB " + json.dumps(times), flush=True)
     return 0
 
@@ -1445,10 +1533,14 @@ def run_ab(base: str) -> int:
 
     here, base = str(Path(__file__).resolve().parent), str(Path(base).resolve())
     runs = []
-    for tree in (base, here, here, base):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ab-worker",
-                               tree], capture_output=True, text=True, check=False)
+    for i, tree in enumerate((base, here, here, base)):
+        args = [sys.executable, str(Path(__file__).resolve()), "--ab-worker", tree]
+        proc = subprocess.run(args + (["--ab-split"] if i < 2 else []), capture_output=True,
+                              text=True, check=False)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        for ln in proc.stdout.splitlines():
+            if ln.startswith(("[split]", "  split ")):
+                log(ln)
         if proc.returncode or not lines:
             log(f"ab worker on {tree} failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
             return 1
@@ -1458,7 +1550,7 @@ def run_ab(base: str) -> int:
         old, new = (runs[0][key] + runs[3][key]) / 2, (runs[1][key] + runs[2][key]) / 2
         rows[key] = dict(base_ms=[runs[0][key], runs[3][key]], ms=[runs[1][key], runs[2][key]],
                          ratio=new / old)
-        log(f"  {key:48s} base {runs[0][key]:.4f} {runs[3][key]:.4f} | this "
+        log(f"  {key:70s} base {runs[0][key]:.4f} {runs[3][key]:.4f} | this "
             f"{runs[1][key]:.4f} {runs[2][key]:.4f} | this/base {new / old:.3f}")
     log(json.dumps({"ab": rows}))
     return 0
@@ -1480,11 +1572,12 @@ def sass_count(kernel: str, opcode: str) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--phases", default="build,kernels,serve,whole,train,profile,check")
-    p.add_argument("--ab", metavar="BASE", help="only time conv3x3 and dwconv5x5 against "
-                   "the kernels of the checkout BASE (one process each: base, this, this, "
-                   "base); prints no result line")
+    p.add_argument("--phases", default="build,kernels,split,serve,whole,train,profile,check")
+    p.add_argument("--ab", metavar="BASE", help="only time conv3x3, dwconv5x5, scc_block, "
+                   "htb_tail and htb_fused against the kernels of the checkout BASE (one "
+                   "process each: base, this, this, base); prints no result line")
     p.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
+    p.add_argument("--ab-split", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1495,9 +1588,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if args.ab_worker:
-        return ab_worker(args.ab_worker)
+        return ab_worker(args.ab_worker, args.ab_split)
     if args.ab:
-        log("[ab] conv3x3 and dwconv5x5, this tree against " + args.ab)
+        log("[ab] conv3x3, dwconv5x5, scc_block, htb_tail(_stats) and htb_fused, this tree "
+            "against " + args.ab)
         return run_ab(args.ab)
     from sisr_tpu_torch.ops.kernels import build
 
@@ -1519,10 +1613,11 @@ def main(argv=None) -> int:
             for line in text.splitlines():
                 if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  {name}: {line.strip()}")
-        hgmma = sass_count("conv3x3", "HGMMA")
-        log(f"  conv3x3 SASS: {hgmma} HGMMA instructions")
-        if hgmma == 0:
-            failures.append("conv3x3's library holds no HGMMA: its bf16 path is not on wgmma")
+        for lib in ("conv3x3", "scc_block", "htb_tail"):
+            hgmma = sass_count(lib, "HGMMA")
+            log(f"  {lib} SASS: {hgmma} HGMMA instructions")
+            if hgmma == 0:
+                failures.append(f"{lib}'s library holds no HGMMA: its bf16 path is not on wgmma")
     except Exception:
         failures.append(f"build: {traceback.format_exc()}")
         log(traceback.format_exc())
@@ -1533,6 +1628,13 @@ def main(argv=None) -> int:
             check_dx_one_launch(failures)
         except Exception:
             failures.append(f"dx profile: {traceback.format_exc()}")
+            log(traceback.format_exc())
+    if "split" in phases and not failures:
+        log("[split] device time of each launch of scc_block and htb_tail (torch.profiler)")
+        try:
+            launch_split(split_cases())
+        except Exception:
+            failures.append(f"split: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "serve" in phases and not failures:
         log("[serve] TiledSR(tile 192, overlap 16) over HiTSIR(**flagship_config())")

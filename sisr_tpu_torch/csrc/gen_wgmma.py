@@ -10,12 +10,13 @@ its own function, written out here.
 
 from pathlib import Path
 
-WIDTHS = (64, 128, 184, 256)
+WIDTHS = (16, 48, 64, 96, 128, 184, 256)
 
 HEAD = """\
 // Generated by gen_wgmma.py; do not edit by hand.
 //
-// The wgmma pieces of the bfloat16 convolution (conv3x3.cu):
+// The wgmma pieces of the bfloat16 kernels (conv3x3.cu, scc_block.cu,
+// htb_tail.cu):
 // wgmma_m64nNk16<N>(d, desc_a, desc_b): d (this thread's N/2 float32
 // accumulators of a 64 x N tile) += A (64 x 16, bfloat16) x B (16 x N,
 // bfloat16), both read from shared memory through their descriptors, both

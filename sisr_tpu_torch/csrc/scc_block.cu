@@ -3,22 +3,51 @@
 // Replaces sisr_tpu/ops/pallas/scc_block.py::_scc_block_pallas, both its
 // per-window body (_make_kernel, windows larger than the base window) and
 // its row-of-windows body (_make_band_kernel, windows <= base, where the
-// pooling is the scalar pw*k + pb): here one algorithm covers every window
-// from 4x4 to 64x64, with no alignment rule.
+// pooling is the scalar pw*k + pb).
 //
 // Per window of L tokens (q = qkv[:, :C/2], v = qkv[:, C/2:], d = C/2/heads):
 //   qkv = x + (leaky0.2(P9a . w9a + b9a) * s1 + leaky0.2(P9m . w9m + b9m) * s2) / 2
 //   k   = qkv @ [w1; w2] + bb
-//   G   = k^T q / L                      (C/2 x C/2; out_c = v @ G)
+//   G   = q^T k / L                      (C/2 x C/2; out_c = v @ G^T)
 //   KP  = pmat @ k + pb, VP = pmat @ v + pb    (l_base x C/2)
 //   M   = samehead(KP^T VP) / d          (C/2 x C/2)
 //   out_s = q @ M + bias @ V_big         (linear attention, reassociated)
 //   out = [out_s | out_c] @ proj + proj_b
 //
-// Bound on the H100: ~90 k multiply-adds per token against ~1.4 KB of f32
-// traffic, so arithmetic.  A 64x64 window is 4096 tokens x 180 channels,
-// far beyond a block's 227 KB of shared memory, so the window is not kept
-// on chip as on the TPU.  Instead up to six launches:
+// Bound on the H100: ~93 k multiply-adds per token (the k synthesis, the
+// gram, the pooling, out_c, the spatial branch and the projection) against
+// x read and out written once, 720 bytes a token in bfloat16: at a 192x192
+// tile 6.9 GFLOP (7.0 us on the bf16 tensor cores) against 27 MB (7.9 us),
+// so the op sits on the ridge, and what costs time is everything that is
+// neither: per-window staging, scratch in device memory, launches.
+//
+// bfloat16 at the model's shapes (C = 180, 6 heads, l_base 16 or 64; wgs
+// below): every product on wgmma, qkv rounded to bfloat16 where both
+// references round it, the operands in K-major 128-byte-swizzled tiles with
+// the channels of each half in 96 head-padded slots (one 16-deep slice a
+// head), weights packed once per weight tensor by the wrapper:
+//  - windows of 16 and 64 tokens (4x4, 8x8): one launch, scc_fused_wg, a
+//    block a 64-token tile (four 4x4 windows or one 8x8).  x is read once
+//    and out written once; qkv, k, the gram, KP, VP, M and [out_s | out_c]
+//    never leave shared memory.  The four windows of a 4x4 tile share the
+//    products of the tile (k, KP and VP through a block-diagonal pooling
+//    tile, the projection) and take their per-window products in turn,
+//    each warp keeping the rows of its window;
+//  - windows of 256 tokens and more (16x16 .. 64x64): scc_reduce_wg per
+//    (window, 256-token split) sums the gram, KP and VP over its tiles in
+//    the wgmma accumulators; a window of one split (16x16) finishes its
+//    operands there, others write float32 partials that scc_finish_wg
+//    totals (one launch for the totals and M); scc_apply_wg per (window,
+//    64-token tile) recomputes qkv from x, computes out_s | out_c and runs
+//    the projection in its epilogue.  Only the windows' operands (60 KB a
+//    window) and the partials (86 KB a split) reach device memory, no qkv.
+//  The spatial branch is float32 in the plain version (the float32 pb
+//  promotes it), so M and VP_big enter their products as hi + lo bfloat16
+//  pairs into the same float32 accumulators.  One 16-slot product a head
+//  keeps M's and VP_big's head mask out of the arithmetic.
+//
+// float32, and bfloat16 at other shapes: the earlier kernels, with up to six
+// launches and float32 scratch:
 //   Q  (64 pixels): qkv = x + SCA(x) into float32 scratch (qkv = x
 //      without SCA), read by A1 and B;
 //   A1 (window, 128-token split): k for 32-token chunks of qkv in shared
@@ -27,9 +56,8 @@
 //      run on the tensor cores (scc_a1_bf16);
 //   A2 (elementwise, windows of several splits only): sums the partials
 //      into G / L, KP + pb, VP + pb; M (window): forms M's same-head blocks;
-//   B  (window, 32-token tile): out_s and out_c in float32 (the plain
-//      version's spatial branch is float32 too: the float32 pb promotes
-//      it), with M, G, VP and the tile's bias rows in shared memory and 4
+//   B  (window, 32-token tile): out_s and out_c in float32 on the FP32
+//      pipes, with M, G, VP and the tile's bias rows in shared memory and 4
 //      tokens x 3 channels of each in registers; writes [out_s | out_c]
 //      into out, rounded to the storage type where the plain version
 //      rounds it, before the projection;
@@ -38,6 +66,8 @@
 // The SCA patches (channel mean/max maps) and s1/s2 are built by the
 // caller, as in JAX.
 #include "common.cuh"
+
+#include "wgmma.cuh"
 
 #include <mma.h>
 
@@ -71,6 +101,8 @@ struct Args {
   const void* bias;
   const void* proj;
   const void* projb;
+  const void* wkvp;   // the wgmma path's packed [w1; w2] and projection, or NULL
+  const void* projp;
   void* out;
   int B, Hp, Wp, C, heads, wh, ww, lb;
 };
@@ -727,6 +759,770 @@ __global__ void __launch_bounds__(NT, 2) scc_proj_bf16(bf16* out, const bf16* __
 
 }  // namespace tcp
 
+// ---- bfloat16 at the model's shapes: wgmma ---------------------------------
+// C = 180, 6 heads (d = 15), windows of L = 16 (l_base 16), L = 64 (l_base
+// 64) or any L that is a multiple of 256 (l_base 64).  A half of the
+// channels lies in 96 head-padded slots: channel c at 16 (c / 15) + c % 15,
+// slot 16 h + 15 zero, so that every head is one 16-deep wgmma slice.
+// Every operand is a K-major tile under the 128-byte swizzle (wgmma.cuh):
+// SW(R, K) holds K / 64 blocks of R rows of 128 bytes.
+
+namespace wgs {
+
+
+constexpr int NTW = 256;        // two warpgroups
+constexpr int P = 96;           // head-padded slots of a half
+constexpr int KX = 2 * P;       // [q | v] slots of the qkv tile, [out_s | out_c] of the out tile
+constexpr int TT = 64;          // tokens of a tile (the wgmma M)
+constexpr int NPROJ = 192;      // rows of the packed projection (C padded)
+constexpr int SPLIT = 256;      // tokens of a reduce block (windows of L >= 256)
+constexpr int HEADS = 6, DH = 15, CC = 180, HALF = 90;
+
+constexpr int XA_B = TT * KX * 2;        // qkv tile SW(64, 192); later the out tile
+constexpr int QT_B = P * TT * 2;         // q^T SW(96, 64) (rows: slots, K: tokens)
+constexpr int VT_B = P * TT * 2;         // v^T
+constexpr int KT_B = P * TT * 2;         // k^T
+constexpr int PM_B = TT * TT * 2;        // pooling tile SW(64, 64)
+constexpr int WKV_B = P * KX * 2;        // packed [w1; w2] SW(96, 192)
+constexpr int PROJ_B = NPROJ * KX * 2;   // packed projection SW(192, 192)
+constexpr int G_B = P * 128 * 2;         // gram image SW(96, 128)
+constexpr int KPVP_B = 2 * TT * P * 4;   // KP and VP in float32, 64 x 96 each
+constexpr int SCA_B = 24 * CC * 2;       // w9a, w9m, b9a, b9m, s1 and s2 of two images
+constexpr int XS_B = TT * CC * 2 + TT * NPAT * 2 + 256;   // the tile's x and patch rows as loaded
+constexpr int META_B = 1024;             // the tile's pixels and images
+__host__ __device__ constexpr int ball_k(int lb) { return (2 * (16 + lb) + 63) / 64 * 64; }
+__host__ __device__ constexpr int ball_b(int lb) { return P * ball_k(lb) * 2; }
+__host__ __device__ constexpr int bias_k(int lb) { return (HEADS * lb + 63) / 64 * 64; }
+__host__ __device__ constexpr int bias_b(int lb) { return TT * bias_k(lb) * 2; }
+constexpr int OPS_B = G_B + ball_b(64);               // a window's operands (split path)
+constexpr int PART_F = P * P + 2 * TT * P;            // a split's G, KP, VP partials
+
+// byte offset of element (r, k) of SW(R, K)
+__device__ __forceinline__ int sw(int R, int r, int k) {
+  return (k >> 6) * R * 128 + r * 128 + ((((k >> 3) & 7) ^ (r & 7)) << 4) + (k & 7) * 2;
+}
+__device__ __forceinline__ void put(unsigned char* t, int R, int r, int k, float v) {
+  *reinterpret_cast<bf16*>(t + sw(R, r, k)) = __float2bfloat16(v);
+}
+// descriptor of rows [r0, r0 + 64) (A) or [r0, r0 + N) (B), 16-deep slice s
+__device__ __forceinline__ uint64_t desc(uint32_t base, int R, int r0, int s) {
+  return sw128_desc(base + (s >> 2) * R * 128 + r0 * 128 + (s & 3) * 32);
+}
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ int slot(int c) { return 16 * (c / DH) + c % DH; }
+// the channel of a half at slot s, or -1 for a pad slot
+__device__ __forceinline__ int chan(int s) { return (s & 15) < DH ? DH * (s >> 4) + (s & 15) : -1; }
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+__device__ __forceinline__ void zero(unsigned char* p, int bytes) {
+  for (int e = threadIdx.x; e < bytes / 16; e += NTW)
+    reinterpret_cast<uint4*>(p)[e] = make_uint4(0, 0, 0, 0);
+}
+// a packed (N, K) row-major bfloat16 matrix into SW(N, K), 16-byte copies
+__device__ __forceinline__ void stage_packed(unsigned char* dst, const void* src, int N, int K) {
+  const int cpr = K / 8;
+  const bf16* s = (const bf16*)src;
+  for (int e = threadIdx.x; e < N * cpr; e += NTW) {
+    const int n = e / cpr, c = e % cpr;
+    cp_async16(dst + (c >> 3) * N * 128 + n * 128 + (((c & 7) ^ (n & 7)) << 4),
+               s + (long long)n * K + c * 8, true);
+  }
+}
+__device__ __forceinline__ void copy_flat(unsigned char* dst, const unsigned char* src, int bytes) {
+  for (int e = threadIdx.x; e < bytes / 16; e += NTW) cp_async16(dst + 16 * e, src + 16 * e, true);
+}
+// rows [l0, l0 + 64) of the position bias (L, 6 lb) into SW(64, bias_k) (rows
+// past L: row % L, the windows of a 16-token tile repeat it)
+__device__ __forceinline__ void stage_bias(unsigned char* dst, const bf16* bias, int L, int lb,
+                                           int l0) {
+  const int cpr = HEADS * lb / 8;
+  for (int e = threadIdx.x; e < TT * cpr; e += NTW) {
+    const int t = e / cpr, c = e % cpr;
+    cp_async16(dst + (c >> 3) * TT * 128 + t * 128 + (((c & 7) ^ (t & 7)) << 4),
+               bias + (long long)((l0 + t) % L) * (HEADS * lb) + c * 8, true);
+  }
+}
+// The tile's tokens: pix(t), the pixel of token t or -1 past the map, once
+// per tile into meta (64 pixels, then 64 images), by the first 64 threads
+struct Meta {
+  long long pix[TT];
+  int img[TT];
+};
+template <typename Pix>
+__device__ __forceinline__ void tile_meta(const Args& a, Pix pix, Meta* meta) {
+  if (threadIdx.x < TT) {
+    const long long p = pix(threadIdx.x);
+    meta->pix[threadIdx.x] = p;
+    meta->img[threadIdx.x] = p < 0 ? 0 : (int)(p / ((long long)a.Hp * a.Wp));
+  }
+}
+// x and patch rows of the tile's tokens into xs by 8- and 4-byte cp.async
+// (zero past the map): every load in flight at once, none on a thread's
+// critical path
+__device__ __forceinline__ void issue_x(const Args& a, const Meta* meta, unsigned char* xs) {
+  const bf16* x = (const bf16*)a.x;
+  for (int e = threadIdx.x; e < TT * (CC / 4); e += NTW) {
+    const int t = e / (CC / 4), c = e % (CC / 4);
+    const long long p = meta->pix[t];
+    cp_async8(xs + t * (CC * 2) + c * 8, p < 0 ? x : x + p * CC + c * 4, p >= 0);
+  }
+  if (a.patches == nullptr) return;
+  const bf16* pat = (const bf16*)a.patches;
+  unsigned char* ps = xs + TT * CC * 2;
+  for (int e = threadIdx.x; e < TT * (NPAT / 2); e += NTW) {
+    const int t = e / (NPAT / 2), c = e % (NPAT / 2);
+    const long long p = meta->pix[t];
+    cp_async4(ps + t * (NPAT * 2) + c * 4, p < 0 ? pat : pat + p * NPAT + c * 2, p >= 0);
+  }
+}
+// the SCA weights by 8-byte cp.async: rows of C, w9a (9), w9m (9), b9a,
+// b9m, then s1 and s2 of the tile's first and of its last image
+__device__ __forceinline__ void issue_sca(const Args& a, const Meta* meta, unsigned char* sca) {
+  if (a.patches == nullptr) return;
+  const int i0 = meta->img[0], i1 = meta->img[TT - 1];
+  for (int e = threadIdx.x; e < 24 * (CC / 4); e += NTW) {
+    const int r = e / (CC / 4), c = e % (CC / 4);
+    const bf16* src = r < 9 ? (const bf16*)a.w9a + r * CC
+                      : r < 18 ? (const bf16*)a.w9m + (r - 9) * CC
+                      : r == 18 ? (const bf16*)a.b9a
+                      : r == 19 ? (const bf16*)a.b9m
+                      : (const bf16*)(r % 2 ? a.s2 : a.s1) + (long long)(r < 22 ? i0 : i1) * CC;
+    cp_async8(sca + r * (CC * 2) + c * 8, src + c * 4, true);
+  }
+}
+// the pooling tile: rows m of window w (16 w + m for 16-token windows, four
+// to a tile), columns the tile's tokens: pmat[m][l0 + t] where token t is
+// in the row's window, else 0.  Windows of 64 tokens and more: rows of
+// pmat by 16-byte cp.async (zero past l_base).  16-token windows: after
+// zero_pool and a barrier, the diagonal blocks.
+__device__ __forceinline__ void zero_pool(unsigned char* pm, int L) {
+  if (L < TT) zero(pm, PM_B);
+}
+__device__ __forceinline__ void stage_pool(unsigned char* pm, const bf16* pmat, int L, int lb,
+                                           int l0) {
+  if (L < TT) {
+    if (threadIdx.x < L * L) {
+      const bf16 v = pmat[threadIdx.x];
+      const int m = threadIdx.x / L, l = threadIdx.x % L;
+      for (int w = 0; w < TT / L; ++w)
+        *reinterpret_cast<bf16*>(pm + sw(TT, w * L + m, w * L + l)) = v;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < TT * 8; e += NTW) {
+    const int r = e >> 3, c = e & 7;
+    cp_async16(pm + sw(TT, r, 8 * c), r < lb ? pmat + (long long)r * L + l0 + 8 * c : pmat,
+               r < lb);
+  }
+}
+
+// qkv = x + SCA(x), rounded to bfloat16 as both references round it, for
+// the tile's 64 tokens from xs (issue_x's rows, landed) and sca
+// (issue_sca's rows, landed): into Xa ([q | v] slots of each token) and,
+// unless null, Qt and Vt (slot rows, token columns).  180 threads, a
+// channel pair and 32 tokens each, the pair's SCA weights in registers.
+// Tokens past the map stay zero.  Ends with a barrier.
+__device__ void qkv_tile(const Args& a, const unsigned char* sca, const Meta* meta,
+                         const unsigned char* xs, unsigned char* Xa, unsigned char* Qt,
+                         unsigned char* Vt) {
+  zero(Xa, XA_B);
+  if (Qt != nullptr) {
+    zero(Qt, QT_B);
+    zero(Vt, VT_B);
+  }
+  __syncthreads();
+  if (threadIdx.x < CC) {
+    const int cp = threadIdx.x % (CC / 2), t0 = threadIdx.x / (CC / 2) * (TT / 2), c = 2 * cp;
+    const bool on = a.patches != nullptr;
+    const auto w2 = [&](int r) {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sca + (r * CC + c) * 2));
+    };
+    float2 wa[9], wm[9], ba, bm, g1[2], g2[2];
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        wa[i] = w2(i);
+        wm[i] = w2(9 + i);
+      }
+      ba = w2(18);
+      bm = w2(19);
+      g1[0] = w2(20);
+      g2[0] = w2(21);
+      g1[1] = w2(22);
+      g2[1] = w2(23);
+    }
+    const bool isv = c >= HALF;
+    const int s0 = slot(c - (isv ? HALF : 0)), s1 = slot(c + 1 - (isv ? HALF : 0));
+    const int k0 = (isv ? P : 0) + s0, k1 = (isv ? P : 0) + s1;
+    unsigned char* T = isv ? Vt : Qt;
+    const int i0 = meta->img[0];
+    // four tokens at a time, so that their loads and products overlap
+    for (int t = t0; t < t0 + TT / 2; t += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tt = t + u;
+        float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xs + (tt * CC + c) * 2));
+        if (on) {
+          const __nv_bfloat162* pt =
+              reinterpret_cast<const __nv_bfloat162*>(xs + TT * CC * 2 + tt * NPAT * 2);
+          float pv[NPAT];
+#pragma unroll
+          for (int j = 0; j < NPAT / 2; ++j) {
+            const float2 f = __bfloat1622float2(pt[j]);
+            pv[2 * j] = f.x;
+            pv[2 * j + 1] = f.y;
+          }
+          float2 sa = ba, sm2 = bm;
+#pragma unroll
+          for (int i = 0; i < 9; ++i) {
+            sa.x = fmaf(pv[i], wa[i].x, sa.x);
+            sa.y = fmaf(pv[i], wa[i].y, sa.y);
+            sm2.x = fmaf(pv[9 + i], wm[i].x, sm2.x);
+            sm2.y = fmaf(pv[9 + i], wm[i].y, sm2.y);
+          }
+          const int im = meta->img[tt] == i0 ? 0 : 1;
+          v.x += (leaky_f(sa.x, 0.2f) * g1[im].x + leaky_f(sm2.x, 0.2f) * g2[im].x) * 0.5f;
+          v.y += (leaky_f(sa.y, 0.2f) * g1[im].y + leaky_f(sm2.y, 0.2f) * g2[im].y) * 0.5f;
+        }
+        if (meta->pix[tt] < 0) continue;   // past the map: the rows stay zero
+        const bf16 qx = __float2bfloat16(v.x), qy = __float2bfloat16(v.y);
+        *reinterpret_cast<bf16*>(Xa + sw(TT, tt, k0)) = qx;
+        *reinterpret_cast<bf16*>(Xa + sw(TT, tt, k1)) = qy;
+        if (Qt != nullptr) {
+          *reinterpret_cast<bf16*>(T + sw(P, s0, tt)) = qx;
+          *reinterpret_cast<bf16*>(T + sw(P, s1, tt)) = qy;
+        }
+      }
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// accumulator i of a thread in its warpgroup's 64 x N tile: row
+// 16 warp + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2
+__device__ __forceinline__ int acc_row(int i) {
+  const int lt = threadIdx.x & 127;
+  return 16 * (lt >> 5) + ((lt & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1); }
+
+template <int N>
+__device__ __forceinline__ void settle(float (&acc)[N]) {
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(acc[i]);
+}
+
+// k = qkv @ [w1; w2] + bb, rounded to bfloat16, into Kt (slot rows, token
+// columns; zero in the pad slots): warpgroup g the slots [48 g, 48 g + 48)
+__device__ void k_tile(const Args& a, uint32_t xa, uint32_t wkv, unsigned char* Kt) {
+  const int g = threadIdx.x >> 7;
+  float acc[24];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) acc[i] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KX / 16; ++s)
+    wgmma_m64nNk16<48>(acc, desc(xa, TT, 0, s), desc(wkv, P, 48 * g, s));
+  settle(acc);
+  const bf16* bb = (const bf16*)a.bb;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int n = 48 * g + acc_col(i), d = chan(n);
+    put(Kt, P, n, acc_row(i), d < 0 ? 0.0f : acc[i] + __bfloat162float(bb[d]));
+  }
+}
+
+// pool @ k (warpgroup 0) or pool @ v (warpgroup 1) over the tile's tokens,
+// added into acc
+__device__ __forceinline__ void pool_tile(float (&acc)[48], uint32_t pm, uint32_t kt,
+                                          uint32_t vt) {
+  const int g = threadIdx.x >> 7;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < TT / 16; ++s)
+    wgmma_m64nNk16<96>(acc, desc(pm, TT, 0, s), desc(g ? vt : kt, P, 0, s));
+  settle(acc);
+}
+// the gram q^T k over the token slices [s0, s0 + ns) of the tile, added
+// into acc: warpgroup 0 rows (q slots) 0..63, warpgroup 1 rows 32..95
+__device__ __forceinline__ void gram_tile(float (&acc)[48], uint32_t qt, uint32_t kt, int s0,
+                                          int ns) {
+  const int g = threadIdx.x >> 7;
+  wgmma_fence();
+  for (int s = s0; s < s0 + ns; ++s)
+    wgmma_m64nNk16<96>(acc, desc(qt, P, 32 * g, s), desc(kt, P, 0, s));
+  settle(acc);
+}
+// the gram as out_c's operand: rows q slots c, K k slots d, G / L rounded
+// as the plain version rounds it (the product in bfloat16, then / L)
+__device__ __forceinline__ void put_gram(const float (&acc)[48], unsigned char* gimg, int L) {
+  const int g = threadIdx.x >> 7;
+  const float invl = 1.0f / (float)L;
+#pragma unroll
+  for (int i = 0; i < 48; ++i) {
+    const int r = 32 * g + acc_row(i);
+    if (g == 0 ? r < 64 : r >= 64) put(gimg, P, r, acc_col(i), rbf(acc[i]) * invl);
+  }
+}
+// KP (warpgroup 0) or VP (warpgroup 1): rounded to bfloat16 as the plain
+// einsum's result, then + pb in float32, into kpvp (rows m, 96 slots)
+__device__ __forceinline__ void put_pool(const float (&acc)[48], float* kpvp, float pb) {
+  float* dst = kpvp + (threadIdx.x >> 7) * TT * P;
+#pragma unroll
+  for (int i = 0; i < 48; ++i) dst[acc_row(i) * P + acc_col(i)] = rbf(acc[i]) + pb;
+}
+
+// The spatial operand of one window, SW(96, ball_k): row 16 h + i (head h,
+// slot i), K [M hi (16) | VP hi (lb) | M lo (16) | VP lo (lb)], with M =
+// samehead(KP^T VP) / d; each float32 value v as hi = bf16(v) and lo =
+// bf16(v - hi), so that two products into float32 accumulators keep ~16
+// bits of it (the plain version holds M and VP in float32).
+template <int LB>
+__device__ void build_ball(const float* KP, const float* VP, unsigned char* ball) {
+  constexpr int nk = 16 + LB;
+  // M: row n = 16 h + i, column k, both slots of head h
+  for (int e = threadIdx.x; e < P * 16; e += NTW) {
+    const int n = e >> 4, k = e & 15, h = n >> 4, i = n & 15;
+    float v = 0.0f;
+    if (i < DH && k < DH) {
+      const float* kp = KP + 16 * h + k;
+      const float* vp = VP + n;
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int m = 0; m < LB; ++m) s[m & 3] = fmaf(kp[m * P], vp[m * P], s[m & 3]);
+      v = ((s[0] + s[1]) + (s[2] + s[3])) * (1.0f / (float)DH);
+    }
+    const float hi = rbf(v);
+    put(ball, P, n, k, hi);
+    put(ball, P, n, nk + k, v - hi);
+  }
+  // VP_big: row n, column 16 + m
+  for (int e = threadIdx.x; e < P * LB; e += NTW) {
+    const int m = e / P, n = e % P;
+    const float v = (n & 15) < DH ? VP[m * P + n] : 0.0f;
+    const float hi = rbf(v);
+    put(ball, P, n, 16 + m, hi);
+    put(ball, P, n, nk + 16 + m, v - hi);
+  }
+}
+
+// out_c = v @ G^T and out_s = q @ M + bias @ VP_big, added into acc:
+// warpgroup g takes out_c's slots [48 g, 48 g + 48) (accumulators 0..23)
+// and out_s's heads 3 g .. 3 g + 2 (24 + 8 h ..), one 16-slot product a
+// head, hi then lo; both warpgroups issue the same sequence, so that no
+// wgmma sits on a divergent path
+template <int LB>
+__device__ __forceinline__ void apply(float (&acc)[48], uint32_t xa, uint32_t gimg, uint32_t ball,
+                                      uint32_t bias) {
+  constexpr int NB = LB / 16;
+  const int g = threadIdx.x >> 7;
+  float ac[24], ah[3][8];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) ac[i] = acc[i];
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ah[h][i] = acc[24 + 8 * h + i];
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < P / 16; ++s)
+    wgmma_m64nNk16<48>(ac, desc(xa, TT, 0, P / 16 + s), desc(gimg, P, 48 * g, s));
+#pragma unroll
+  for (int hh = 0; hh < 3; ++hh) {
+    const int h = 3 * g + hh;
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const int b0 = part * (NB + 1);
+      wgmma_m64nNk16<16>(ah[hh], desc(xa, TT, 0, h), desc(ball, P, 16 * h, b0));
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_m64nNk16<16>(ah[hh], desc(bias, TT, 0, h * NB + j),
+                           desc(ball, P, 16 * h, b0 + 1 + j));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    fence_operand(ac[i]);
+    acc[i] = ac[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      fence_operand(ah[h][i]);
+      acc[24 + 8 * h + i] = ah[h][i];
+    }
+}
+// [out_s | out_c] rounded to bfloat16 into the out tile (token rows; out_s
+// at slots 0..95, out_c at 96..191), from apply's accumulators
+__device__ __forceinline__ void put_out(const float (&acc)[48], unsigned char* ot) {
+  const int g = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) put(ot, TT, acc_row(i), P + 48 * g + acc_col(i), acc[i]);
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      put(ot, TT, acc_row(i), 16 * (3 * g + h) + acc_col(i), acc[24 + 8 * h + i]);
+}
+// out = [out_s | out_c] @ proj + proj_b: warpgroup g the output channels
+// [96 g, 96 g + 96) (rows past 180 of the pack are zero); the rows go back
+// over the out tile and leave from there, 8 bytes a thread
+__device__ __forceinline__ void proj_tile(const Args& a, unsigned char* ot_ptr, uint32_t proj,
+                                          const Meta* meta) {
+  const uint32_t ot = saddr(ot_ptr);
+  const int n0 = 96 * (threadIdx.x >> 7);
+  float acc[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KX / 16; ++s)
+    wgmma_m64nNk16<96>(acc, desc(ot, TT, 0, s), desc(proj, NPROJ, n0, s));
+  settle(acc);
+  __syncthreads();   // both warpgroups' products have read the out tile: rows over it
+  const bf16* pbv = (const bf16*)a.projb;
+  unsigned char* rows = ot_ptr;
+#pragma unroll
+  for (int i = 0; i < 48; i += 2) {
+    const int n = n0 + acc_col(i);
+    if (n >= CC) continue;
+    *reinterpret_cast<__nv_bfloat162*>(rows + (acc_row(i) * CC + n) * 2) = __floats2bfloat162_rn(
+        acc[i] + __bfloat162float(pbv[n]), acc[i + 1] + __bfloat162float(pbv[n + 1]));
+  }
+  __syncthreads();
+  // to out, 8 bytes a thread, consecutive threads on a token's consecutive bytes
+  bf16* out = (bf16*)a.out;
+  for (int e = threadIdx.x; e < TT * (CC / 4); e += NTW) {
+    const int t = e / (CC / 4), c = e % (CC / 4);
+    const long long p = meta->pix[t];
+    if (p >= 0)
+      *reinterpret_cast<uint2*>(out + p * CC + c * 4) =
+          *reinterpret_cast<const uint2*>(rows + t * (CC * 2) + c * 8);
+  }
+}
+
+__host__ __device__ constexpr int xs_ball_b(int lb) { return ball_b(lb) > XS_B ? ball_b(lb) : XS_B; }
+__host__ __device__ constexpr int smem_fused(int lb) {
+  return XA_B + bias_b(lb) + PM_B + G_B + xs_ball_b(lb) + KPVP_B + QT_B + VT_B + KT_B + META_B +
+         1024;
+}
+static_assert(smem_fused(64) <= 232448, "the 64-token window's block");
+static_assert(WKV_B <= KPVP_B && PROJ_B <= KPVP_B + QT_B + VT_B + KT_B && SCA_B <= G_B &&
+                  sizeof(Meta) <= META_B,
+              "aliased regions");
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  const uint32_t raw = saddr(p);
+  return p + (((raw + 1023u) & ~1023u) - raw);
+}
+
+// Windows of 16 or 64 tokens, one launch: a block takes one 64-token tile
+// (four 4x4 windows or one 8x8), computes qkv, k, the gram, KP, VP, M, the
+// spatial and channel outputs and the projection on chip and writes out.
+// Shared memory (every region 1024-byte aligned):
+//   Xa | bias | pool | G (SCA weights first) | Ball (x rows first) | U | meta
+// where U holds [w1; w2] (then KP, VP) and q^T, v^T, k^T, and at the end
+// the projection.
+template <int LB>
+__global__ void __launch_bounds__(NTW, 1) scc_fused_wg(Args a, Dims D) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Xa = align1k(smem_raw);
+  unsigned char* Bs = Xa + XA_B;
+  unsigned char* Pm = Bs + bias_b(LB);
+  unsigned char* Gi = Pm + PM_B;
+  unsigned char* Ba = Gi + G_B;
+  unsigned char* U = Ba + xs_ball_b(LB);
+  unsigned char* Qt = U + KPVP_B;
+  unsigned char* Vt = Qt + QT_B;
+  unsigned char* Kt = Vt + VT_B;
+  Meta* meta = (Meta*)(Kt + KT_B);
+  float* kpvp = (float*)U;
+  constexpr int L = LB;                 // the window's tokens (l_base = L)
+  constexpr int NW = TT / L;            // windows of a tile
+  const long long unit = blockIdx.x;
+
+  zero_pool(Pm, L);
+  tile_meta(a, [&](int t) -> long long {
+    const long long win = unit * NW + t / L;
+    return win < D.nwin ? pixel_of(a, D, (int)win, t % L) : -1;
+  }, meta);
+  __syncthreads();
+  issue_x(a, meta, Ba);
+  issue_sca(a, meta, Gi);
+  cp_async_commit();
+  stage_bias(Bs, (const bf16*)a.bias, L, LB, 0);
+  stage_packed(U, a.wkvp, P, KX);
+  stage_pool(Pm, (const bf16*)a.pmat, L, LB, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  qkv_tile(a, Gi, meta, Ba, Xa, Qt, Vt);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  k_tile(a, saddr(Xa), saddr(U), Kt);
+  fence_proxy_async();
+  __syncthreads();
+  {
+    float acc[48];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) acc[i] = 0.0f;
+    pool_tile(acc, saddr(Pm), saddr(Kt), saddr(Vt));
+    __syncthreads();   // [w1; w2] is read: KP and VP go over it
+    put_pool(acc, kpvp, *a.pb);
+  }
+  float acc[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] = 0.0f;
+  for (int w = 0; w < NW; ++w) {
+    {
+      float gacc[48];
+#pragma unroll
+      for (int i = 0; i < 48; ++i) gacc[i] = 0.0f;
+      gram_tile(gacc, saddr(Qt), saddr(Kt), w * L / 16, L / 16);
+      put_gram(gacc, Gi, L);
+    }
+    __syncthreads();   // KP and VP are written
+    build_ball<LB>(kpvp + w * L * P, kpvp + TT * P + w * L * P, Ba);
+    fence_proxy_async();
+    __syncthreads();
+    if (NW == 1) {
+      apply<LB>(acc, saddr(Xa), saddr(Gi), saddr(Ba), saddr(Bs));
+    } else {
+      // the rows of window w are warp w's: keep its rows of this product
+      float tmp[48];
+#pragma unroll
+      for (int i = 0; i < 48; ++i) tmp[i] = 0.0f;
+      apply<LB>(tmp, saddr(Xa), saddr(Gi), saddr(Ba), saddr(Bs));
+      if (((threadIdx.x & 127) >> 5) == w) {
+#pragma unroll
+        for (int i = 0; i < 48; ++i) acc[i] = tmp[i];
+      }
+    }
+    __syncthreads();   // the window's operands are read
+  }
+  put_out(acc, Xa);
+  stage_packed(U, a.projp, NPROJ, KX);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  proj_tile(a, Xa, saddr(U), meta);
+}
+
+// ---- windows of L >= 256 tokens: reduce, (totals), apply ---------------------
+// The operands of a window (ops: the gram image, then Ball) pass through
+// device memory, in the swizzled form the apply block copies as it is.
+
+constexpr int SMEM_R = XA_B + QT_B + VT_B + KT_B + PM_B + WKV_B + SCA_B + 2 * XS_B + 2 * META_B + 1024;
+constexpr int SMEM_F = P * P * 4 + KPVP_B + G_B + ball_b(64);
+constexpr int SCA_R = (SCA_B + 1023) / 1024 * 1024;   // the SCA weights, then the x rows
+constexpr int SMEM_A = PROJ_B + G_B + ball_b(64) + bias_b(64) + XA_B + META_B + 1024;
+static_assert(SMEM_A <= 232448 && SCA_R + XS_B <= bias_b(64) && OPS_B <= XA_B + QT_B + VT_B + KT_B &&
+                  KPVP_B <= WKV_B + SCA_B + XS_B,
+              "split path regions");
+
+// the window's operands from float32 totals in shared memory (G as [c][d]
+// slots, KP / VP after + pb), into gimg / ball in shared memory
+__device__ void finish_ops(const float* G, const float* kpvp, int L, unsigned char* gimg,
+                           unsigned char* ball) {
+  const float invl = 1.0f / (float)L;
+  for (int e = threadIdx.x; e < P * P; e += NTW)
+    put(gimg, P, e / P, e % P, rbf(G[e]) * invl);
+  build_ball<64>(kpvp, kpvp + TT * P, ball);
+}
+__device__ __forceinline__ void store_flat(unsigned char* dst, const unsigned char* src, int bytes) {
+  for (int e = threadIdx.x; e < bytes / 16; e += NTW)
+    reinterpret_cast<uint4*>(dst)[e] = reinterpret_cast<const uint4*>(src)[e];
+}
+
+// R: block (window, split of 256 tokens): qkv, k, and the gram, KP and VP
+// summed over the split's 64-token tiles in the accumulators; a window of
+// one split finishes its operands here, others write float32 partials.
+__global__ void __launch_bounds__(NTW, 1) scc_reduce_wg(Args a, Dims D, unsigned char* ops,
+                                                         float* part) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Xa = align1k(smem_raw);
+  unsigned char* Qt = Xa + XA_B;
+  unsigned char* Vt = Qt + QT_B;
+  unsigned char* Kt = Vt + VT_B;
+  unsigned char* Pm = Kt + KT_B;
+  unsigned char* Wk = Pm + PM_B;
+  unsigned char* sca = Wk + WKV_B;
+  unsigned char* xs = Wk + WKV_B + SCA_B;             // two buffers: the x rows of a tile
+  Meta* meta = (Meta*)(xs + 2 * XS_B);                 // two: the tokens of a tile
+  const int win = blockIdx.x, split = blockIdx.y, L = D.L, g = threadIdx.x >> 7;
+  const int nsplit = (L + SPLIT - 1) / SPLIT;
+  const int t0 = split * SPLIT, nt = (min(L, t0 + SPLIT) - t0) / TT;
+  auto tokens = [&](int c) {
+    tile_meta(a, [&](int t) -> long long { return pixel_of(a, D, win, t0 + c * TT + t); },
+              meta + (c & 1));
+  };
+
+  stage_packed(Wk, a.wkvp, P, KX);
+  tokens(0);
+  __syncthreads();
+  issue_x(a, meta, xs);
+  issue_sca(a, meta, sca);   // one window: one image
+  cp_async_commit();
+  float gacc[48], pacc[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) gacc[i] = pacc[i] = 0.0f;
+  // tile c's x rows arrive while tile c - 1 is computed
+  for (int c = 0; c < nt; ++c) {
+    stage_pool(Pm, (const bf16*)a.pmat, L, 64, t0 + c * TT);
+    cp_async_commit();
+    if (c + 1 < nt) tokens(c + 1);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c + 1 < nt) issue_x(a, meta + ((c + 1) & 1), xs + ((c + 1) & 1) * XS_B);
+    cp_async_commit();
+    qkv_tile(a, sca, meta + (c & 1), xs + (c & 1) * XS_B, Xa, Qt, Vt);
+    k_tile(a, saddr(Xa), saddr(Wk), Kt);
+    fence_proxy_async();
+    __syncthreads();
+    gram_tile(gacc, saddr(Qt), saddr(Kt), 0, TT / 16);
+    pool_tile(pacc, saddr(Pm), saddr(Kt), saddr(Vt));
+    __syncthreads();   // the tile's readers are done
+  }
+  __syncthreads();
+  if (nsplit == 1) {
+    // the gram image over Xa.., KP and VP over [w1; w2] and the SCA weights
+    unsigned char* gimg = Xa;
+    unsigned char* ball = Xa + G_B;
+    float* kpvp = (float*)Wk;
+    put_gram(gacc, gimg, L);
+    put_pool(pacc, kpvp, *a.pb);
+    __syncthreads();
+    build_ball<64>(kpvp, kpvp + TT * P, ball);
+    __syncthreads();
+    store_flat(ops + (long long)win * OPS_B, gimg, OPS_B);
+    return;
+  }
+  float* dst = part + ((long long)win * nsplit + split) * PART_F;
+#pragma unroll
+  for (int i = 0; i < 48; ++i) {
+    const int r = 32 * g + acc_row(i);
+    if (g == 0 ? r < 64 : r >= 64) dst[r * P + acc_col(i)] = gacc[i];
+    dst[P * P + g * TT * P + acc_row(i) * P + acc_col(i)] = pacc[i];
+  }
+}
+
+// F (windows of several splits): the totals of the partials, in split
+// order, and the window's operands
+__global__ void __launch_bounds__(NTW) scc_finish_wg(Args a, Dims D, const float* part,
+                                                      unsigned char* ops) {
+  extern __shared__ unsigned char smem_raw[];
+  float* G = (float*)smem_raw;                      // 96 x 96
+  float* kpvp = G + P * P;                          // 2 x 64 x 96
+  unsigned char* gimg = (unsigned char*)(kpvp + 2 * TT * P);   // + Ball: 1024-aligned
+  const int win = blockIdx.x, nsplit = (D.L + SPLIT - 1) / SPLIT;
+  const float* src = part + (long long)win * nsplit * PART_F;
+  const float pb = *a.pb;
+  for (int e = threadIdx.x; e < PART_F; e += NTW) {
+    float s = 0.0f;
+    for (int k = 0; k < nsplit; ++k) s += src[(long long)k * PART_F + e];
+    if (e < P * P)
+      G[e] = s;
+    else
+      kpvp[e - P * P] = rbf(s) + pb;
+  }
+  __syncthreads();
+  finish_ops(G, kpvp, D.L, gimg, gimg + G_B);
+  __syncthreads();
+  store_flat(ops + (long long)win * OPS_B, gimg, OPS_B);
+}
+
+// A: block (window, 64-token tile): qkv again from x, then out_s | out_c
+// against the window's operands and the projection, written to out.
+__global__ void __launch_bounds__(NTW, 1) scc_apply_wg(Args a, Dims D, const unsigned char* ops) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Pj = align1k(smem_raw);
+  unsigned char* Gi = Pj + PROJ_B;
+  unsigned char* Ba = Gi + G_B;
+  unsigned char* Bs = Ba + ball_b(64);
+  unsigned char* Xa = Bs + bias_b(64);
+  Meta* meta = (Meta*)(Xa + XA_B);
+  unsigned char* xs = Bs + SCA_R;    // the x rows and the SCA weights, then the bias tile
+  const int win = blockIdx.x, l0 = blockIdx.y * TT;
+
+  tile_meta(a, [&](int t) -> long long { return pixel_of(a, D, win, l0 + t); }, meta);
+  __syncthreads();
+  issue_x(a, meta, xs);
+  issue_sca(a, meta, Bs);
+  cp_async_commit();
+  stage_packed(Pj, a.projp, NPROJ, KX);
+  copy_flat(Gi, ops + (long long)win * OPS_B, OPS_B);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  qkv_tile(a, Bs, meta, xs, Xa, nullptr, nullptr);
+  stage_bias(Bs, (const bf16*)a.bias, D.L, 64, l0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  float acc[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] = 0.0f;
+  apply<64>(acc, saddr(Xa), saddr(Gi), saddr(Ba), saddr(Bs));
+  __syncthreads();
+  put_out(acc, Xa);
+  fence_proxy_async();
+  __syncthreads();
+  proj_tile(a, Xa, saddr(Pj), meta);
+}
+
+// the shapes this path takes (ops/kernels/scc_block.py::wgmma_path repeats it)
+__host__ __device__ inline bool takes(int C, int heads, int L, int lb) {
+  return C == CC && heads == HEADS &&
+         ((L == 16 && lb == 16) || (L == 64 && lb == 64) || (L % SPLIT == 0 && lb == 64));
+}
+
+long long scratch_bytes(const Dims& D) {
+  if (D.L < SPLIT) return 0;
+  const int nsplit = D.L / SPLIT;
+  return (long long)D.nwin * OPS_B +
+         (nsplit > 1 ? (long long)D.nwin * nsplit * PART_F * 4 : 0);
+}
+
+int launch(const Args& a, unsigned char* scratch, cudaStream_t stream) {
+  const Dims D = dims_of(a.B, a.Hp, a.Wp, a.C, a.heads, a.wh, a.ww, a.lb);
+  if (!takes(a.C, a.heads, D.L, a.lb) || a.wkvp == nullptr || a.projp == nullptr) return -1;
+  if (D.L < SPLIT) {
+    const unsigned units = (unsigned)((D.nwin * (long long)D.L + TT - 1) / TT);
+    if (D.L == 16) {
+      if (set_smem(scc_fused_wg<16>, smem_fused(16))) return -1;
+      scc_fused_wg<16><<<units, NTW, smem_fused(16), stream>>>(a, D);
+    } else {
+      if (set_smem(scc_fused_wg<64>, smem_fused(64))) return -1;
+      scc_fused_wg<64><<<units, NTW, smem_fused(64), stream>>>(a, D);
+    }
+    return (int)cudaGetLastError();
+  }
+  const int nsplit = D.L / SPLIT;
+  unsigned char* ops = scratch;
+  float* part = (float*)(scratch + (long long)D.nwin * OPS_B);
+  if (set_smem(scc_reduce_wg, SMEM_R) || set_smem(scc_finish_wg, SMEM_F) ||
+      set_smem(scc_apply_wg, SMEM_A))
+    return -1;
+  scc_reduce_wg<<<dim3(D.nwin, nsplit), NTW, SMEM_R, stream>>>(a, D, ops, part);
+  if (nsplit > 1) scc_finish_wg<<<D.nwin, NTW, SMEM_F, stream>>>(a, D, part, ops);
+  scc_apply_wg<<<dim3(D.nwin, D.L / TT), NTW, SMEM_A, stream>>>(a, D, ops);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgs
+
 template <typename T>
 int launch(const Args& a, float* scratch, cudaStream_t stream) {
   const Dims D = dims_of(a.B, a.Hp, a.Wp, a.C, a.heads, a.wh, a.ww, a.lb);
@@ -780,36 +1576,43 @@ int launch(const Args& a, float* scratch, cudaStream_t stream) {
 
 }  // namespace
 
-// Float32 scratch the launch needs (the caller allocates it): qkv, the
-// partials, M, and the totals where a window has several splits.
-extern "C" long long scc_block_scratch_floats(int B, int Hp, int Wp, int C, int wh, int ww,
-                                              int lb) {
-  const Dims D = dims_of(B, Hp, Wp, C, 1, wh, ww, lb);
-  return (long long)B * Hp * Wp * C +
-         (long long)D.nwin * ((D.nsplit + (D.nsplit > 1)) * D.part_floats +
-                              (long long)D.half * D.half);
+// Scratch bytes the launch needs (the caller allocates it).  The wgmma
+// path (packed != 0): for windows of L >= 256 each window's operands and,
+// with several splits, their float32 partials; none for smaller windows.
+// The other kernels: float32 qkv, the partials, M, and the totals where a
+// window has several splits.
+extern "C" long long scc_block_scratch_bytes(int packed, int B, int Hp, int Wp, int C, int heads,
+                                             int wh, int ww, int lb) {
+  const Dims D = dims_of(B, Hp, Wp, C, heads, wh, ww, lb);
+  if (packed) return wgs::scratch_bytes(D);
+  return 4 * ((long long)B * Hp * Wp * C +
+              (long long)D.nwin * ((D.nsplit + (D.nsplit > 1)) * D.part_floats +
+                                   (long long)D.half * D.half));
 }
-
 // dtype: 0 float32, 1 bfloat16.  x/out (B, Hp, Wp, C); patches (B, Hp, Wp,
 // 18) or NULL (no SCA, then w9a..s2 are unused); w9a/w9m (9, C); b9a/b9m
 // (C); s1/s2 (B, C); wkv (C, C/2); bb (C/2); pmat (lb, L); pb one float32 on
 // the device; bias (L, heads*lb); proj (C, C) in (in, out) layout; projb
-// (C).  Returns cudaGetLastError() after the launches, or -1 for refused
-// shapes (C > 192 among them).
+// (C); wkvp (96, 192) and projp (192, 192) the wgmma path's packed weights
+// (ops/kernels/scc_block.py::pack_wkv, pack_proj) or NULL.  Returns
+// cudaGetLastError() after the launches, or -1 for refused shapes (C > 192
+// among them).
 extern "C" int scc_block_launch(int dtype, const void* x, const void* patches, const void* w9a,
                                 const void* b9a, const void* w9m, const void* b9m,
                                 const void* s1, const void* s2, const void* wkv,
                                 const void* bb, const void* pmat, const void* pb,
-                                const void* bias, const void* proj, const void* projb, void* out,
-                                void* scratch, int B, int Hp, int Wp, int C, int heads, int wh,
+                                const void* bias, const void* proj, const void* projb,
+                                const void* wkvp, const void* projp, void* out, void* scratch, int B, int Hp, int Wp, int C, int heads, int wh,
                                 int ww, int lb, void* stream) {
   if (B <= 0 || C <= 0 || C % 2 || heads <= 0 || (C / 2) % heads || wh <= 0 || ww <= 0 ||
       Hp % wh || Wp % ww || lb <= 0)
     return -1;
-  Args a{x, patches, w9a, b9a, w9m, b9m, s1, s2, wkv, bb, pmat, (const float*)pb,
-         bias, proj, projb, out, B, Hp, Wp, C, heads, wh, ww, lb};
+  Args a{x,    patches, w9a,  b9a,   w9m,  b9m, s1, s2, wkv, bb, pmat, (const float*)pb,
+         bias, proj,    projb, wkvp, projp, out, B,  Hp, Wp,  C,  heads, wh, ww, lb};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && wkvp != nullptr) return wgs::launch(a, (unsigned char*)scratch, s);
   if (dtype == 0) return launch<float>(a, (float*)scratch, s);
   if (dtype == 1) return launch<bf16>(a, (float*)scratch, s);
   return -1;
 }
+

@@ -57,6 +57,25 @@ def _linear(x, mod: nn.Linear, dt):
     return x.to(dt) @ mod.weight.t().to(dt) + mod.bias.to(dt)
 
 
+# elements of one slab of rows of the model-level LayerNorms and of the
+# multi-size conv (below): their float32 or 4C-channel temporaries stay
+# ~256 MiB each instead of a whole map's (1.5-3 GB apiece at a 1080p frame,
+# which set the frame's peak memory)
+LN_SLAB_ELEMS = 1 << 26
+
+
+def _layer_norm_slabs(x: torch.Tensor, scale, bias) -> torch.Tensor:
+    """``layer_norm`` of a (B, H, W, C) map, a slab of rows at a time where
+    the map is large: the statistics are per pixel, so every value is the
+    one ``layer_norm`` gives the whole map."""
+    b, h, w, c = x.shape
+    rows = max(1, LN_SLAB_ELEMS // max(1, b * w * c))
+    if rows >= h:
+        return layer_norm(x, scale, bias)
+    return torch.cat([layer_norm(x[:, r:r + rows], scale, bias) for r in range(0, h, rows)],
+                     dim=1)
+
+
 def _input_mean(cin: int) -> np.ndarray:
     """The mean subtracted from the input: the RGB mean, or 0 for other
     channel counts."""
@@ -138,11 +157,27 @@ class MultipleSizeConvExtract(nn.Module):
     def forward(self, x: torch.Tensor, dt) -> torch.Tensor:
         c = self.conv_x.out_channels
         b, h, w, cin = x.shape
-        kmat, packed_b, gate_w, gate_b, lk, out = _derived(
-            self, "msce", dt, x.device, lambda: self._weights(dt))
+        weights = _derived(self, "msce", dt, x.device, lambda: self._weights(dt))
+        # a slab of rows at a time on large maps: the packed conv's 4c-channel
+        # output and the im2col columns are ~30x the input, which set a
+        # 1080p frame's peak memory; every pixel's value is unchanged
+        rows = max(1, LN_SLAB_ELEMS // max(1, b * w * 4 * c))
+        if rows >= h:
+            return self._rows(F.unfold(x.to(dt).permute(0, 3, 1, 2), 9, padding=4), x,
+                              weights, dt)
+        xp = F.pad(x.to(dt).permute(0, 3, 1, 2), (4, 4, 4, 4))
+        return torch.cat([self._rows(F.unfold(xp[:, :, r:min(h, r + rows) + 8], 9),
+                                     x[:, r:r + rows], weights, dt)
+                          for r in range(0, h, rows)], dim=1)
+
+    def _rows(self, cols: torch.Tensor, x: torch.Tensor, weights, dt) -> torch.Tensor:
+        """The block on rows of x, given their 9x9 im2col columns ``cols``
+        (B, cin*81, rows*W)."""
+        c = self.conv_x.out_channels
+        b, h, w, cin = x.shape
+        kmat, packed_b, gate_w, gate_b, lk, out = weights
         # (B, cin*81, H*W) channel-major columns -> (B, H, W, 81*cin) tap-major
-        patches = F.unfold(x.to(dt).permute(0, 3, 1, 2), 9, padding=4)
-        patches = patches.reshape(b, cin, 81, h, w).permute(0, 3, 4, 2, 1)
+        patches = cols.reshape(b, cin, 81, h, w).permute(0, 3, 4, 2, 1)
         b_all = patches.reshape(b, h, w, 81 * cin) @ kmat + packed_b
         gate = x.to(dt) @ gate_w + gate_b
         # gating per branch and the 1x1 projection split into four (c, c)
@@ -632,11 +667,11 @@ class HiTSIR(nn.Module):
         x = (x - mean) * self.img_range
 
         shallow = self.conv_first(x, dt)
-        feat = layer_norm(shallow, self.patch_embed.norm.weight,
-                          self.patch_embed.norm.bias)
+        feat = _layer_norm_slabs(shallow, self.patch_embed.norm.weight,
+                                 self.patch_embed.norm.bias)
         for layer in self.layers:
             feat = layer(feat, reference, deterministic)
-        feat = layer_norm(feat, self.norm.weight, self.norm.bias)
+        feat = _layer_norm_slabs(feat, self.norm.weight, self.norm.bias)
         deep = conv3x3(feat, None, *_conv_weights(self.conv_after_body, dt, x.device),
                        "none", reference)
         y = (self.fusion(deep, shallow, reference) if self.fusion is not None

@@ -129,6 +129,23 @@ def as_arg(t, dtype: torch.dtype):
     return t.to(dtype).contiguous()
 
 
+def cached(owner: torch.Tensor, name: str, deps, make):
+    """``make()`` outside autograd, kept on ``owner`` under ``name`` while the
+    tensors ``deps`` keep their identities and version counters: the packed
+    weights a kernel reads, made once per weight tensor.  An inference
+    tensor has no version counter: made anew every call."""
+    key = (None if any(t.is_inference() for t in deps)
+           else tuple((id(t), t._version) for t in deps))
+    hit = getattr(owner, name, None)
+    if key is not None and hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        value = make()
+    if key is not None:
+        setattr(owner, name, (key, value))
+    return value
+
+
 def check_cuda(name: str, device: torch.device, dtype: torch.dtype,
                **tensors) -> None:
     """Raise unless every tensor lies on ``device`` as contiguous ``dtype``."""

@@ -15,6 +15,12 @@ SCA input statistics (``stats_reference``).  ``attn`` may be the
 window-padded SCC output, taller or wider than ``shortcut``: only rows
 [0, H) and columns [0, W) are read.
 
+In bfloat16 at the model's widths (``wgmma_path``) fc1 and fc2 run on
+``wgmma`` over W1 and W2 packed once per weight tensor (``pack_w1``,
+``pack_w2``), and the rows go in bands (``band_rows``) so that h of one
+band stays within 256 MiB; there ``htb_tail_stats``'s per-channel sum and
+max come out of the kernel as totals.
+
 ``htb_tail``'s gradient is the JAX ``custom_vjp``'s (``ffn.py:493-521``):
 the vjp of the plain composition recomputed from the saved inputs, with
 its 5x5 depthwise conv as ``dwconv5x5`` (the dwconv kernel and its
@@ -35,9 +41,44 @@ from sisr_tpu_torch.ops.kernels.autograd import KernelFunction, needs_grad
 from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference, dwconv5x5
 
 K = 5
-# the kernel's output tile (csrc/htb_tail.cu TH x TW)
+# the earlier kernels' output tile (csrc/htb_tail.cu TH x TW), and the rows
+# of the wgmma path's bands a multiple of it
 _TILE = 8
 _MAX_C = 192
+# h of one band of the wgmma path: the 1080p frame's 1088 rows go in 6
+# bands of 192 (271 MB of h each) instead of one (1.5 GB)
+_BAND_BYTES = 256 << 20
+# the wgmma path's packed widths: W1 as two halves of the hidden channels
+# (180 each, rows padded to 184) over C padded to 192; W2 as C padded to
+# 184 rows over Ch padded to 384 (csrc/htb_tail.cu, namespace wgt)
+_HALF_ROWS, _K1, _K2 = 184, 192, 384
+
+
+def wgmma_path(dtype, c: int, ch: int) -> bool:
+    """Whether ``csrc/htb_tail.cu`` runs this shape on its wgmma path
+    (``wgt::takes``): bfloat16 at the model's widths, C = 180, Ch = 360.
+    Other widths, and float32, take the earlier kernels."""
+    return dtype == torch.bfloat16 and c == 180 and ch == 360
+
+
+def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+    """(C, Ch) -> (368, 192): row 184 g + n holds hidden channel (Ch/2) g + n's
+    weights, K-major over C; zero in the padding."""
+    c, ch = w1.shape
+    half = ch // 2
+    out = w1.new_zeros((2 * _HALF_ROWS, _K1))
+    out[:half, :c] = w1[:, :half].t()
+    out[_HALF_ROWS:_HALF_ROWS + half, :c] = w1[:, half:].t()
+    return out
+
+
+def pack_w2(w2: torch.Tensor) -> torch.Tensor:
+    """(Ch, C) -> (184, 384): row n holds output channel n's weights, K-major
+    over the hidden channels; zero in the padding."""
+    ch, c = w2.shape
+    out = w2.new_zeros((_HALF_ROWS, _K2))
+    out[:c, :ch] = w2.t()
+    return out
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -73,9 +114,9 @@ def stats_reference(out):
 
 
 def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool):
-    """The tail stage's device buffers: h = gelu(fc1), which passes between
-    the two launches, and the statistics (cmean, cmax, and the per-tile
-    partials psum, pmax), all None without ``stats``."""
+    """The earlier kernels' device buffers: h = gelu(fc1), which passes
+    between the two launches, and the statistics (cmean, cmax, and the
+    per-tile partials psum, pmax), all None without ``stats``."""
     hbuf = torch.empty((b, h, w, ch), dtype=dt, device=dev)
     if not stats:
         return hbuf, (None,) * 4
@@ -85,6 +126,27 @@ def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool):
                   torch.empty((b, h, w), dtype=f32, device=dev),
                   torch.empty((b, tiles, c), dtype=f32, device=dev),
                   torch.empty((b, tiles, c), dtype=f32, device=dev))
+
+
+def band_rows(b: int, h: int, w: int, ch: int) -> int:
+    """Rows of a band of the wgmma path: all of them, or as many (a multiple
+    of 8) as keep h of one band within ``_BAND_BYTES``."""
+    rows = _BAND_BYTES // max(1, 2 * b * w * ch)
+    return max(_TILE, min(-(-h // _TILE) * _TILE, rows // _TILE * _TILE))
+
+
+def _wgmma_buffers(b, h, w, c, ch, dt, dev, stats: bool, band: int):
+    """The wgmma path's buffers: h of one band and its halo, x of one band,
+    and the statistics (cmean, cmax, and the image's per-channel totals)."""
+    hbuf = torch.empty((b, min(h, band + 4), w, ch), dtype=dt, device=dev)
+    xbuf = torch.empty((b, min(h, band), w, c), dtype=dt, device=dev)
+    if not stats:
+        return hbuf, xbuf, (None,) * 4
+    f32 = torch.float32
+    return hbuf, xbuf, (torch.empty((b, h, w), dtype=f32, device=dev),
+                        torch.empty((b, h, w), dtype=f32, device=dev),
+                        torch.empty((b, c), dtype=f32, device=dev),
+                        torch.empty((b, c), dtype=f32, device=dev))
 
 
 def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
@@ -108,23 +170,37 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
                      **{f"w{i}": t for i, t in enumerate(weights)})
     dev = shortcut.device
     out = torch.empty_like(shortcut)
-    hbuf, (cmean, cmax, psum, pmax) = _tail_buffers(b, h, w, c, ch, dt, dev, stats)
+    packed = wgmma_path(dt, c, ch)
+    # the wgmma path: W1 and W2 packed once per weight tensor; rows in bands
+    w1p, w2p, xbuf, band = None, None, None, 0
+    if packed:
+        w1, w2 = weights[2], weights[6]
+        w1p = build.cached(w1, "_htb_w1_pack", (w1,), lambda: pack_w1(w1))
+        w2p = build.cached(w2, "_htb_w2_pack", (w2,), lambda: pack_w2(w2))
+        band = band_rows(b, h, w, ch)
+        hbuf, xbuf, (cmean, cmax, psum, pmax) = _wgmma_buffers(b, h, w, c, ch, dt, dev,
+                                                               stats, band)
+    else:
+        hbuf, (cmean, cmax, psum, pmax) = _tail_buffers(b, h, w, c, ch, dt, dev, stats)
     lib = build.library("htb_tail")
     fn = lib.htb_tail_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 21
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     code = fn(build.DTYPE_CODES[dt], build.ptr(attn), build.ptr(shortcut),
               *[build.ptr(t) for t in weights], build.ptr(out),
               build.ptr(cmean), build.ptr(cmax), build.ptr(psum),
-              build.ptr(pmax), build.ptr(hbuf), attn.stride(0), attn.stride(1),
-              b, h, w, c, ch, build.stream(dev))
+              build.ptr(pmax), build.ptr(hbuf), build.ptr(w1p), build.ptr(w2p),
+              build.ptr(xbuf), attn.stride(0), attn.stride(1),
+              b, h, w, c, ch, band, build.stream(dev))
     build.raise_on_error("htb_tail", code)
     build.launches["htb_tail"] += 1
     if not stats:
         return out
     build.launches["htb_tail_stats"] += 1
+    if packed:          # the kernel's totals
+        return out, (cmean, cmax, psum, pmax)
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 
 

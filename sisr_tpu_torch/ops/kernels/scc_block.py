@@ -13,6 +13,13 @@ over the plain version ``scc_block_reference`` and the CUDA kernel
 The SCA patch build and the squeeze-excite vectors s1/s2 are plain torch
 outside the kernel, as in JAX: they need reductions over the whole map.
 
+In bfloat16 at the model's shapes (``wgmma_path``) the kernel runs its
+products on ``wgmma`` over K-major operands in which each half of the
+channels lies in 96 head-padded slots (channel c at 16 (c // 15) + c % 15,
+``SLOTS``): ``pack_wkv`` and ``pack_proj`` lay the k-synthesis weights and
+the projection out that way, once per weight tensor (kept on the tensor
+while its version counter stays, as ``conv3x3.py``'s pack).
+
 The gradient is the JAX ``custom_vjp``'s (``scc_block.py:420-445``): the
 vjp of ``scc_block_reference`` recomputed from the saved inputs, the
 ``sca`` tuple flattened into the Function's inputs and back.
@@ -76,6 +83,51 @@ def scc_block_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias,
     return out @ proj_k.to(dt) + proj_b.to(dt)
 
 
+# the wgmma path: 96 head-padded slots a half, the projection's rows padded
+# to 192 (csrc/scc_block.cu, namespace wgs)
+SLOT_WIDTH, PROJ_ROWS = 96, 192
+
+
+def wgmma_path(dtype, c: int, heads: int, l_full: int, l_base: int) -> bool:
+    """Whether ``csrc/scc_block.cu`` runs this shape on its wgmma path
+    (``wgs::takes``): bfloat16, C = 180 in 6 heads, and windows of 16 tokens
+    (l_base 16), of 64 (l_base 64) or of a multiple of 256 (l_base 64).
+    Every other shape, and float32, takes the earlier kernels."""
+    return (dtype == torch.bfloat16 and c == 180 and heads == 6
+            and ((l_full, l_base) in ((16, 16), (64, 64))
+                 or (l_full % 256 == 0 and l_base == 64)))
+
+
+def slots(half: int, heads: int) -> torch.Tensor:
+    """Slot of each channel of a half: 16 (c // d) + c % d, d = half // heads."""
+    d = half // heads
+    c = torch.arange(half)
+    return 16 * (c // d) + c % d
+
+
+def pack_wkv(w1: torch.Tensor, w2: torch.Tensor, heads: int) -> torch.Tensor:
+    """(C/2, C/2) k-synthesis weights -> (96, 192): row ``slot(d)`` holds k
+    channel d's weights, K-major over the qkv slots [q | v] (q channel c at
+    ``slot(c)``, v channel c at 96 + ``slot(c)``); zero in the pad slots."""
+    half = w1.shape[0]
+    s = slots(half, heads).to(w1.device)
+    out = w1.new_zeros((SLOT_WIDTH, 2 * SLOT_WIDTH))
+    out[s[:, None], s[None, :]] = w1.t()
+    out[s[:, None], SLOT_WIDTH + s[None, :]] = w2.t()
+    return out
+
+
+def pack_proj(proj_k: torch.Tensor, heads: int) -> torch.Tensor:
+    """(C, C) projection in (in, out) layout -> (192, 192): row n holds output
+    channel n's weights, K-major over the out tile's slots [out_s | out_c]."""
+    c = proj_k.shape[0]
+    s = slots(c // 2, heads).to(proj_k.device)
+    out = proj_k.new_zeros((PROJ_ROWS, 2 * SLOT_WIDTH))
+    out[:c, s] = proj_k[: c // 2].t()
+    out[:c, SLOT_WIDTH + s] = proj_k[c // 2:].t()
+    return out
+
+
 def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                     heads: int, window):
     b, hp, wp, c = x.shape
@@ -103,29 +155,36 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                   cast(s2.reshape(b, c)))
     else:
         sca_in = (None,) * 7
-    wkv = cast(torch.cat([w1, w2], dim=0))        # k = qkv @ [w1; w2] + bb
+    packed = wgmma_path(dt, c, heads, l_full, l_base)
+    # k = qkv @ [w1; w2] + bb: packed on the wgmma path, else (C, C/2)
+    wkv = None if packed else cast(torch.cat([w1, w2], dim=0))
     ins = (wkv, cast(bb), cast(pmat), cast(bias), cast(proj_k), cast(proj_b))
     build.check_cuda("scc_block", x.device, dt, x=x,
                      **{f"sca{i}": t for i, t in enumerate(sca_in)},
                      **{f"in{i}": t for i, t in enumerate(ins)})
     pb32 = pb.to(device=x.device, dtype=torch.float32).contiguous()
+    packs = (None, None)
+    if packed:
+        packs = (build.cached(w1, "_scc_wkv_pack", (w1, w2),
+                              lambda: pack_wkv(w1, w2, heads).to(dt)),
+                 build.cached(proj_k, "_scc_proj_pack", (proj_k,),
+                              lambda: pack_proj(proj_k, heads).to(dt)))
     lib = build.library("scc_block")
-    size_fn = lib.scc_block_scratch_floats
+    size_fn = lib.scc_block_scratch_bytes
     size_fn.restype = ctypes.c_longlong
-    size_fn.argtypes = [ctypes.c_int] * 7
-    dims = (b, hp, wp, c, wh, ww, l_base)
-    scratch = torch.empty(size_fn(*dims), dtype=torch.float32,
-                          device=x.device)
+    size_fn.argtypes = [ctypes.c_int] * 9
+    nbytes = size_fn(int(packed), b, hp, wp, c, heads, wh, ww, l_base)
+    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     fn = lib.scc_block_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     code = fn(build.DTYPE_CODES[dt], build.ptr(x),
               *[build.ptr(t) for t in sca_in],
               build.ptr(ins[0]), build.ptr(ins[1]), build.ptr(ins[2]),
               build.ptr(pb32), *[build.ptr(t) for t in ins[3:]],
-              build.ptr(out), build.ptr(scratch),
+              *[build.ptr(t) for t in packs], build.ptr(out), build.ptr(scratch),
               b, hp, wp, c, heads, wh, ww, l_base, build.stream(x.device))
     build.raise_on_error("scc_block", code)
     build.launches["scc_block"] += 1

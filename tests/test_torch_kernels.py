@@ -136,6 +136,47 @@ def test_htb_tail_kernel_matches_plain_on_card(cuda_device, dtype, h, w, c, ch, 
                                    atol=1e-5 * max(1.0, float(want.abs().max())))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,pad", [(13, 29, (3, 0)), (20, 37, (4, 11)), (8, 16, (0, 0)),
+                                     (5, 3, (0, 0))])
+def test_htb_tail_model_widths_match_plain_on_card(cuda_device, dtype, h, w, pad):
+    """C = 180, Ch = 360 (the bfloat16 wgmma path's widths), batch 2, ragged
+    maps that end inside an 8x16 output tile, and a window-padded attn:
+    htb_tail_stats against its plain version; htb_tail stores the same out;
+    the statistics describe out as stored."""
+    from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats
+
+    args = _on(cuda_device, dtype, *_tail_args(np.random.default_rng(30 + h), h, w, 180, 360,
+                                               b=2, pad=pad))
+    out, stats = _check(htb_tail_stats, args, 1e-4)
+    torch.testing.assert_close(htb_tail(*args), out, atol=0, rtol=0)
+    f32 = out.to(torch.float32)
+    own = (f32.mean(-1), f32.amax(-1), f32.sum((1, 2)), f32.amax((1, 2)))
+    for got, want in zip(stats, own):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+def test_htb_tail_bands_match_one_band_on_card(cuda_device, monkeypatch):
+    """The wgmma path in 8-row bands (h of a band capped low) stores the same
+    out and statistics as in one band: fc1 recomputes the conv's 2-row halo
+    of each band; the per-channel totals add up in another order."""
+    from sisr_tpu_torch.ops.kernels import ffn
+
+    args = _on(cuda_device, torch.bfloat16, *_tail_args(np.random.default_rng(40), 37, 29, 180,
+                                                          360, b=2, pad=(3, 0)))
+    whole, st_whole = ffn.htb_tail_stats(*args)
+    monkeypatch.setattr(ffn, "_BAND_BYTES", 1)
+    assert ffn.band_rows(2, 37, 29, 360) == 8
+    banded, st_banded = ffn.htb_tail_stats(*args)
+    torch.testing.assert_close(banded, whole, atol=0, rtol=0)
+    for got, want in zip(st_banded, st_whole):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
 def _scc_args(rng, win, base, heads, c, nw, with_sca, device, dtype, b=1):
     from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
                                                           pooling_matrix)
@@ -168,6 +209,28 @@ def test_scc_block_kernel_matches_plain_on_card(cuda_device, dtype, win, heads, 
 
     args = _scc_args(np.random.default_rng(2), win, 8, heads, c, 2 if win < 32 else 1,
                      with_sca, cuda_device, dtype)
+    _check(scc_block, args, 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("win", [4, 8, 16, 32, 48, 64])
+@pytest.mark.parametrize("sca", ["none", "sca", "threaded"])
+def test_scc_block_model_shapes_match_plain_on_card(cuda_device, dtype, win, sca):
+    """The model's block (C = 180, 6 heads, base window 8) at every window of
+    its ladder, batch 2, without SCA, with it, and with the previous tail's
+    channel maps: maps of 3x3 windows of 4 (18 windows, a partial last
+    tile of the bfloat16 path's four-window tiles), 2x2 of 8 and 16, one
+    window of 32, 48 (the 96x96 map a 64x64 training crop pads to) and
+    64."""
+    from sisr_tpu_torch.ops.kernels.scc_block import scc_block
+
+    nw = 3 if win == 4 else 2 if win <= 16 else 1
+    args = list(_scc_args(np.random.default_rng(20 + win), win, 8, 6, 180, nw, sca != "none",
+                          cuda_device, dtype, b=2))
+    if sca == "threaded":
+        x = args[0].float()
+        args[1] = args[1] + (x.mean(-1) + 0.1, x.amax(-1) - 0.1)   # float32, as the tail emits
     _check(scc_block, args, 2e-3)
 
 

@@ -275,3 +275,32 @@ def test_stage_and_fused_settings_add_no_parameters():
         model = HiTSIR(**flagship_config(), fused_htb=True, head_packed=True)
     assert [(k, tuple(v.shape)) for k, v in model.state_dict().items()] == _manifest()
     assert sum(p.numel() for p in model.parameters()) == 10_220_014
+
+
+def test_model_layer_norm_in_slabs_equals_whole_map(monkeypatch):
+    """The model-level LayerNorms go a slab of rows at a time on large maps
+    (peak memory); every value equals the whole map's ``layer_norm``."""
+    import sisr_tpu_torch.models.hit_sir_pro as hm
+    from sisr_tpu_torch.ops.kernels.ffn import layer_norm
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 13, 7, 20)).astype(np.float32)).to(torch.bfloat16)
+    scale = torch.from_numpy(rng.normal(size=20).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=20).astype(np.float32))
+    monkeypatch.setattr(hm, "LN_SLAB_ELEMS", 2 * 7 * 20 * 4)      # 4 rows a slab
+    got = hm._layer_norm_slabs(x, scale, bias)
+    torch.testing.assert_close(got, layer_norm(x, scale, bias), atol=0, rtol=0)
+
+
+def test_multi_size_conv_in_slabs_equals_whole_map(monkeypatch):
+    """The multi-size conv (conv_first) goes a slab of rows at a time on
+    large maps (peak memory), each slab's im2col over the zero-padded rows
+    around it: the same values as the whole map."""
+    import sisr_tpu_torch.models.hit_sir_pro as hm
+
+    torch.manual_seed(0)
+    block = hm.MultipleSizeConvExtract(3, 8)
+    x = torch.randn(2, 13, 11, 3)
+    whole = block(x, torch.float32)
+    monkeypatch.setattr(hm, "LN_SLAB_ELEMS", 2 * 11 * 4 * 8 * 3)    # 3 rows a slab
+    torch.testing.assert_close(block(x, torch.float32), whole, rtol=1e-5, atol=1e-6)
