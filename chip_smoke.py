@@ -8,9 +8,11 @@
 Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
            process per source, all at once) into build/kernels/; count
-           the HGMMA instructions in the SASS of the conv3x3, scc_block
-           and htb_tail libraries (their bfloat16 paths run on wgmma: none
-           fails the run);
+           the HGMMA instructions in the SASS of the conv3x3, scc_block,
+           htb_tail and shuffled_tail libraries, and the HGMMA or HMMA of
+           the shuffled conv's own kernels (shuffled_conv_wgmma_*) in
+           conv3x3's (their bfloat16 paths run on wgmma: none fails the
+           run);
   kernels  each of the eleven kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
@@ -34,8 +36,11 @@ Phases:
            67 TFLOP/s for float32 work on the FP32 pipes, whichever is
            larger; for the training step's cases float32 bytes, and every
            operation on the FP32 pipes) and, where one PyTorch call
-           computes the same function, that call's time; each case's
-           line adds its TFLOP/s and share of its bound in both types.
+           computes the same function, that call's time (for the x4
+           head's conv_up2 and tails: one and two cuDNN ``F.conv2d`` calls
+           over the shuffle materialized before the timing, no
+           activation); each case's line adds its TFLOP/s and share of its
+           bound in both types.
            Then one dwconv5x5 dx through ``dwconv_vjp`` under
            torch.profiler, which must launch one device kernel;
   split    device time of each kernel launch of one scc_block call at
@@ -87,13 +92,16 @@ Phases:
            losses of 5 Adam steps within 1e-4 relative.
 
 ``--ab BASE`` runs no phase: it times conv3x3 (the four model shapes at a
-tile and a training step), dwconv5x5 (forward and dx at both maps),
+tile and a training step), conv3x3_shuffled and the tails (a tile, the
+frame's head band, a training step), dwconv5x5 (forward and dx at both maps),
 scc_block (every window of a tile, the frame's windows 4 and 48),
 htb_tail and htb_tail_stats (a tile, the frame) and htb_fused (a tile's
-windows 4 and 8) in bfloat16 and float32, from the package in the checkout
-BASE and from this one, one process each, in the order base, this, this,
-base; the first base and this runs also print their launch split; then a
-``{"ab": ...}`` line (exit 0, no result line).
+windows 4 and 8) in bfloat16 and float32, and the bfloat16 serving
+requests of 1 and 12 tiles (wall ms, median of three, and device busy ms
+under torch.profiler), from the package in the checkout BASE and from this
+one, one process each, in the order base, this, this, base; the first base
+and this runs also print their launch split; then a ``{"ab": ...}`` line
+(exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
 ...}`` and ``{"kernels": [...]}`` lines and, as the last line when every
@@ -222,15 +230,19 @@ class Case:
     """One kernel call at one shape: inputs from a seeded generator, the
     call, and the work it must do: bytes moved once, operations of the
     bfloat16 run on the tensor cores (``flops``) and on the FP32 pipes
-    (``flops32``: float32 work the function keeps in float32).  ``scope``
+    (``flops32``: float32 work the function keeps in float32).  ``library``
+    is one PyTorch call (or, labelled so, a few) for the same work, timed on
+    ``library_prep(inputs)``, made before the timing.  ``scope``
     is "tile" (a 192x192 tile's shapes) or "frame" (the 1080p frame's);
     ``count`` is the calls a tile or a frame makes at this shape."""
 
     def __init__(self, kernel, label, count, make, call, nbytes, flops,
-                 library=None, flops32=0.0, scope="tile"):
+                 library=None, flops32=0.0, scope="tile", library_prep=None):
         self.kernel, self.label, self.count = kernel, label, count
         self.make, self.call, self.nbytes, self.flops = make, call, nbytes, flops
         self.library, self.flops32, self.scope = library, flops32, scope
+        # what the library call takes, made from the inputs before it is timed
+        self.library_prep = library_prep or (lambda ins: ins)
 
     def t_ops(self) -> float:
         """Least ms for the bfloat16 run's operations: each type at its
@@ -287,9 +299,24 @@ def conv_cases(shapes, scope="tile", b=1):
     return cases
 
 
+def _shuffled(yp):
+    """The phase-major x2 shuffle of yp, materialized (NHWC)."""
+    from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
+
+    return pixel_shuffle_phase_major(yp, 2).contiguous()
+
+
+def _nchw_conv(x, k, b):
+    """One cuDNN convolution on NHWC tensors (channels-last views)."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), b, padding=1)
+
+
 def shuffled_case(h2, w2, count, scope="tile", b=1):
     """conv_up2 of the packed x4 head: yp (b, h2, w2, 256) -> (b, 2h2, 2w2,
-    256); no single PyTorch call computes it."""
+    256).  Library: one ``F.conv2d`` (cuDNN) over the shuffle materialized
+    before the timing, without the leaky ReLU."""
     from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled
 
     f = 64
@@ -303,13 +330,16 @@ def shuffled_case(h2, w2, count, scope="tile", b=1):
                 f"yp {_bx(b)}{h2}x{w2}x256 -> {2 * h2}x{2 * w2} 64->256 leaky2", count, make,
                 lambda ins, reference: conv3x3_shuffled(*ins, "leaky2", reference=reference),
                 lambda es: es * (5 * b * h2 * w2 * 4 * f + 9 * f * 4 * f + 4 * f),
-                2.0 * 4 * b * h2 * w2 * 9 * f * 4 * f, scope=scope)
+                2.0 * 4 * b * h2 * w2 * 9 * f * 4 * f,
+                library=lambda ins: _nchw_conv(*ins), scope=scope,
+                library_prep=lambda ins: [_shuffled(ins[0])] + ins[1:])
 
 
 def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
     """conv_hr + conv_last of the packed x4 head over yp (b, h2, w2, 256),
-    plain or with the output packed 16 pixels to a row; no single PyTorch
-    call computes it."""
+    plain or with the output packed 16 pixels to a row.  Library: two
+    ``F.conv2d`` calls (cuDNN, conv_hr then conv_last) over the shuffle
+    materialized before the timing, without the leaky ReLU between them."""
     from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_shuffled_tail,
                                                     conv3x3_shuffled_tail_packed)
 
@@ -323,6 +353,11 @@ def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
                rn(3, 3, f, 3) / math.sqrt(9 * f), rn(3) * 0.1]
         return [t.to(dt) for t in ins]
 
+    def library(ins):
+        x, k1, b1, k2, b2 = ins
+        hr = _nchw_conv(x, k1, b1)
+        return _nchw_conv(hr.permute(0, 2, 3, 1), k2, b2)
+
     out = f"{hout}x{wout // 16}x48" if packed else f"{hout}x{wout}x3"
     return Case("conv3x3_shuffled_tail_packed" if packed else "conv3x3_shuffled_tail",
                 f"yp {_bx(b)}{h2}x{w2}x256 -> {out} 64->64->3", count, make,
@@ -330,7 +365,8 @@ def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
                                           reference=reference),
                 lambda es: es * (b * h2 * w2 * 4 * f + 9 * f * f + f + 9 * f * 3 + 3
                                  + b * hout * wout * 3),
-                2.0 * b * hout * wout * 9 * f * (f + 3), scope=scope)
+                2.0 * b * hout * wout * 9 * f * (f + 3), library=library, scope=scope,
+                library_prep=lambda ins: [_shuffled(ins[0])] + ins[1:])
 
 
 def fusion_cases(h, w, pools=True, scope="tile", nb=1):
@@ -671,12 +707,19 @@ def run_kernels(failures: list) -> tuple:
             del got16, ref16, truth
             ms = time_ms(lambda: case.call(ins16, False), **few)
             plain_ms = time_ms(lambda: case.call(ins16, True), max_iters=10, **few)
-            lib_ms = time_ms(lambda: case.library(ins16), **few) if case.library else None
+            lib_ms = lib32 = None
+            if case.library:
+                lib16 = case.library_prep(ins16)
+                lib_ms = time_ms(lambda: case.library(lib16), **few)
+                del lib16
             del ins16
             with exact_mode():
                 ms32 = time_ms(lambda: case.call(ins32, False), **few)
                 plain32 = time_ms(lambda: case.call(ins32, True), max_iters=10, **few)
-                lib32 = time_ms(lambda: case.library(ins32), **few) if case.library else None
+                if case.library:
+                    lib32_ins = case.library_prep(ins32)
+                    lib32 = time_ms(lambda: case.library(lib32_ins), **few)
+                    del lib32_ins
             del ins32
             torch.cuda.empty_cache()
             t_bytes = case.nbytes(2) / HBM_BYTES_PER_S * 1e3
@@ -1482,14 +1525,21 @@ def launch_split(cases, dtypes=("bfloat16", "float32")) -> dict:
 
 def ab_cases():
     """What ``--ab`` times: conv3x3 at a 192x192 tile's and a training step's
-    shapes, dwconv5x5 (forward and dx at both maps), scc_block at every
-    window of a tile and at the frame's windows 4 and 48, htb_tail and
-    htb_tail_stats at a tile and at the frame, htb_fused at a tile's
-    windows 4 and 8."""
+    shapes, the x4 head's conv_up2 (conv3x3_shuffled) and tails at a tile,
+    the frame's head band (the packed tail) and a training step,
+    dwconv5x5 (forward and dx at both maps), scc_block at every window of a
+    tile and at the frame's windows 4 and 48, htb_tail and htb_tail_stats
+    at a tile and at the frame, htb_fused at a tile's windows 4 and 8."""
     n = TRAIN_LR
     h, w = FRAME_ALIGNED
+    rows = BAND_ROWS_1080 + 4
     up48 = lambda m: -(-m // 48) * 48
     return (conv_cases([(TILE, TILE) + c for c in TILE_CONVS])
+            + [shuffled_case(TILE, TILE, 1), shuffled_case(rows, w, 0, scope="frame"),
+               shuffled_case(n, n, 1, scope="step", b=TRAIN_BATCH),
+               tail_case(2 * TILE, 2 * TILE, 1),
+               tail_case(2 * rows, 2 * w, 0, packed=True, scope="frame"),
+               tail_case(2 * n, 2 * n, 1, scope="step", b=TRAIN_BATCH)]
             + conv_cases([(n, n) + c for c in TILE_CONVS], scope="step", b=TRAIN_BATCH)
             + dwconv_cases([(TRAIN_BATCH, n, n, 360, 0), (1, TILE, TILE, 360, 0)], "step")
             + scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
@@ -1499,20 +1549,51 @@ def ab_cases():
             + htb_fused_cases(TILE, TILE, ((4, False, 1), (8, True, 1)), scope="tile"))
 
 
+def ab_serving() -> dict:
+    """The bfloat16 requests of ``serve`` at 1 and 12 tiles through the
+    entry point (``infer.upscale``), after one warm call each: the median
+    wall ms of three calls and the device busy ms of one more under
+    torch.profiler."""
+    import torch
+    from sisr_tpu_torch import infer
+
+    model = infer.create_model("bfloat16", "cuda")
+    infer.synth_weights(model, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    with torch.inference_mode():
+        for h, w in (REQUESTS[0], REQUESTS[-1]):
+            img = torch.rand((h, w, 3), generator=g, device="cuda")
+            run = lambda: infer.upscale(model, img, TILE)
+            run()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            times[f"serve {h}x{w} bfloat16 wall (median of 3)"] = sorted(walls)[1]
+            times[f"serve {h}x{w} bfloat16 device busy"] = profile_call(run, warm=False)["busy_ms"]
+    del model
+    torch.cuda.empty_cache()
+    return times
+
+
 def ab_worker(tree: str, split: bool) -> int:
     """One side of ``--ab``: the ``ab_cases`` run by the package in
-    ``tree``, in bfloat16 and float32; prints one ``AB {...}`` line of
-    device ms per case, and before it, with ``split``, the launch split of
-    scc_block and htb_tail."""
+    ``tree``, in bfloat16 and float32, after ``ab_serving``'s requests;
+    prints one ``AB {...}`` line of ms per case, and before it, with
+    ``split``, the launch split of scc_block and htb_tail."""
     sys.path.insert(0, tree)
     import torch
     from sisr_tpu_torch.ops.kernels import build
 
-    build.build_all(("conv3x3", "dwconv", "scc_block", "htb_tail", "htb_fused"))
+    build.build_all()   # the serving requests launch every kernel but htb_fused
     if split:
         log(f"[split] {tree}")
         launch_split(split_cases(), dtypes=("bfloat16",))
-    times = {}
+    times = ab_serving()
     for case in ab_cases():
         for dt in (torch.bfloat16, torch.float32):
             ins = case.make(dt)
@@ -1556,9 +1637,9 @@ def run_ab(base: str) -> int:
     return 0
 
 
-def sass_count(kernel: str, opcode: str) -> int:
-    """Lines of ``kernel``'s built library's SASS (cuobjdump) holding
-    ``opcode``."""
+def sass_count(kernel: str, opcodes, function: str = "") -> int:
+    """Lines of ``kernel``'s built library's SASS (cuobjdump) holding one of
+    ``opcodes``, in the device functions whose names hold ``function``."""
     from pathlib import Path
 
     from sisr_tpu_torch.ops.kernels import build
@@ -1566,16 +1647,23 @@ def sass_count(kernel: str, opcode: str) -> int:
     tool = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(build._target(kernel))],
                           capture_output=True, text=True, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    count, inside = 0, not function
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside and any(op in line for op in opcodes):
+            count += 1
+    return count
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases", default="build,kernels,split,serve,whole,train,profile,check")
-    p.add_argument("--ab", metavar="BASE", help="only time conv3x3, dwconv5x5, scc_block, "
-                   "htb_tail and htb_fused against the kernels of the checkout BASE (one "
-                   "process each: base, this, this, base); prints no result line")
+    p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
+                   "convs, dwconv5x5, scc_block, htb_tail, htb_fused and the bfloat16 "
+                   "serving requests against the checkout BASE (one process each: base, "
+                   "this, this, base); prints no result line")
     p.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
     p.add_argument("--ab-split", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
@@ -1590,8 +1678,8 @@ def main(argv=None) -> int:
     if args.ab_worker:
         return ab_worker(args.ab_worker, args.ab_split)
     if args.ab:
-        log("[ab] conv3x3, dwconv5x5, scc_block, htb_tail(_stats) and htb_fused, this tree "
-            "against " + args.ab)
+        log("[ab] conv3x3, conv3x3_shuffled(_tail), dwconv5x5, scc_block, htb_tail(_stats) "
+            "and htb_fused, this tree against " + args.ab)
         return run_ab(args.ab)
     from sisr_tpu_torch.ops.kernels import build
 
@@ -1613,11 +1701,16 @@ def main(argv=None) -> int:
             for line in text.splitlines():
                 if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  {name}: {line.strip()}")
-        for lib in ("conv3x3", "scc_block", "htb_tail"):
-            hgmma = sass_count(lib, "HGMMA")
+        for lib in ("conv3x3", "scc_block", "htb_tail", "shuffled_tail"):
+            hgmma = sass_count(lib, ("HGMMA",))
             log(f"  {lib} SASS: {hgmma} HGMMA instructions")
             if hgmma == 0:
                 failures.append(f"{lib}'s library holds no HGMMA: its bf16 path is not on wgmma")
+        # the shuffled conv (conv_up2) has kernels of its own in conv3x3's library
+        shuf = sass_count("conv3x3", ("HGMMA", "HMMA"), "shuffled_conv_wgmma")
+        log(f"  conv3x3 SASS, shuffled_conv_wgmma_*: {shuf} HGMMA/HMMA instructions")
+        if shuf == 0:
+            failures.append("the shuffled conv's wgmma kernels hold no HGMMA or HMMA")
     except Exception:
         failures.append(f"build: {traceback.format_exc()}")
         log(traceback.format_exc())

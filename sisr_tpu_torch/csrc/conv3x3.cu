@@ -20,7 +20,7 @@
 // input with the zero 'same' padding applied on the fly, and the matching
 // weights in shared memory.
 //
-// The plain convolution (conv3x3, shuf = 0) at the model's shapes:
+// Both convolutions at the model's shapes:
 // - bfloat16 on wgmma (conv3x3_wgmma_*): one or two consumer warpgroups of
 //   64 output pixels each, and one N tile that holds all of Cout (n64,
 //   n128, n184 or n256), so the im2col rows are gathered once per output
@@ -41,22 +41,32 @@
 //   step's copies are issued.  The epilogue works on the accumulator
 //   registers: bias, leaky ReLU, residual, and one __nv_bfloat162 store
 //   per adjacent column pair.
-// - float32 on the FP32 pipes (conv3x3_f32_*, so that it keeps float32
-//   products): an 8x8 register tile a thread, float4 reads of both
-//   operands, Cout in N tiles of 64, 96 or 128 (two tiles of 96 for 180),
-//   16-byte cp.async copies in a ring of 3 stages for the gather (4
-//   channels a copy) and the HWIO weights.
+// - the shuffled convolution (conv_up2, 64 -> 256 over the x2 shuffle of
+//   conv_up1's packed output) takes the same kernel
+//   (shuffled_conv_wgmma_*, n256) with another gather: at 64 channels the
+//   shuffled pixel's run in the packed input (B, H/2, W/2, 256) is 128
+//   bytes at a 128-byte aligned phase offset, so one K step of 64 is one
+//   tap and one A row one 128-byte swizzle row, filled by 8 copies of 16
+//   bytes (conv_gemm.cuh::sgw, shared with shuffled_tail.cu; Cin % 8 == 0);
+//   each row keeps its shuffled pixel and image offset (64-bit), and a tap
+//   outside the image is zero-filled.
+// - float32 on the FP32 pipes (conv3x3_f32_*, shuffled_conv_f32_*, so that
+//   it keeps float32 products): f32k's loop (conv_gemm.cuh), an 8x8
+//   register tile a thread, float4 reads of both operands, Cout in N tiles
+//   of 64, 96 or 128 (two tiles of 96 for 180), 16-byte cp.async copies in
+//   a ring of 3 stages for the gather (4 channels a copy, through the
+//   shuffled address for shuffled_conv_f32_*) and the HWIO weights.
 // Both take 64-row blocks where 128-row blocks would not fill two waves of
 // the card's resident blocks (use_64_rows: 128 rows at a 192x192 tile and a
 // frame, 64 at a training step's 2x64x64 and for n64 at a tile; a 192x192
 // tile's 288 blocks of 128 rows are 2.18 waves at one block an SM, and no
 // height removes that tail).  The rule is explicit in
-// dispatch(): the wgmma path needs Cin % 4 == 0, an even Cout no wider
-// than the packed tile (<= 256), the packed weights and aligned pointers;
-// the float32 path Cin % 4 == 0, Cout % 4 == 0, Cout > 8 and 16-byte
-// aligned pointers.  Any other shape, and the shuffled convolution, take
-// the loops of conv_gemm.cuh (wmma with cp.async stages in bfloat16,
-// register-staged FP32 tiles in float32).
+// dispatch(): the wgmma path needs Cin % 4 == 0 (shuffled: Cin % 8 == 0
+// and a 16-byte aligned input), an even Cout no wider than the packed tile
+// (<= 256), the packed weights and aligned pointers; the float32 path Cin %
+// 4 == 0, Cout % 4 == 0, Cout > 8 and 16-byte aligned pointers.  Any other
+// shape takes the loops of conv_gemm.cuh (wmma with cp.async stages in
+// bfloat16, register-staged FP32 tiles in float32).
 #include "conv_gemm.cuh"
 #include "wgmma.cuh"
 
@@ -193,11 +203,9 @@ struct Cfg {
   static constexpr int BM = 64 * WGS, NT = 128 * WGS;
   static constexpr int A_BYTES = BM * 128, STAGE = (BM + BN) * 128;
   static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024;   // + 1024-byte alignment
-  static constexpr int RS = NT / GROUPS;        // rows between a thread's gather rows
-  static constexpr int A_LD = BM / RS;          // gather rows a thread
   static constexpr int B_CP = BN * 8;           // 16-byte weight copies a step
   static constexpr int B_LD = (B_CP + NT - 1) / NT;
-  static_assert(BN % 8 == 0 && BN <= 256 && RS % 8 == 0, "tile shape");
+  static_assert(BN % 8 == 0 && BN <= 256, "tile shape");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -207,13 +215,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }  // namespace wg
 
 // out[m, n] = act(sum_k A[m, k] wp[n, k] + bias[n]) (+ res[m, n]) for a
-// BM-row block; wp is the packed (BN, Kpad) weight matrix, A the im2col of y
-template <int WGS, int BN, int STAGES>
-__global__ void __launch_bounds__(128 * WGS, 1)
-conv3x3_wgmma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res,
-                     const bf16* __restrict__ wp, const bf16* __restrict__ bias,
-                     bf16* __restrict__ out, int B, int H, int W, int Cin, int Cout, int Kpad,
-                     int act) {
+// BM-row block; wp is the packed (BN, Kpad) weight matrix, A the im2col of
+// y, or with SHUF of the phase-major x2 shuffle of the packed y (B, H/2,
+// W/2, 4 Cin), gathered by 16-byte copies (sgw, Cin % 8 == 0)
+template <int WGS, int BN, int STAGES, bool SHUF>
+__device__ __forceinline__ void conv3x3_wgmma_body(
+    const bf16* __restrict__ y, const bf16* __restrict__ res, const bf16* __restrict__ wp,
+    const bf16* __restrict__ bias, bf16* __restrict__ out, int B, int H, int W, int Cin,
+    int Cout, int Kpad, int act) {
   typedef wg::Cfg<WGS, BN, STAGES> G;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = wg::smem_u32(smem_raw);
@@ -225,17 +234,28 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res,
   const long long m0 = (long long)blockIdx.x * G::BM;
   const int K = 9 * Cin, nsteps = Kpad / wg::BK;
 
-  // gather: this thread copies channel group g (4 channels) of rows
-  // r0 + i * RS; every such row has r0 % 8 as its row in the swizzle
-  const int g = tid % wg::GROUPS, r0 = tid / wg::GROUPS;
-  const uint32_t a_off = (uint32_t)r0 * 128 + ((((g >> 1) ^ (r0 & 7)) << 4) | ((g & 1) << 3));
-  int a_mask[G::A_LD];   // bit t: tap t of the row's pixel lies inside the image
+  // gather: this thread copies channel group g (4 channels, or 8 with
+  // SHUF) of rows r0 + i * RS; every such row has r0 % 8 as its row in the
+  // swizzle
+  constexpr int GROUPS = SHUF ? wg::BK / sgw::CH : wg::GROUPS;
+  constexpr int RS = G::NT / GROUPS, A_LD = G::BM / RS;
+  static_assert(RS % 8 == 0 && G::BM % RS == 0, "gather split");
+  const int g = tid % GROUPS, r0 = tid / GROUPS;
+  const uint32_t a_off =
+      SHUF ? sgw::sw128(r0, g)
+           : (uint32_t)r0 * 128 + ((((g >> 1) ^ (r0 & 7)) << 4) | ((g & 1) << 3));
+  int a_mask[A_LD];   // plain: bit t, tap t of the row's pixel lies inside the image
+  int a_y[A_LD], a_x[A_LD];   // SHUF: the row's shuffled pixel (kNoRow past M)
+  long long a_img[A_LD];      // SHUF: its image's first element
 #pragma unroll
-  for (int i = 0; i < G::A_LD; ++i) {
-    const long long m = m0 + r0 + i * G::RS;
-    int mask = 0;
+  for (int i = 0; i < A_LD; ++i) {
+    const long long m = m0 + r0 + i * RS;
+    int mask = 0, py = kNoRow, px = 0, b = 0;
     if (m < M) {
-      const int p = (int)(m % ((long long)H * W)), py = p / W, px = p % W;
+      const int p = (int)(m % ((long long)H * W));
+      b = (int)(m / ((long long)H * W));
+      py = p / W;
+      px = p % W;
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
         const int yy = py + t / 3 - 1, xx = px + t % 3 - 1;
@@ -243,21 +263,33 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res,
       }
     }
     a_mask[i] = mask;
+    a_y[i] = py;
+    a_x[i] = px;
+    a_img[i] = (long long)b * H * W * Cin;
   }
 
   // start the copies of K step `step` into stage s
   auto issue = [&](int s, int step) {
     unsigned char* sa = smem + s * G::STAGE;
     unsigned char* sb = sa + G::A_BYTES;
-    const int k = step * wg::BK + g * tcc::VEC;
-    const bool k_ok = k < K;
-    const int tap = k_ok ? k / Cin : 0;
-    const int shift = ((tap / 3 - 1) * W + (tap % 3 - 1)) * Cin + (k - tap * Cin);
+    if constexpr (SHUF) {
+      const int k = step * wg::BK + g * sgw::CH;
+      const int tap = k < K ? k / Cin : 9, ci = k - tap * Cin;
 #pragma unroll
-    for (int i = 0; i < G::A_LD; ++i) {
-      const bool ok = k_ok && ((a_mask[i] >> tap) & 1);
-      const long long src = (m0 + r0 + i * G::RS) * Cin + shift;
-      cp_async8(sa + a_off + i * G::RS * 128, ok ? y + src : y, ok);
+      for (int i = 0; i < A_LD; ++i)
+        sgw::gather16(sa + a_off + i * RS * 128, y, a_img[i], a_y[i], a_x[i], tap, ci, H, W,
+                      Cin);
+    } else {
+      const int k = step * wg::BK + g * tcc::VEC;
+      const bool k_ok = k < K;
+      const int tap = k_ok ? k / Cin : 0;
+      const int shift = ((tap / 3 - 1) * W + (tap % 3 - 1)) * Cin + (k - tap * Cin);
+#pragma unroll
+      for (int i = 0; i < A_LD; ++i) {
+        const bool ok = k_ok && ((a_mask[i] >> tap) & 1);
+        const long long src = (m0 + r0 + i * RS) * Cin + shift;
+        cp_async8(sa + a_off + i * RS * 128, ok ? y + src : y, ok);
+      }
     }
 #pragma unroll
     for (int j = 0; j < G::B_LD; ++j) {
@@ -349,39 +381,34 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res,
   }
 }
 
-// ---- float32 on the FP32 pipes ---------------------------------------------
-namespace f32k {
+// the plain and the shuffled convolution on wgmma, under names of their own
+#define WGMMA_PARAMS                                                                       \
+  const bf16 *__restrict__ y, const bf16 *__restrict__ res, const bf16 *__restrict__ wp,  \
+      const bf16 *__restrict__ bias, bf16 *__restrict__ out, int B, int H, int W, int Cin, \
+      int Cout, int Kpad, int act
+#define WGMMA_ARGS y, res, wp, bias, out, B, H, W, Cin, Cout, Kpad, act
 
-constexpr int BK = 16, TM = 8, TN = 8, STAGES = 3;
-
-template <int BM, int BN>
-struct Cfg {
-  static constexpr int NT = (BM / TM) * (BN / TN);
-  static constexpr int LDA = BK + 4, LDB = BN + 4;      // As[BM][LDA], Bs[BK][LDB]
-  static constexpr int STAGE_EL = BM * LDA + BK * LDB;
-  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE_EL;
-  static constexpr int A_CP = BM * BK / 4, B_CP = BK * BN / 4;    // 16-byte copies a step
-  static constexpr int A_LD = (A_CP + NT - 1) / NT, B_LD = (B_CP + NT - 1) / NT;
-  static_assert(NT % 4 == 0 && BN % 8 == 0, "tile shape");
-};
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+template <int WGS, int BN, int STAGES>
+__global__ void __launch_bounds__(128 * WGS, 1) conv3x3_wgmma_kernel(WGMMA_PARAMS) {
+  conv3x3_wgmma_body<WGS, BN, STAGES, false>(WGMMA_ARGS);
 }
 
-}  // namespace f32k
+template <int WGS, int BN, int STAGES>
+__global__ void __launch_bounds__(128 * WGS, 1) shuffled_conv_wgmma_kernel(WGMMA_PARAMS) {
+  conv3x3_wgmma_body<WGS, BN, STAGES, true>(WGMMA_ARGS);
+}
 
-// out = act(im2col(y) x w + bias) (+ res) for a BM x BN tile; w is HWIO,
-// (9 Cin, Cout) row-major.  A thread owns rows tm + i BM/TM (i < 8) and
-// columns tn*4 + j, BN/2 + tn*4 + j (j < 4), so that its float4 reads of
-// either operand fall on distinct banks across a quarter warp.
-template <int BM, int BN>
-__global__ void __launch_bounds__((BM / f32k::TM) * (BN / f32k::TN))
-conv3x3_f32_kernel(const float* __restrict__ y, const float* __restrict__ res,
-                   const float* __restrict__ w, const float* __restrict__ bias,
-                   float* __restrict__ out, int B, int H, int W, int Cin, int Cout, int act) {
+// ---- float32 on the FP32 pipes ---------------------------------------------
+// out = act(im2col(y) x w + bias) (+ res) for a BM x BN tile (f32k's loop,
+// conv_gemm.cuh); with SHUF over the shuffle of the packed y
+template <int BM, int BN, bool SHUF>
+__device__ __forceinline__ void conv3x3_f32_body(const float* __restrict__ y,
+                                                 const float* __restrict__ res,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ bias,
+                                                 float* __restrict__ out, int B, int H, int W,
+                                                 int Cin, int Cout, int act) {
   using namespace f32k;
-  typedef Cfg<BM, BN> G;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -389,98 +416,9 @@ conv3x3_f32_kernel(const float* __restrict__ y, const float* __restrict__ res,
   const long long M = (long long)B * H * W;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int K = 9 * Cin, nsteps = (K + BK - 1) / BK;
-
-  // gather: this thread copies channels 4q..4q+3 of the step for rows
-  // (tid / 4) + i NT/4 (NT % 4 == 0, so q is the same for every i)
-  const int q = tid & 3;
-  int a_mask[G::A_LD];
-#pragma unroll
-  for (int i = 0; i < G::A_LD; ++i) {
-    const int r = (tid >> 2) + i * (G::NT / 4);
-    const long long m = m0 + r;
-    int mask = 0;
-    if (r < BM && m < M) {
-      const int p = (int)(m % ((long long)H * W)), py = p / W, px = p % W;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int yy = py + t / 3 - 1, xx = px + t % 3 - 1;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) mask |= 1 << t;
-      }
-    }
-    a_mask[i] = mask;
-  }
-
-  auto issue = [&](int s, int step) {
-    float* As = smem + s * G::STAGE_EL;
-    float* Bs = As + BM * G::LDA;
-    const int k0 = step * BK;
-    const int k = k0 + 4 * q;
-    const bool k_ok = k < K;
-    const int tap = k_ok ? k / Cin : 0;
-    const int shift = ((tap / 3 - 1) * W + (tap % 3 - 1)) * Cin + (k - tap * Cin);
-#pragma unroll
-    for (int i = 0; i < G::A_LD; ++i) {
-      const int r = (tid >> 2) + i * (G::NT / 4);
-      if (G::A_CP % G::NT == 0 || r < BM) {
-        const bool ok = k_ok && ((a_mask[i] >> tap) & 1);
-        cp_async16(As + r * G::LDA + 4 * q, ok ? y + (m0 + r) * Cin + shift : y, ok);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < G::B_LD; ++i) {
-      const int e = tid + i * G::NT;
-      if (G::B_CP % G::NT == 0 || e < G::B_CP) {
-        const int kk = e / (BN / 4), n = n0 + 4 * (e % (BN / 4));
-        const bool ok = k0 + kk < K && n < Cout;
-        cp_async16(Bs + kk * G::LDB + 4 * (e % (BN / 4)),
-                   ok ? w + (long long)(k0 + kk) * Cout + n : w, ok);
-      }
-    }
-  };
-
   const int tn = tid % (BN / TN), tm = tid / (BN / TN);
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) issue(s, s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<STAGES - 2>();   // this step's copies have landed
-    __syncthreads();               // ... for every thread; the previous step's reads are done
-    const int next = step + STAGES - 1;
-    if (next < nsteps) issue(next % STAGES, next);
-    cp_async_commit();
-    const float* As = smem + (step % STAGES) * G::STAGE_EL;
-    const float* Bs = As + BM * G::LDA;
-#pragma unroll
-    for (int kq = 0; kq < BK / 4; ++kq) {
-      float4 a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(As + (tm + i * (BM / TM)) * G::LDA + 4 * kq);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* brow = Bs + (4 * kq + kk) * G::LDB;
-        const float4 b0 = *reinterpret_cast<const float4*>(brow + 4 * tn);
-        const float4 b1 = *reinterpret_cast<const float4*>(brow + BN / 2 + 4 * tn);
-        const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float av = comp(a[i], kk);
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
+  mainloop<BM, BN, SHUF>(acc, smem, y, w, H, W, Cin, Cout, n0, FlatRows{m0, M, H, W});
 
   const float slope = act == 1 ? 0.01f : 0.2f;
 #pragma unroll
@@ -507,6 +445,22 @@ conv3x3_f32_kernel(const float* __restrict__ y, const float* __restrict__ res,
       *reinterpret_cast<float4*>(out + m * Cout + n) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+}
+
+#define F32_PARAMS                                                                        \
+  const float *__restrict__ y, const float *__restrict__ res, const float *__restrict__ w, \
+      const float *__restrict__ bias, float *__restrict__ out, int B, int H, int W, int Cin, \
+      int Cout, int act
+#define F32_ARGS y, res, w, bias, out, B, H, W, Cin, Cout, act
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(f32k::Cfg<BM, BN>::NT) conv3x3_f32_kernel(F32_PARAMS) {
+  conv3x3_f32_body<BM, BN, false>(F32_ARGS);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(f32k::Cfg<BM, BN>::NT) shuffled_conv_f32_kernel(F32_PARAMS) {
+  conv3x3_f32_body<BM, BN, true>(F32_ARGS);
 }
 
 struct Args {
@@ -541,10 +495,15 @@ bool use_64_rows(long long m, int n_tiles, int bps128) {
   return (m + 127) / 128 * n_tiles < 2LL * sm_count() * bps128;
 }
 
-template <int WGS, int BN, int STAGES>
+template <int WGS, int BN, int STAGES, bool SHUF>
+auto wgmma_kernel() {
+  return SHUF ? shuffled_conv_wgmma_kernel<WGS, BN, STAGES> : conv3x3_wgmma_kernel<WGS, BN, STAGES>;
+}
+
+template <int WGS, int BN, int STAGES, bool SHUF>
 int launch_wgmma_bm(const Args& a) {
   typedef wg::Cfg<WGS, BN, STAGES> G;
-  auto kern = conv3x3_wgmma_kernel<WGS, BN, STAGES>;
+  auto kern = wgmma_kernel<WGS, BN, STAGES, SHUF>();
   if (set_smem(kern, G::SMEM)) return -1;
   const long long M = (long long)a.B * a.H * a.W;
   const int kpad = (9 * a.Cin + wg::BK - 1) / wg::BK * wg::BK;
@@ -554,23 +513,28 @@ int launch_wgmma_bm(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, bool SHUF>
 int launch_wgmma(const Args& a) {
   typedef wg::Cfg<2, BN, wg::STAGES> G;
   static int bps = 0;   // resident 128-row blocks per SM
   if (!bps) {
-    if (set_smem(conv3x3_wgmma_kernel<2, BN, wg::STAGES>, G::SMEM)) return -1;
-    bps = blocks_per_sm(conv3x3_wgmma_kernel<2, BN, wg::STAGES>, G::NT, G::SMEM);
+    if (set_smem(wgmma_kernel<2, BN, wg::STAGES, SHUF>(), G::SMEM)) return -1;
+    bps = blocks_per_sm(wgmma_kernel<2, BN, wg::STAGES, SHUF>(), G::NT, G::SMEM);
   }
   const long long M = (long long)a.B * a.H * a.W;
-  return use_64_rows(M, 1, bps) ? launch_wgmma_bm<1, BN, wg::STAGES>(a)
-                                : launch_wgmma_bm<2, BN, wg::STAGES>(a);
+  return use_64_rows(M, 1, bps) ? launch_wgmma_bm<1, BN, wg::STAGES, SHUF>(a)
+                                : launch_wgmma_bm<2, BN, wg::STAGES, SHUF>(a);
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool SHUF>
+auto f32_kernel() {
+  return SHUF ? shuffled_conv_f32_kernel<BM, BN> : conv3x3_f32_kernel<BM, BN>;
+}
+
+template <int BM, int BN, bool SHUF>
 int launch_f32_bm(const Args& a) {
   typedef f32k::Cfg<BM, BN> G;
-  auto kern = conv3x3_f32_kernel<BM, BN>;
+  auto kern = f32_kernel<BM, BN, SHUF>();
   if (set_smem(kern, G::SMEM)) return -1;
   const long long M = (long long)a.B * a.H * a.W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((a.Cout + BN - 1) / BN));
@@ -580,29 +544,31 @@ int launch_f32_bm(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, bool SHUF>
 int launch_f32(const Args& a) {
   typedef f32k::Cfg<128, BN> G;
   static int bps = 0;
   if (!bps) {
-    if (set_smem(conv3x3_f32_kernel<128, BN>, G::SMEM)) return -1;
-    bps = blocks_per_sm(conv3x3_f32_kernel<128, BN>, G::NT, G::SMEM);
+    if (set_smem(f32_kernel<128, BN, SHUF>(), G::SMEM)) return -1;
+    bps = blocks_per_sm(f32_kernel<128, BN, SHUF>(), G::NT, G::SMEM);
   }
   const long long M = (long long)a.B * a.H * a.W;
-  return use_64_rows(M, (a.Cout + BN - 1) / BN, bps) ? launch_f32_bm<64, BN>(a)
-                                                     : launch_f32_bm<128, BN>(a);
+  return use_64_rows(M, (a.Cout + BN - 1) / BN, bps) ? launch_f32_bm<64, BN, SHUF>(a)
+                                                     : launch_f32_bm<128, BN, SHUF>(a);
 }
 
 bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
 // the wgmma path's shape rule (ops/kernels/conv3x3.py::wgmma_width states
-// the same): Cin % 4 == 0 for the 8-byte gather, an even Cout (column
-// pairs) within the packed width, and aligned pointers
-bool wgmma_ok(const Args& a) {
-  return a.wp && a.Cin % tcc::VEC == 0 && a.Cout % 2 == 0 && a.Cout <= a.npad &&
+// the same): Cin % 4 == 0 for the 8-byte gather (Cin % 8 == 0 and a
+// 16-byte aligned input for the shuffled one's 16-byte copies), an even
+// Cout (column pairs) within the packed width, and aligned pointers
+bool wgmma_ok(const Args& a, bool shuf) {
+  return a.wp && a.Cin % (shuf ? sgw::CH : tcc::VEC) == 0 && a.Cout % 2 == 0 &&
+         a.Cout <= a.npad &&
          (a.npad == 64 || a.npad == 128 || a.npad == 184 || a.npad == 256) &&
-         aligned(a.y, 8) && aligned(a.wp, 16) && aligned(a.out, 4) && aligned(a.bias, 2) &&
-         (!a.res || aligned(a.res, 4));
+         aligned(a.y, shuf ? 16 : 8) && aligned(a.wp, 16) && aligned(a.out, 4) &&
+         aligned(a.bias, 2) && (!a.res || aligned(a.res, 4));
 }
 
 // the float32 path's: 16-byte copies of 4 channels and float4 epilogues
@@ -637,19 +603,19 @@ int launch_fp32(const Args& a) {
 
 template <typename T, bool SHUF>
 int dispatch(const Args& a) {
-  if (!SHUF && std::is_same<T, bf16>::value && wgmma_ok(a)) {
-    if (a.npad == 64) return launch_wgmma<64>(a);
-    if (a.npad == 128) return launch_wgmma<128>(a);
-    if (a.npad == 184) return launch_wgmma<184>(a);
-    return launch_wgmma<256>(a);
+  if (std::is_same<T, bf16>::value && wgmma_ok(a, SHUF)) {
+    if (a.npad == 64) return launch_wgmma<64, SHUF>(a);
+    if (a.npad == 128) return launch_wgmma<128, SHUF>(a);
+    if (a.npad == 184) return launch_wgmma<184, SHUF>(a);
+    return launch_wgmma<256, SHUF>(a);
   }
-  if (!SHUF && std::is_same<T, float>::value && f32_ok(a)) {
+  if (std::is_same<T, float>::value && f32_ok(a)) {
     // the N tile that pads Cout least, the wider one on a tie (180: 2 x 96)
     const int p64 = (a.Cout + 63) / 64 * 64, p96 = (a.Cout + 95) / 96 * 96,
               p128 = (a.Cout + 127) / 128 * 128;
-    if (p128 <= p96 && p128 <= p64) return launch_f32<128>(a);
-    if (p96 <= p64) return launch_f32<96>(a);
-    return launch_f32<64>(a);
+    if (p128 <= p96 && p128 <= p64) return launch_f32<128, SHUF>(a);
+    if (p96 <= p64) return launch_f32<96, SHUF>(a);
+    return launch_f32<64, SHUF>(a);
   }
   // bfloat16 on the tensor cores: the 8-byte copies need Cin % 4 == 0 and an
   // aligned input, and for the weights Cout % 4 == 0 and an aligned w, or

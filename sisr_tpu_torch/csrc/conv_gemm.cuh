@@ -10,10 +10,14 @@
 // (y, x), channel c lies at [b, y>>1, x>>1, ((x&1)*2 + (y&1))*Cin + c]
 // (sisr_tpu/ops/pixel_shuffle.py::pixel_shuffle_phase_major).  A run of
 // channels of one pixel stays contiguous, so the 8-byte copies still hold.
+//
+// Also here: the FP32 register-tile loop (f32k) of the float32 convs and
+// tails, and the shuffled 16-byte gather (sgw) of the wgmma kernels.
 #pragma once
 
 #include "common.cuh"
 
+#include <cstdint>
 #include <mma.h>
 
 // one row of the GEMM: the conv input pixel (b, y, x); y = kNoRow for a
@@ -307,3 +311,168 @@ __device__ __forceinline__ void store_acc(Acc<BM, BN, FM, FN, WGM, WGN>& acc, fl
 }
 
 }  // namespace tcc
+
+// ---- FP32 pipes, 8x8 register tiles ----------------------------------------
+// An 8x8 register tile a thread, float4 reads of both operands, 16-byte
+// cp.async copies (4 channels of one tap a copy, so Cin % 4 == 0) in a ring
+// of 3 stages for the gather and the HWIO weights.
+namespace f32k {
+
+constexpr int BK = 16, TM = 8, TN = 8, STAGES = 3;
+
+template <int BM, int BN>
+struct Cfg {
+  static constexpr int NT = (BM / TM) * (BN / TN);
+  static constexpr int LDA = BK + 4, LDB = BN + 4;      // As[BM][LDA], Bs[BK][LDB]
+  static constexpr int STAGE_EL = BM * LDA + BK * LDB;
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE_EL;
+  static constexpr int A_CP = BM * BK / 4, B_CP = BK * BN / 4;    // 16-byte copies a step
+  static constexpr int A_LD = (A_CP + NT - 1) / NT, B_LD = (B_CP + NT - 1) / NT;
+  static_assert(NT % 4 == 0 && BN % 8 == 0, "tile shape");
+};
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc = im2col(y) x w for the BM rows row_of(r) and the columns n0 ..
+// n0 + BN; w is HWIO, (9 Cin, Cout) row-major; smem holds Cfg::SMEM bytes.
+// A thread owns rows tm + i BM/TM (i < 8) and columns tn*4 + j, BN/2 +
+// tn*4 + j (j < 4), tn = tid % (BN/8), so that its float4 reads of either
+// operand fall on distinct banks across a quarter warp.  Ends with every
+// copy landed; the caller syncs before it reuses smem.
+template <int BM, int BN, bool SHUF, typename RowFn>
+__device__ __forceinline__ void mainloop(float (&acc)[TM][TN], float* smem,
+                                         const float* __restrict__ y,
+                                         const float* __restrict__ w, int H, int W, int Cin,
+                                         int Cout, int n0, RowFn row_of) {
+  typedef Cfg<BM, BN> G;
+  const int tid = threadIdx.x;
+  const int K = 9 * Cin, nsteps = (K + BK - 1) / BK;
+
+  // gather: this thread copies channels 4q..4q+3 of the step for rows
+  // (tid / 4) + i NT/4 (NT % 4 == 0, so q is the same for every i)
+  const int q = tid & 3;
+  int a_mask[G::A_LD], a_y[G::A_LD], a_x[G::A_LD];
+  long long a_base[G::A_LD];
+#pragma unroll
+  for (int i = 0; i < G::A_LD; ++i) {
+    const int r = (tid >> 2) + i * (G::NT / 4);
+    const ConvRow cr = r < BM ? row_of(r) : ConvRow{0, kNoRow, 0};
+    int mask = 0;
+    if (cr.y != kNoRow) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int yy = cr.y + t / 3 - 1, xx = cr.x + t % 3 - 1;
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W) mask |= 1 << t;
+      }
+    }
+    a_mask[i] = mask;
+    a_y[i] = cr.y;
+    a_x[i] = cr.x;
+    a_base[i] = row_base<SHUF>(cr, H, W, Cin);
+  }
+
+  auto issue = [&](int s, int step) {
+    float* As = smem + s * G::STAGE_EL;
+    float* Bs = As + BM * G::LDA;
+    const int k0 = step * BK;
+    const int k = k0 + 4 * q;
+    const bool k_ok = k < K;
+    const int tap = k_ok ? k / Cin : 0;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1, ci = k - tap * Cin;
+    const int shift = (dy * W + dx) * Cin + ci;
+#pragma unroll
+    for (int i = 0; i < G::A_LD; ++i) {
+      const int r = (tid >> 2) + i * (G::NT / 4);
+      if (G::A_CP % G::NT == 0 || r < BM) {
+        const bool ok = k_ok && ((a_mask[i] >> tap) & 1);
+        const float* src =
+            y + a_base[i] + tap_offset<SHUF>(a_y[i] + dy, a_x[i] + dx, shift, ci, W, Cin);
+        cp_async16(As + r * G::LDA + 4 * q, ok ? src : y, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::B_LD; ++i) {
+      const int e = tid + i * G::NT;
+      if (G::B_CP % G::NT == 0 || e < G::B_CP) {
+        const int kk = e / (BN / 4), n = n0 + 4 * (e % (BN / 4));
+        const bool ok = k0 + kk < K && n < Cout;
+        cp_async16(Bs + kk * G::LDB + 4 * (e % (BN / 4)),
+                   ok ? w + (long long)(k0 + kk) * Cout + n : w, ok);
+      }
+    }
+  };
+
+  const int tn = tid % (BN / TN), tm = tid / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) issue(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();   // this step's copies have landed
+    __syncthreads();               // ... for every thread; the previous step's reads are done
+    const int next = step + STAGES - 1;
+    if (next < nsteps) issue(next % STAGES, next);
+    cp_async_commit();
+    const float* As = smem + (step % STAGES) * G::STAGE_EL;
+    const float* Bs = As + BM * G::LDA;
+#pragma unroll
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + (tm + i * (BM / TM)) * G::LDA + 4 * kq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = Bs + (4 * kq + kk) * G::LDB;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow + 4 * tn);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + BN / 2 + 4 * tn);
+        const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = comp(a[i], kk);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace f32k
+
+// ---- the shuffled 16-byte gather of the wgmma kernels ----------------------
+// bfloat16 A tiles of 128-byte rows (64 channels of the flat K) under the
+// 128-byte swizzle of wgmma.cuh.  With Cin % 8 == 0 and a 16-byte aligned
+// packed input, 8 channels of one tap of one shuffled pixel are one aligned
+// 16-byte run of it (phase offsets are multiples of Cin), so a row of a K
+// step is 8 cp.async copies of 16 bytes (conv3x3.cu's shuffled conv and
+// shuffled_tail.cu's conv_hr).
+namespace sgw {
+
+constexpr int CH = 8;   // channels a copy
+
+// byte offset of 16-byte chunk c of row r of a swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)r * 128 + (uint32_t)(((c ^ r) & 7) << 4);
+}
+
+// copy channels ci .. ci+7 of tap `tap` (>= 9: past K) of the 3x3 window
+// around shuffled pixel (y, x) of the image at yp + img into dst; zero-fill
+// where the conv pads (or y == kNoRow)
+__device__ __forceinline__ void gather16(void* dst, const bf16* __restrict__ yp, long long img,
+                                         int y, int x, int tap, int ci, int H, int W, int Cin) {
+  const int yy = y + tap / 3 - 1, xx = x + tap % 3 - 1;
+  const bool ok = tap < 9 && yy >= 0 && yy < H && xx >= 0 && xx < W;
+  cp_async16(dst, ok ? yp + img + tap_offset<true>(yy, xx, 0, ci, W, Cin) : yp, ok);
+}
+
+}  // namespace sgw

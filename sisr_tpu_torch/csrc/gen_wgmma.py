@@ -11,12 +11,14 @@ its own function, written out here.
 from pathlib import Path
 
 WIDTHS = (16, 48, 64, 96, 128, 184, 256)
+# widths with A read from registers (shuffled_tail.cu's conv_hr)
+RS_WIDTHS = (64,)
 
 HEAD = """\
 // Generated by gen_wgmma.py; do not edit by hand.
 //
 // The wgmma pieces of the bfloat16 kernels (conv3x3.cu, scc_block.cu,
-// htb_tail.cu):
+// htb_tail.cu, shuffled_tail.cu):
 // wgmma_m64nNk16<N>(d, desc_a, desc_b): d (this thread's N/2 float32
 // accumulators of a 64 x N tile) += A (64 x 16, bfloat16) x B (16 x N,
 // bfloat16), both read from shared memory through their descriptors, both
@@ -26,6 +28,10 @@ HEAD = """\
 // 16-byte chunk c of row r lies at chunk c ^ (r % 8), the tile starts on a
 // 1024-byte boundary, and 8-row groups lie 1024 bytes apart; the k-th
 // 16-deep slice of a 64-deep tile starts 32 * k bytes further.
+// wgmma_m64nNk16_rs<N>(d, a, desc_b): the same with A (64 x 16) from this
+// thread's four registers, in mma.m16n8k16's A fragment layout for the 16
+// rows of its warp (what ldmatrix.x4 loads); a must stay unchanged until
+// the product is waited for.
 #pragma once
 
 #include <cstdint>
@@ -58,6 +64,9 @@ __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"
 template <int N>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t desc_a,
                                                uint64_t desc_b);
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                  uint64_t desc_b);
 """
 
 
@@ -84,9 +93,37 @@ __device__ __forceinline__ void wgmma_m64nNk16<{n}>(float (&d)[{r}], uint64_t de
 """
 
 
+def one_rs(n: int) -> str:
+    r = n // 2
+    regs = ", ".join(f"%{i}" for i in range(r))
+    outs = ",\n        ".join(
+        ", ".join(f'"+f"(d[{i}])' for i in range(j, min(j + 8, r))) for j in range(0, r, 8))
+    return f"""
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<{n}>(float (&d)[{r}], const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {{
+  asm volatile(
+      "{{\\n"
+      ".reg .pred p;\\n"
+      "setp.ne.b32 p, %{r + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{regs}}}, "
+      "{{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, 0;\\n"
+      "}}\\n"
+      : {outs}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}}
+"""
+
+
+def text() -> str:
+    """The header's contents."""
+    return HEAD + "".join(one(n) for n in WIDTHS) + "".join(one_rs(n) for n in RS_WIDTHS)
+
+
 def main() -> None:
-    text = HEAD + "".join(one(n) for n in WIDTHS)
-    (Path(__file__).resolve().parent / "wgmma.cuh").write_text(text)
+    text_ = text()
+    (Path(__file__).resolve().parent / "wgmma.cuh").write_text(text_)
 
 
 if __name__ == "__main__":

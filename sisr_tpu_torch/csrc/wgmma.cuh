@@ -1,7 +1,7 @@
 // Generated by gen_wgmma.py; do not edit by hand.
 //
 // The wgmma pieces of the bfloat16 kernels (conv3x3.cu, scc_block.cu,
-// htb_tail.cu):
+// htb_tail.cu, shuffled_tail.cu):
 // wgmma_m64nNk16<N>(d, desc_a, desc_b): d (this thread's N/2 float32
 // accumulators of a 64 x N tile) += A (64 x 16, bfloat16) x B (16 x N,
 // bfloat16), both read from shared memory through their descriptors, both
@@ -11,6 +11,10 @@
 // 16-byte chunk c of row r lies at chunk c ^ (r % 8), the tile starts on a
 // 1024-byte boundary, and 8-row groups lie 1024 bytes apart; the k-th
 // 16-deep slice of a 64-deep tile starts 32 * k bytes further.
+// wgmma_m64nNk16_rs<N>(d, a, desc_b): the same with A (64 x 16) from this
+// thread's four registers, in mma.m16n8k16's A fragment layout for the 16
+// rows of its warp (what ldmatrix.x4 loads); a must stay unchanged until
+// the product is waited for.
 #pragma once
 
 #include <cstdint>
@@ -43,6 +47,9 @@ __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"
 template <int N>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t desc_a,
                                                uint64_t desc_b);
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                  uint64_t desc_b);
 
 template <>
 __device__ __forceinline__ void wgmma_m64nNk16<16>(float (&d)[8], uint64_t desc_a,
@@ -190,4 +197,22 @@ __device__ __forceinline__ void wgmma_m64nNk16<256>(float (&d)[128], uint64_t de
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }

@@ -24,10 +24,13 @@ weights and grouped conv_last weights (``_pair_hr_weights``,
 tensor has exactly the bytes of the NHWC (B, H, W, Cout) output, so the
 tail kernel writes straight into it and none of that has a counterpart.
 
-In bfloat16 the plain conv runs on ``wgmma`` (``csrc/conv3x3.cu``), which
-reads its weights K-major: ``pack_weights`` lays the HWIO kernel out as
-(N, Kpad) rows in the kernel's flat-K order (tap-major, Cin inner), zero
-past Cout and past K = 9 Cin.  The pack is made outside autograd (the
+In bfloat16 the plain and the shuffled conv run on ``wgmma``
+(``csrc/conv3x3.cu``), and so does the tail's conv_hr
+(``csrc/shuffled_tail.cu``); each reads its weights K-major:
+``pack_weights`` lays the HWIO kernel out as (N, Kpad) rows in the
+kernel's flat-K order (tap-major, Cin inner), zero past Cout and past K =
+9 Cin (the tail's conv_hr at N = 64; its conv_last reads the HWIO weights
+as they are).  The pack is made outside autograd (the
 backward stays the plain vjp on the HWIO kernel) and kept on the kernel
 tensor while that tensor is unchanged: serving hands the kernel the same
 cached weights every call, so it packs once; a training step makes its
@@ -54,13 +57,22 @@ WGMMA_WIDTHS = (64, 128, 184, 256)
 K_STEP = 64
 
 
-def wgmma_width(cin: int, cout: int):
+def wgmma_width(cin: int, cout: int, shuffled: bool = False):
     """The packed N width of the bfloat16 wgmma path for (cin, cout), or
     None where its shape rule (``csrc/conv3x3.cu::wgmma_ok``) sends the conv
-    to the older kernels: Cin % 4 != 0, an odd Cout, or Cout > 256."""
-    if cin % 4 or cout % 2 or cout > WGMMA_WIDTHS[-1]:
+    to the older kernels: Cin % 4 != 0 (the shuffled conv's 16-byte gather:
+    Cin % 8 != 0), an odd Cout, or Cout > 256."""
+    if cin % (8 if shuffled else 4) or cout % 2 or cout > WGMMA_WIDTHS[-1]:
         return None
     return next(n for n in WGMMA_WIDTHS if n >= cout)
+
+
+def tail_wgmma(cin: int, c1: int, cout: int) -> bool:
+    """Whether the bfloat16 tail runs on wgmma (``csrc/shuffled_tail.cu::
+    wgmma_ok``): Cin == 64 (a pixel of its input patch is one 128-byte
+    row; its packed conv_hr weights, ``pack_weights(k1, 64)``, stay in
+    shared memory), C1 <= 64, Cout <= 8 (conv_last on m16n8k16)."""
+    return cin == 64 and c1 <= _TAIL_MAX_C1 and cout <= 8
 
 
 def pack_weights(kernel: torch.Tensor, npad: int) -> torch.Tensor:
@@ -143,7 +155,7 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
     if res is not None and tuple(res.shape) != (b, h, w, cout):
         raise ValueError(f"{name}: res {tuple(res.shape)} != output shape")
     build.check_cuda(name, y.device, y.dtype, y=y, res=res, kernel=kernel, bias=bias)
-    npad = None if shuffled or y.dtype != torch.bfloat16 else wgmma_width(cin, cout)
+    npad = None if y.dtype != torch.bfloat16 else wgmma_width(cin, cout, shuffled)
     packed = None if npad is None else _packed(kernel, npad)
     out = torch.empty((b, h, w, cout), dtype=y.dtype, device=y.device)
     fn = build.library("conv3x3").conv3x3_launch
@@ -222,13 +234,15 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     # the packed layout is the NHWC output's bytes: the kernel writes it as is
     shape = (b, 2 * h2, 2 * w2 // g, g * cout) if packed else (b, 2 * h2, 2 * w2, cout)
     out = torch.empty(shape, dtype=yp.dtype, device=yp.device)
+    w1p = (_packed(k1, _TAIL_MAX_C1)
+           if yp.dtype == torch.bfloat16 and tail_wgmma(cin, c1, cout) else None)
     fn = build.library("shuffled_tail").shuffled_tail_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1), build.ptr(b1),
-              build.ptr(k2), build.ptr(b2), build.ptr(out), b, 2 * h2, 2 * w2, cin, c1,
-              cout, ACTS[act1], build.stream(yp.device))
+    code = fn(build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1), build.ptr(w1p),
+              build.ptr(b1), build.ptr(k2), build.ptr(b2), build.ptr(out), b, 2 * h2, 2 * w2,
+              cin, c1, cout, ACTS[act1], build.stream(yp.device))
     build.raise_on_error(name, code)
     build.launches[name] += 1
     return out

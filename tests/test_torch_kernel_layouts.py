@@ -135,7 +135,8 @@ def test_pack_is_kept_on_the_kernel_while_it_is_unchanged():
 def test_wgmma_header_is_generated_from_its_script():
     """``wgmma.cuh`` is what ``gen_wgmma.py`` writes: one wrapper per width,
     among them every width of ``conv3x3.WGMMA_WIDTHS`` and those scc_block
-    (16, 48, 96) and htb_tail (184) use."""
+    (16, 48, 96) and htb_tail (184) use, and the register-A n64 wrapper of
+    the tail's conv_hr."""
     import importlib.util
 
     from sisr_tpu_torch.ops.kernels.conv3x3 import WGMMA_WIDTHS
@@ -144,8 +145,8 @@ def test_wgmma_header_is_generated_from_its_script():
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
     assert set(WGMMA_WIDTHS) | {16, 48, 96, 184} <= set(gen.WIDTHS)
-    assert (CSRC / "wgmma.cuh").read_text() == gen.HEAD + "".join(gen.one(n)
-                                                                  for n in gen.WIDTHS)
+    assert 64 in gen.RS_WIDTHS                  # the tail's conv_hr, A from registers
+    assert (CSRC / "wgmma.cuh").read_text() == gen.text()
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 12, 16), (2, 16, 20, 24), (1, 7, 5, 6)])
@@ -453,3 +454,182 @@ def test_weight_packs_are_kept_while_their_weights_are_unchanged():
         wi = w1 * 1.0
         assert build.cached(wi, "_test_pack", (wi,), make) is not \
             build.cached(wi, "_test_pack", (wi,), make)
+
+
+# --- the x4 head's shuffled convs on wgmma (conv3x3_shuffled, the tails) ------
+
+# the tail kernels' hr region and output tile (csrc/shuffled_tail.cu, rg)
+TAIL_RH, TAIL_RW = 16, 32
+TAIL_OH, TAIL_OW = TAIL_RH - 2, TAIL_RW - 2
+
+
+def shuffled_rows_emulation(yp, kpad):
+    """The im2col rows the shuffled 16-byte gather reads (``conv_gemm.cuh::
+    sgw``), one per pixel (b, y, x) of the x2 shuffled image, (B, 2H, 2W,
+    kpad): column k = tap*Cin + ci holds yp[b, yy>>1, xx>>1, ((xx&1)*2 +
+    (yy&1))*Cin + ci] at (yy, xx) = (y + tap//3 - 1, x + tap%3 - 1), zero
+    where that lies outside the image and past K = 9*Cin."""
+    b, h2, w2, c4 = yp.shape
+    cin, h, w = c4 // 4, 2 * h2, 2 * w2
+    ys, xs = torch.arange(h).view(h, 1), torch.arange(w).view(1, w)
+    cols = []
+    for tap in range(9):
+        yy, xx = ys + tap // 3 - 1, xs + tap % 3 - 1
+        inside = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(yp.dtype)
+        yc, xc = yy.clamp(0, h - 1).expand(h, w), xx.clamp(0, w - 1).expand(h, w)
+        chan = (((xc & 1) * 2 + (yc & 1)) * cin)[..., None] + torch.arange(cin)
+        cols.append(yp[:, (yc >> 1)[..., None], (xc >> 1)[..., None], chan]
+                    * inside[..., None])
+    return F.pad(torch.cat(cols, dim=-1), (0, kpad - 9 * cin))
+
+
+def shuffled_wgmma_emulation(yp, k, bias, act):
+    """conv3x3_shuffled as its wgmma kernel computes it: the gathered rows
+    times ``pack_weights(k, wgmma_width(Cin, Cout, shuffled=True))``, the
+    first Cout columns, + bias, act."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import _act, pack_weights, wgmma_width
+
+    cin, cout = k.shape[2:]
+    packed = pack_weights(k, wgmma_width(cin, cout, shuffled=True))
+    a = shuffled_rows_emulation(yp, packed.shape[1])
+    return _act((a @ packed.t())[..., :cout] + bias, act)
+
+
+def tail_wgmma_emulation(yp, k1, b1, act1, k2, b2, rnd=_rbf):
+    """The region tail (``tail_wgmma_kernel``; ``tail_f32_kernel`` with
+    ``rnd`` the identity) block by block.  hr covers a 16 x 32 region
+    starting one pixel above and left of the block's 14 x 30 output tile,
+    in 4 passes of 128 rows: pass c reads the 6 x 34 patch of shuffled
+    pixels (rows from 4c - 1 above the region's first, columns from one
+    left of it, zero outside the image, through the 16-byte gather's
+    address), and the A row of pass row (ar, ac) at tap (dy, dx) is patch
+    pixel (ar + dy) * 34 + ac + dx; times ``pack_weights(k1, 64)``, + b1,
+    act1, rounded by ``rnd``, zero outside the image.  conv_last: m16
+    tiles of the 420 output pixels (row-major in the tile, the last tile's
+    rows past 420 clamped to pixel 419, as the kernel's ldmatrix addresses
+    are), each tap's A rows read at region row (p // 30 + dy) * 32 + p % 30
+    + dx, times the tap's conv_last weights padded to n8."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import _act, pack_weights
+
+    b, h2, w2, c4 = yp.shape
+    cin, c1, cout = c4 // 4, k1.shape[-1], k2.shape[-1]
+    h, w = 2 * h2, 2 * w2
+    w1p = pack_weights(k1, 64)
+    b1p = F.pad(b1, (0, 64 - c1))
+    ny, nx = -(-h // TAIL_OH), -(-w // TAIL_OW)
+    # the shuffled image (the gather's centre tap) with a zero ring two
+    # pixels wide, large enough for every patch
+    image = shuffled_rows_emulation(yp, 9 * cin)[..., 4 * cin:5 * cin]
+    image = F.pad(image, (0, 0, 2, nx * TAIL_OW + 2 - w, 2, ny * TAIL_OH + 2 - h))
+    ys, xs = torch.arange(h).view(h, 1), torch.arange(w).view(1, w)
+    arow = torch.arange(128)
+    ar, ac = arow // TAIL_RW, arow % TAIL_RW
+    w2p = torch.zeros(9, 64, 8, dtype=k2.dtype)
+    w2p[:, :c1, :cout] = k2.reshape(9, c1, cout)
+    npix = TAIL_OH * TAIL_OW
+    p = torch.arange(-(-npix // 16) * 16).clamp(max=npix - 1)
+    out = torch.zeros(b, ny * TAIL_OH, nx * TAIL_OW, cout, dtype=yp.dtype)
+    for by in range(ny):
+        for bx in range(nx):
+            oy0, ox0 = by * TAIL_OH, bx * TAIL_OW
+            passes = []
+            for c in range(TAIL_RH * TAIL_RW // 128):
+                # patch pixel (pr, pc): image row oy0 - 2 + 4c + pr, column ox0 - 2 + pc
+                patch = image[:, oy0 + 4 * c:oy0 + 4 * c + 6, ox0:ox0 + 34].reshape(b, -1, cin)
+                a = torch.cat([patch[:, (ar + t // 3) * 34 + ac + t % 3] for t in range(9)], -1)
+                passes.append(a @ w1p.t())
+            region = _act(torch.cat(passes, 1) + b1p, act1)
+            ry = oy0 - 1 + torch.arange(TAIL_RH * TAIL_RW) // TAIL_RW
+            rx = ox0 - 1 + torch.arange(TAIL_RH * TAIL_RW) % TAIL_RW
+            inside = ((ry >= 0) & (ry < h) & (rx >= 0) & (rx < w)).to(yp.dtype)[:, None]
+            region = rnd(region) * inside
+            d = 0
+            for t in range(9):
+                rr = (p // TAIL_OW + t // 3) * TAIL_RW + p % TAIL_OW + t % 3
+                d = d + region[:, rr] @ w2p[t]
+            tile = d[:, :npix, :cout].reshape(b, TAIL_OH, TAIL_OW, cout) + b2
+            out[:, oy0:oy0 + TAIL_OH, ox0:ox0 + TAIL_OW] = tile
+    return out[:, :h, :w]
+
+
+def _shuffled_inputs(rng, b, h2, w2, cin, c1, cout):
+    mk = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
+    return (mk(b, h2, w2, 4 * cin), mk(3, 3, cin, c1, scale=(9 * cin) ** -0.5), mk(c1, scale=0.1),
+            mk(3, 3, c1, cout, scale=(9 * c1) ** -0.5), mk(cout, scale=0.1))
+
+
+@pytest.mark.parametrize("h2,w2,cin,cout,act", [(3, 5, 8, 16, "leaky2"), (4, 6, 16, 40, "none"),
+                                                (2, 3, 64, 256, "leaky2")])
+def test_shuffled_wgmma_gather_matches_reference_and_pallas(h2, w2, cin, cout, act):
+    """The shuffled conv's 16-byte gather and packed weights, emulated in
+    float32, at Cin 8, 16 and the model's 64 -> 256, against the plain
+    version and JAX's ``_conv3x3_shuffled_pallas`` in interpret mode: 1e-4
+    (the same float32 products in another order)."""
+    from sisr_tpu.ops.pallas.conv3x3 import _conv3x3_shuffled_pallas
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_reference
+
+    yp, k, bias = _shuffled_inputs(np.random.default_rng(11), 2, h2, w2, cin, cout, 3)[:3]
+    got = shuffled_wgmma_emulation(_t(yp), _t(k), _t(bias), act)
+    assert tuple(got.shape) == (2, 2 * h2, 2 * w2, cout)
+    _close(got, conv3x3_shuffled_reference(_t(yp), _t(k), _t(bias), act), 1e-4, 1e-4)
+    _close(got, _conv3x3_shuffled_pallas(jnp.asarray(yp), jnp.asarray(k), jnp.asarray(bias),
+                                         act, interpret=True), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("h2,w2,cin,c1,cout", [(8, 16, 64, 64, 3), (12, 20, 64, 12, 5),
+                                               (9, 13, 64, 64, 3)])
+def test_tail_region_layout_matches_reference_and_pallas(h2, w2, cin, c1, cout):
+    """The region tail's tiling (16 x 32 hr regions, 14 x 30 output tiles,
+    partial at the right and bottom edges), its passes' input patches, its
+    hr layout and its conv_last operands (m16 rows by tap, w2 padded to
+    n8), emulated in float32 without rounding, against the plain version
+    and JAX's ``_conv3x3_shuffled_tail_pallas`` in interpret mode: 1e-4."""
+    from sisr_tpu.ops.pallas.conv3x3 import _conv3x3_shuffled_tail_pallas
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail_reference
+
+    args = _shuffled_inputs(np.random.default_rng(12), 1, h2, w2, cin, c1, cout)
+    yp, k1, b1, k2, b2 = map(_t, args)
+    got = tail_wgmma_emulation(yp, k1, b1, "leaky2", k2, b2, rnd=lambda t: t)
+    assert tuple(got.shape) == (1, 2 * h2, 2 * w2, cout)
+    _close(got, conv3x3_shuffled_tail_reference(yp, k1, b1, "leaky2", k2, b2), 1e-4, 1e-4)
+    jx = [jnp.asarray(a) for a in args]
+    _close(got, _conv3x3_shuffled_tail_pallas(jx[0], jx[1], jx[2], "leaky2", jx[3], jx[4],
+                                              interpret=True), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("h2,w2,cin,c1,cout", [(8, 16, 64, 64, 3), (5, 18, 64, 12, 5)])
+def test_tail_wgmma_bf16_rounding_stays_within_the_plain_bf16_error(h2, w2, cin, c1, cout):
+    """With hr rounded to bfloat16 where the plain version stores it, the
+    emulation on bfloat16 inputs stays as close to the float32 plain
+    version as twice the plain bfloat16 version does, or within 4 bf16 ulps
+    of the output scale (the card tests' bar)."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail_reference
+
+    args = [_t(a) for a in _shuffled_inputs(np.random.default_rng(13), 1, h2, w2, cin, c1, cout)]
+    b16 = [t.to(torch.bfloat16) for t in args]
+    up = [t.float() for t in b16]
+    ref = lambda a: conv3x3_shuffled_tail_reference(a[0], a[1], a[2], "leaky2", a[3], a[4])
+    truth = ref(up)
+    e_plain = float((ref(b16).float() - truth).abs().max())
+    got = _rbf(tail_wgmma_emulation(up[0], up[1], up[2], "leaky2", up[3], up[4]))
+    e_kernel = float((got - truth).abs().max())
+    scale = max(1.0, float(truth.abs().max()))
+    assert e_kernel <= max(2.0 * e_plain, 4 * 2.0 ** -8 * scale), (e_kernel, e_plain)
+
+
+def test_shuffled_shape_rules_mirror_the_kernels():
+    """The shuffled conv's wgmma rule (``conv3x3.cu::wgmma_ok`` with shuf:
+    Cin % 8 == 0 for its 16-byte copies) and the tails' (``shuffled_tail.cu::
+    wgmma_ok``: Cin == 64): the model's shapes take the new kernels; the
+    shapes outside keep the earlier ones."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import tail_wgmma, wgmma_width
+
+    assert wgmma_width(64, 256, shuffled=True) == 256       # conv_up2
+    assert wgmma_width(8, 12, shuffled=True) == 64
+    assert wgmma_width(12, 16, shuffled=True) is None       # Cin % 8 != 0
+    assert wgmma_width(12, 16) == 64                        # the plain conv's 8-byte copies
+    assert wgmma_width(64, 3, shuffled=True) is None        # odd Cout
+    assert tail_wgmma(64, 64, 3) and tail_wgmma(64, 12, 5)  # conv_hr + conv_last
+    assert not tail_wgmma(8, 12, 3)                         # a patch pixel is 64 channels
+    assert not tail_wgmma(72, 64, 3)
+    assert not tail_wgmma(64, 64, 9)                        # conv_last is n8

@@ -301,6 +301,156 @@ def test_conv3x3_shuffled_tail_kernel_matches_plain_on_card(cuda_device, dtype, 
     assert tuple(out.shape) == (2, 2 * h2, 2 * w2, cout)
 
 
+# the x4 head's shapes: a 192x192 tile, a head band of the 1080p frame, a
+# training step (batch 2), and an odd map that leaves partial blocks
+HEAD_SHAPES = [(1, 192, 192), (1, 140, 1920), (2, 64, 64), (2, 13, 23)]
+
+
+def _head_args(rng, device, dtype, b, h2, w2, cin=64, c1=64, cout=3):
+    return _on(device, dtype, _rand(rng, b, h2, w2, 4 * cin, scale=1.0),
+               _rand(rng, 3, 3, cin, c1, scale=(9 * cin) ** -0.5), _rand(rng, c1),
+               _rand(rng, 3, 3, c1, cout, scale=(9 * c1) ** -0.5), _rand(rng, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bhw", HEAD_SHAPES)
+def test_conv3x3_shuffled_model_shapes_match_plain_on_card(cuda_device, dtype, bhw):
+    """conv_up2 (64 -> 256, leaky 0.2) at the head's shapes: the bfloat16
+    wgmma kernel (n256, 16-byte shuffled gather) and the float32 8x8
+    register tiles (two N tiles of 128)."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled
+
+    rng = np.random.default_rng(14)
+    yp, k, b = _on(cuda_device, dtype, _rand(rng, *bhw, 256, scale=1.0),
+                   _rand(rng, 3, 3, 64, 256, scale=(9 * 64) ** -0.5), _rand(rng, 256))
+    out = _check(conv3x3_shuffled, (yp, k, b, "leaky2"), 1e-4)
+    assert tuple(out.shape) == (bhw[0], 2 * bhw[1], 2 * bhw[2], 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bhw", HEAD_SHAPES)
+def test_conv3x3_shuffled_tail_model_shapes_match_plain_on_card(cuda_device, dtype, bhw):
+    """conv_hr + conv_last (64 -> 64 -> 3) at the head's shapes on the
+    region kernels (16 x 32 hr regions: bfloat16 on wgmma and mma.sync,
+    float32 on 8x8 register tiles), partial tiles included (2W = 46 and 2H
+    = 26 are no multiples of 30 and 14)."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail
+
+    args = _head_args(np.random.default_rng(17), cuda_device, dtype, *bhw)
+    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
+        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    out = _check(fn, tuple(args), 1e-4)
+    assert tuple(out.shape) == (bhw[0], 2 * bhw[1], 2 * bhw[2], 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,c1,cout", [(12, 16, 3), (64, 64, 9), (6, 10, 3), (8, 10, 3)])
+def test_conv3x3_shuffled_tail_outside_the_rule_matches_plain_on_card(cuda_device, dtype, cin,
+                                                                      c1, cout):
+    """Shapes the region kernels' rule leaves to the earlier kernel in
+    bfloat16 (Cin != 64, Cout > 8) or in both types (Cin % 4 != 0, or in
+    float32 C1 % 4 != 0: f32k copies w1's rows 4 floats at a time)."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail, tail_wgmma
+
+    assert not tail_wgmma(cin, c1, cout)
+    args = _head_args(np.random.default_rng(18), cuda_device, dtype, 2, 9, 17, cin, c1, cout)
+    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
+        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    _check(fn, tuple(args), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shuffled_conv_outside_the_rule_matches_plain_on_card(cuda_device, dtype):
+    """Cin 12 (Cin % 4 == 0, Cin % 8 != 0): the plain conv would take wgmma,
+    the shuffled conv keeps the earlier loop in bfloat16."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled, wgmma_width
+
+    assert wgmma_width(12, 16, shuffled=True) is None and wgmma_width(12, 16) == 64
+    rng = np.random.default_rng(19)
+    yp, k, b = _on(cuda_device, dtype, _rand(rng, 2, 6, 10, 48, scale=1.0),
+                   _rand(rng, 3, 3, 12, 16, scale=(9 * 12) ** -0.5), _rand(rng, 16))
+    _check(conv3x3_shuffled, (yp, k, b, "none"), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_and_unpacked_tails_are_the_same_bytes_on_card(cuda_device, dtype):
+    """At the model's widths the packed tail's output is the unpacked one's
+    bytes: one kernel writes both."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3_shuffled_tail,
+                                                    conv3x3_shuffled_tail_packed)
+
+    yp, k1, b1, k2, b2 = _head_args(np.random.default_rng(20), cuda_device, dtype, 1, 24, 64)
+    flat = conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
+    packed = conv3x3_shuffled_tail_packed(yp, k1, b1, "leaky2", k2, b2)
+    assert tuple(packed.shape) == (1, 48, 8, 48)
+    assert torch.equal(packed.reshape(flat.shape).view(torch.int16 if dtype == torch.bfloat16
+                                                       else torch.int32),
+                       flat.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.cuda
+def test_head_weight_packs_are_kept_while_unchanged_on_card(cuda_device):
+    """conv_up2's and conv_hr's wgmma packs (bfloat16) are made once per
+    weight tensor, as the model's cached weights serve them, and anew after
+    a write to the weights (a training step's new weights)."""
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled, conv3x3_shuffled_tail
+
+    yp, k1, b1, k2, b2 = _head_args(np.random.default_rng(23), cuda_device, torch.bfloat16,
+                                    1, 8, 16)
+    k, b = _on(cuda_device, torch.bfloat16, _rand(np.random.default_rng(24), 3, 3, 64, 256),
+               np.zeros(256, np.float32))
+    def packs():
+        conv3x3_shuffled(yp, k, b, "leaky2")
+        conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
+        return k._wgmma_pack[1], k1._wgmma_pack[1]
+
+    first = packs()
+    assert tuple(first[0].shape) == (256, 576) and tuple(first[1].shape) == (64, 576)
+    again = packs()
+    assert again[0] is first[0] and again[1] is first[1]
+    k.mul_(0.5)
+    k1.mul_(0.5)
+    after = packs()
+    assert after[0] is not first[0] and after[1] is not first[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,conv_kernel,tail_kernel", [
+    (torch.bfloat16, "shuffled_conv_wgmma_kernel", "tail_wgmma_kernel"),
+    (torch.float32, "shuffled_conv_f32_kernel", "tail_f32_kernel")])
+def test_head_model_shapes_take_the_redesigned_kernels_on_card(cuda_device, dtype, conv_kernel,
+                                                               tail_kernel):
+    """At the model's widths conv_up2 and the tail launch the redesigned
+    kernels and no other: every kernel under the profile prefixes
+    chip_smoke.py reads (shuffled_conv_, tail_) is one of them, over three
+    calls of each (the launch counters hold one launch a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled, conv3x3_shuffled_tail
+
+    yp, k1, b1, k2, b2 = _head_args(np.random.default_rng(21), cuda_device, dtype, 1, 24, 64)
+    k, b = _on(cuda_device, dtype, _rand(np.random.default_rng(22), 3, 3, 64, 256),
+               np.zeros(256, np.float32))
+    calls = lambda: (conv3x3_shuffled(yp, k, b, "leaky2"),
+                     conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2))
+    calls()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            calls()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count]
+    head = [n for n in names if "::shuffled_conv_" in n or "::tail_" in n]
+    assert any(conv_kernel in n for n in head) and any(tail_kernel in n for n in head), names
+    assert all(conv_kernel in n or tail_kernel in n for n in head), head
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 9, 70, 180), (1, 5, 3, 300)])
