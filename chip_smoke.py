@@ -9,17 +9,18 @@ Phases:
   build    compile every kernel in sisr_tpu_torch/csrc with nvcc (one
            process per source, all at once) into build/kernels/; count
            the HGMMA instructions in the SASS of the conv3x3, scc_block,
-           htb_tail and shuffled_tail libraries, and the HGMMA or HMMA of
-           the shuffled conv's own kernels (shuffled_conv_wgmma_*) in
-           conv3x3's (their bfloat16 paths run on wgmma: none fails the
-           run);
+           htb_tail and shuffled_tail libraries, of htb_fused's launch A
+           (htb_fused_wg) in its library, and the HGMMA or HMMA of the
+           shuffled conv's own kernels (shuffled_conv_wgmma_*) in conv3x3's
+           (their bfloat16 paths run on wgmma: none fails the run);
   kernels  each of the eleven kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
            tail at a head band, htb_fused at window 4 and 8 on 1088x1920,
            and one case of each earlier kernel that a tile never gives it
            (scc_block with 130,560 windows of 4x4 and at window 48 on a
-           padded map, htb_tail_stats with a padded attn, conv3x3
+           padded map, htb_tail_stats with a padded attn, htb_fused's
+           unfused pair on its inputs, conv3x3
            180->180, fused_fusion, conv3x3_shuffled at a band); then
            every kernel shape a training step launches (batch 2, LR
            64x64: each conv, the x4 head, the Fusion gate, scc_block at
@@ -45,8 +46,11 @@ Phases:
            torch.profiler, which must launch one device kernel;
   split    device time of each kernel launch of one scc_block call at
            every window of a 192x192 tile (bfloat16 and float32) and at
-           the frame's windows 4 and 48, and of one htb_tail call (with and
-           without stats) at a tile and at the frame (torch.profiler), one
+           the frame's windows 4 and 48, of one htb_tail call (with and
+           without stats) at a tile and at the frame, and of one htb_fused
+           call at the frame's windows 4 and 8 (launch A against launch B)
+           beside the unfused pair on the same inputs (scc_block at the
+           same window, then htb_tail_stats) (torch.profiler), one
            ``split ...`` line each;
   serve    the serving entry point (TiledSR over HiTSIR, the full flagship
            with its Fusion gate, synthesized weights) on three requests, bfloat16
@@ -80,7 +84,8 @@ Phases:
            weights amplify any rounding), within 3 dB of it.  Then
            BandedHeadSR on 256x320 and 250x330: float32 within 1e-5 of the
            whole forward and 1e-3 of the plain model, bfloat16 at the same
-           PSNR bar, fused_htb within 1e-4 of the unfused model.  Then the
+           PSNR bar, fused_htb within 1e-4 of the unfused model, and
+           bfloat16 fused_htb at the bfloat16 PSNR bar.  Then the
            training step (float32, TF32 off) from the same weights and
            two batches on the kernel and the plain path: the L1 losses within
            1e-5 relative, every parameter's gradient finite and within a
@@ -95,8 +100,9 @@ Phases:
 tile and a training step), conv3x3_shuffled and the tails (a tile, the
 frame's head band, a training step), dwconv5x5 (forward and dx at both maps),
 scc_block (every window of a tile, the frame's windows 4 and 48),
-htb_tail and htb_tail_stats (a tile, the frame) and htb_fused (a tile's
-windows 4 and 8) in bfloat16 and float32, and the bfloat16 serving
+htb_tail and htb_tail_stats (a tile, the frame), htb_fused (a tile's and
+the frame's windows 4 and 8) and at the frame the unfused pair on its
+inputs in bfloat16 and float32, and the bfloat16 serving
 requests of 1 and 12 tiles (wall ms, median of three, and device busy ms
 under torch.profiler), from the package in the checkout BASE and from this
 one, one process each, in the order base, this, this, base; the first base
@@ -563,17 +569,25 @@ def dwconv_cases(shapes, scope):
     return cases
 
 
-def htb_fused_cases(h, w, shapes, scope="frame"):
+def htb_fused_cases(h, w, shapes, scope="frame", pair=False):
     """The whole degenerate-window HTB: shapes (window, threaded stats,
     calls); both emit the next block's stats, as the flagship's do.  Work:
     the SCC block's, with its channel branch in the reassociated form
-    (2 * 2 * L * C/2 a token) and its spatial branch kept in float32 (2 * 2
-    * L * C/2), plus the tail's; bytes: x, the SCC and tail weights, out
-    and the stats (x2 and h are intermediates)."""
+    (2 * 2 * L * C/2 a token) and its spatial branch kept in float32 in
+    the cheaper of its two forms (scores and their product, 2 * 2 * L *
+    C/2 a token, or the linear one, q M + bias VP with M = KP^T VP / d a
+    window, 2 * (2 * C/2 * d + L * C/2)), plus the tail's; bytes: x, the
+    SCC and tail weights, out and the stats (x2 and h are
+    intermediates).  With ``pair``, each shape also gives the unfused pair
+    on the same inputs (scc_block, then htb_tail_stats; calls 0, the same
+    work), the chain the fused blocks replace."""
     import torch
+    from sisr_tpu_torch.ops.kernels.ffn import htb_tail_stats
     from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+    from sisr_tpu_torch.ops.kernels.scc_block import scc_block
 
     c, ch, heads, half = 180, 360, 6, 90
+    d = half // heads
     cases = []
     for win, threaded, n in shapes:
         big_l = win * win
@@ -590,16 +604,23 @@ def htb_fused_cases(h, w, shapes, scope="frame"):
             return htb_fused(*ins[:11], heads, (win, win), *ins[11:], emit_stats=True,
                              reference=reference)
 
+        def chain(ins, reference, win=win):
+            attn = scc_block(*ins[:11], heads, (win, win), reference=reference)
+            return htb_tail_stats(attn, ins[0], *ins[11:], reference=reference)
+
         nb, _ = _scc_work(h, w, win)
         weights = 2 * c * ch + 25 * ch + 2 * ch + 6 * c
         tc = 2.0 * h * w * (18 * c + c * half + 2 * big_l * half + c * c + 2 * c * ch + 25 * ch)
-        f32 = 2.0 * h * w * 2 * big_l * half
-        cases.append(Case(
-            "htb_fused", f"{h}x{w} window {win} (L={big_l}) +stats"
-            + (", threaded stats" if threaded else ""), n, make, call,
-            lambda es, nb=nb: es * (nb + weights) + 4 * (2 * h * w + 2 * c)
-            + (4 * 2 * h * w if threaded else 0),
-            tc, flops32=f32, scope=scope))
+        f32 = 2.0 * h * w * min(2 * big_l * half, 2 * half * d + big_l * half)
+        label = (f"{h}x{w} window {win} (L={big_l}) +stats"
+                 + (", threaded stats" if threaded else ""))
+        nbytes = (lambda es, nb=nb, threaded=threaded: es * (nb + weights)
+                  + 4 * (2 * h * w + 2 * c) + (4 * 2 * h * w if threaded else 0))
+        cases.append(Case("htb_fused", label, n, make, call, nbytes, tc, flops32=f32,
+                          scope=scope))
+        if pair:
+            cases.append(Case("htb_fused", label + ", unfused pair (scc_block, htb_tail_stats)",
+                              0, make, chain, nbytes, tc, flops32=f32, scope=scope))
     return cases
 
 
@@ -624,12 +645,14 @@ def frame_cases():
     head bands of 136 + 4 halo rows): rows 7 and 10 with their per-frame
     counts (the 8 bands; the 6 window-4 and 6 window-8 blocks with
     fused_htb), and one case of each earlier kernel that a 192x192 tile
-    never gives it (calls 0: checked and timed, outside the tile sums)."""
+    never gives it (calls 0: checked and timed, outside the tile sums),
+    among them the unfused pair that each htb_fused call replaces, on its
+    inputs."""
     h, w = FRAME_ALIGNED
     rows = BAND_ROWS_1080 + 4
     up48 = lambda n: -(-n // 48) * 48     # the 48-window blocks pad 1088 to 1104
     return ([tail_case(2 * rows, 2 * w, 8, packed=True, scope="frame")]
-            + htb_fused_cases(h, w, ((4, False, 6), (8, True, 6)))
+            + htb_fused_cases(h, w, ((4, False, 6), (8, True, 6)), pair=True)
             + scc_cases([(h, w, 4, 0), (up48(h), up48(w), 48, 0)], scope="frame")
             + htb_cases(h, w, ((True, 0),), pad=(up48(h) - h, 0), scope="frame")
             + conv_cases([(h, w, 180, 180, "none", True, 0)], scope="frame")
@@ -1059,18 +1082,19 @@ def run_whole_check(served: dict, failures: list) -> None:
     (test_tiling.py:174), vs the plain whole model within 1e-3; bfloat16
     banded vs the float32 plain model, PSNR pooled over both requests, at
     the tile check's bar; fused_htb vs unfused within 1e-4 (other kernels,
-    so not bit-equal)."""
+    so not bit-equal); bfloat16 fused_htb banded vs the float32 plain
+    model at the same PSNR bar."""
     import torch
     from sisr_tpu_torch.parallel.tiling import BandedHeadSR
     from sisr_tpu_torch.utils.precision import exact_mode
 
     m16, m32 = served["models"]["bfloat16"], served["models"]["float32"]
-    m32f = flagship("float32", m32, True)
+    m32f, m16f = flagship("float32", m32, True), flagship("bfloat16", m16, True)
     g = torch.Generator(device="cuda").manual_seed(2)
     reqs = SMALL[1:]
     imgs = [torch.rand((h, w, 3), generator=g, device="cuda") for h, w in reqs]
     err = dict(whole=0.0, plain=0.0, fused=0.0)
-    sq = dict(k16=0.0, p16=0.0)
+    sq = dict(k16=0.0, p16=0.0, f16=0.0)
     with torch.inference_mode(), exact_mode():
         for img in imgs:
             banded = BandedHeadSR(m32, BAND_ROWS)(img)
@@ -1081,13 +1105,15 @@ def run_whole_check(served: dict, failures: list) -> None:
             fused = BandedHeadSR(m32f, BAND_ROWS)(img)
             err["fused"] = max(err["fused"], float((fused - banded).abs().max()))
             outs = {"k16": BandedHeadSR(m16, BAND_ROWS, out_dtype=torch.float32)(img),
+                    "f16": BandedHeadSR(m16f, BAND_ROWS, out_dtype=torch.float32)(img),
                     "p16": m16(img[None], reference=True)[0].float()}
             for k, y in outs.items():
                 sq[k] += float(((y.clamp(0, 1) - plain) ** 2).mean()) / len(imgs)
     db = {k: 10 * math.log10(1.0 / max(v, 1e-20)) for k, v in sq.items()}
     bar16 = min(44.0, db["p16"] - 3.0)
     oks = dict(whole=err["whole"] <= 1e-5, plain=err["plain"] <= 1e-3,
-               fused=err["fused"] <= 1e-4, bf16=db["k16"] >= bar16)
+               fused=err["fused"] <= 1e-4, bf16=db["k16"] >= bar16,
+               fused16=db["f16"] >= bar16)
     mark = lambda k: "ok" if oks[k] else "FAIL"
     log(f"  over {', '.join(f'{h}x{w}' for h, w in reqs)}, f32: banded vs whole forward "
         f"max abs {err['whole']:.3e} (bar 1e-5) {mark('whole')}; vs the plain whole model "
@@ -1095,6 +1121,7 @@ def run_whole_check(served: dict, failures: list) -> None:
         f"{err['fused']:.3e} (bar 1e-4) {mark('fused')}")
     log(f"  bf16 banded vs f32 plain: {db['k16']:.2f} dB PSNR (bar {bar16:.2f}: "
         f"{'44 dB' if bar16 == 44.0 else 'plain bf16 - 3 dB'}) {mark('bf16')}; "
+        f"bf16 fused_htb banded vs f32 plain: {db['f16']:.2f} dB {mark('fused16')}; "
         f"bf16 plain vs f32 plain: {db['p16']:.2f} dB")
     if not all(oks.values()):
         failures.append("whole-image check against the whole forward and the plain model")
@@ -1468,13 +1495,16 @@ def check_dx_one_launch(failures: list) -> None:
 def split_cases():
     """The cases the launch split profiles: scc_block at every window of a
     192x192 tile and at the frame's windows 4 and 48, htb_tail with and
-    without stats at a tile and at the frame."""
+    without stats at a tile and at the frame, and htb_fused at the frame's
+    windows 4 and 8 beside the unfused pair on the same inputs (scc_block
+    at windows 4 and 8, then htb_tail_stats)."""
     h, w = FRAME_ALIGNED
     up48 = lambda n: -(-n // 48) * 48
     return (scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
             + scc_cases([(h, w, 4, 1), (up48(h), up48(w), 48, 1)], scope="frame")
             + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
-            + htb_cases(h, w, ((False, 1),), pad=(up48(h) - h, 0), scope="frame"))
+            + htb_cases(h, w, ((False, 1),), pad=(up48(h) - h, 0), scope="frame")
+            + htb_fused_cases(h, w, ((4, False, 1), (8, True, 1)), pair=True))
 
 
 def _kernel_name(key: str) -> str:
@@ -1529,7 +1559,9 @@ def ab_cases():
     the frame's head band (the packed tail) and a training step,
     dwconv5x5 (forward and dx at both maps), scc_block at every window of a
     tile and at the frame's windows 4 and 48, htb_tail and htb_tail_stats
-    at a tile and at the frame, htb_fused at a tile's windows 4 and 8."""
+    at a tile and at the frame, htb_fused at a tile's and at the frame's
+    windows 4 and 8, and at the frame beside it the unfused pair on the
+    same inputs (scc_block at windows 4 and 8, then htb_tail_stats)."""
     n = TRAIN_LR
     h, w = FRAME_ALIGNED
     rows = BAND_ROWS_1080 + 4
@@ -1546,7 +1578,8 @@ def ab_cases():
             + scc_cases([(h, w, 4, 0), (up48(h), up48(w), 48, 0)], scope="frame")
             + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
             + htb_cases(h, w, ((False, 0), (True, 0)), pad=(up48(h) - h, 0), scope="frame")
-            + htb_fused_cases(TILE, TILE, ((4, False, 1), (8, True, 1)), scope="tile"))
+            + htb_fused_cases(TILE, TILE, ((4, False, 1), (8, True, 1)), scope="tile")
+            + htb_fused_cases(h, w, ((4, False, 0), (8, True, 0)), pair=True))
 
 
 def ab_serving() -> dict:
@@ -1706,6 +1739,11 @@ def main(argv=None) -> int:
             log(f"  {lib} SASS: {hgmma} HGMMA instructions")
             if hgmma == 0:
                 failures.append(f"{lib}'s library holds no HGMMA: its bf16 path is not on wgmma")
+        # htb_fused's launch A on wgmma (its library also holds htb_tail's tail)
+        fused = sass_count("htb_fused", ("HGMMA",), "htb_fused_wg")
+        log(f"  htb_fused SASS, htb_fused_wg: {fused} HGMMA instructions")
+        if fused == 0:
+            failures.append("htb_fused_wg holds no HGMMA: htb_fused's bf16 path is not on wgmma")
         # the shuffled conv (conv_up2) has kernels of its own in conv3x3's library
         shuf = sass_count("conv3x3", ("HGMMA", "HMMA"), "shuffled_conv_wgmma")
         log(f"  conv3x3 SASS, shuffled_conv_wgmma_*: {shuf} HGMMA/HMMA instructions")
@@ -1723,7 +1761,8 @@ def main(argv=None) -> int:
             failures.append(f"dx profile: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "split" in phases and not failures:
-        log("[split] device time of each launch of scc_block and htb_tail (torch.profiler)")
+        log("[split] device time of each launch of scc_block, htb_tail and htb_fused "
+            "(torch.profiler)")
         try:
             launch_split(split_cases())
         except Exception:

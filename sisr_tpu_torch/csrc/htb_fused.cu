@@ -10,7 +10,42 @@
 // Replaces sisr_tpu/ops/pallas/htb_block.py::htb_fused (_make_fused_kernel).
 // The TPU kernel walks window-row bands in order as one lagged pipeline and
 // carries x2 and h of the previous band in VMEM for the depthwise conv's
-// halo.  CUDA blocks carry nothing, so two launches:
+// halo.  CUDA blocks carry nothing, so two launches, A (the attention, LN1
+// and fc1 of whole windows; only x2 and h leave it) and B (the tail over
+// output tiles, reading h on its halo and x2 as stored).
+//
+// Bound on the H100: per token ~16 k (k), 32 k (proj), 65 k (fc1), 65 k
+// (fc2), ~25 k (the L <= 64 attention) multiply-adds against ~1.5 KB of
+// bf16 traffic (x, x2, h, out, h read again): arithmetic.
+//
+// bfloat16 at the model's shapes (C = 180 in 6 heads, Ch = 360, L = 16 or
+// 64; fwg below): launch A is htb_fused_wg, one 64-token tile a block
+// (four 4x4 windows or one 8x8) on scc_block's wgmma phases (scc_wg.cuh:
+// qkv, k, the gram, KP / VP through the block-diagonal pooling tile, M
+// and VP_big as hi + lo pairs, [out_s | out_c], the projection), then on
+// the same tile while it is on chip x2 = x + LN1(attn) (to device memory,
+// and into shared memory as fc1's A operand) and fc1 with its gelu
+// epilogue (htb_tail_wg.cuh's product and per-pair rounding, the packed
+// W1's two n184 halves).  The attention fills the block's shared memory
+// (231 KB at L = 64), so the packed W1 (141 KB) cannot stay resident: it
+// streams from L2 in its three 64-deep K blocks, those that fit into the
+// regions the window loop frees (bias, pool, gram, Ball: two blocks at L =
+// 64, one at 16) behind the tile's x rows while the projection runs, the
+// others over the projection's weights once its product is done; fc1
+// starts on the first blocks while the last land.  On an H100 (clock64
+// phase marks) the streaming costs ~0.4k cycles of a ~90k-cycle tile:
+// staging W1 once for four tiles, with x2 read back from L2, ran slower.
+// What costs time is the CUDA-core epilogues (LN1, gelu) at one 8-warp
+// block an SM and the instruction cache: the kernel's straight-line code
+// runs once a block, so its epilogue is written as loops (~130 KB of
+// SASS, against 172 KB unrolled, which slowed the attention by 17%).
+// Launch B is htb_tail's wgmma tail (htb_tail_wg.cuh::tail_out, 8x16
+// tiles, fc2 on wgmma, the statistics' totals by atomics) over the whole
+// map as one band: h and x2 stay whole, as the earlier kernels kept them.
+// Values round to bfloat16 exactly where the two-kernel chain (scc_block,
+// then htb_tail) rounds them, so the two store the same bits.
+//
+// float32, and bfloat16 at other shapes: the earlier kernels.
 //   A (htb_fused_attn_fc1): a block of 512 threads takes 64 tokens of whole
 //     windows (4 windows of 4x4 or one of 8x8), computes qkv, the degenerate
 //     SCC, the projection, x2 and h in shared memory and writes only x2 and
@@ -20,12 +55,8 @@
 //     the projection and LN1) and nowhere else.
 //   B (htb_fused_tail_*): htb_tail.cuh's tail stage over 8x8 tiles, reading
 //     h with its halo and x2 as stored (htb_tail rebuilds x from attn).
-//
-// Bound on the H100: per token ~16 k (k), 32 k (proj), 65 k (fc1), 65 k
-// (fc2), ~25 k (the L <= 64 attention) multiply-adds against ~1.5 KB of
-// bf16 traffic (x, x2, h, out, h read again): arithmetic.  Design of A:
-// the degenerate window pools by one scalar (KP = pw*k + pb), so the
-// spatial branch is the plain version's own form, per head scores
+// Design of A: the degenerate window pools by one scalar (KP = pw*k + pb),
+// so the spatial branch is the plain version's own form, per head scores
 // S = q KP^T / d + bias (L x L) then S @ VP, and the channel branch is
 // reassociated for L < C/2: out_c = ((v k^T) / L) q (L x L, not C/2 x C/2).
 // Both run on the FP32 pipes in either type (the plain version keeps the
@@ -38,6 +69,8 @@
 // version stores them: qkv, k, [out_s | out_c], attn (as the two-kernel
 // chain stores it, before LN1), LN1's output, x2 and h.
 #include "htb_tail.cuh"
+#include "htb_tail_wg.cuh"
+#include "scc_wg.cuh"
 
 #include <type_traits>
 
@@ -477,18 +510,215 @@ int launch(const FArgs& a, const void* const* tw, void* out, float* const* st, c
   return (int)cudaGetLastError();
 }
 
+// ---- bfloat16 at the model's shapes: wgmma ---------------------------------
+
+namespace fwg {
+
+using wgs::Args;
+using wgs::Dims;
+using wgs::Meta;
+using wgs::Tile;
+
+constexpr int KB = wgt::KC / 64;                 // W1's 64-deep K blocks
+constexpr int W1C_B = 2 * wgt::NH * 64 * 2;     // one, SW(368, 64): 47,104 bytes
+constexpr int XR_B = wgs::TT * wgs::CC * 2;     // the tile's x rows: x2's residual
+constexpr int U_ATT = wgs::KPVP_B + wgs::QT_B + wgs::VT_B + wgs::KT_B;
+// the regions the attention's window loop frees: bias, pool, gram, Ball
+template <int LB>
+__host__ __device__ constexpr int free_b() {
+  return wgs::bias_b(LB) + wgs::PM_B + wgs::G_B + wgs::xs_ball_b(LB);
+}
+// W1's K blocks that land there beside the x rows and the LN1 and fc1
+// parameters while the projection runs; the others land over U after it
+template <int LB>
+__host__ __device__ constexpr int nf() {
+  return (free_b<LB>() - XR_B - wgt::PAR1_B) / W1C_B;
+}
+// U: the attention's [w1; w2], KP, VP, q^T, v^T, k^T and the projection;
+// then W1's other K blocks and the x2 tile (fc1's A, SW(64, 192))
+template <int LB>
+__host__ __device__ constexpr int u_b() {
+  return U_ATT > (KB - nf<LB>()) * W1C_B + wgt::X_B ? U_ATT : (KB - nf<LB>()) * W1C_B + wgt::X_B;
+}
+template <int LB>
+__host__ __device__ constexpr int smem() {
+  return wgs::XA_B + free_b<LB>() + wgs::META_B + u_b<LB>() + 1024;
+}
+static_assert(nf<16>() == 1 && nf<64>() == 2 && smem<16>() <= 232448 && smem<64>() <= 232448 &&
+                  wgs::TT * wgt::CH * 2 <= W1C_B,
+              "launch A's shared memory");
+
+// Launch A: the 64-token tile blockIdx.x.  Shared memory (every region
+// 1024-byte aligned): Xa | bias | pool | G | Ball | meta | U, the
+// attention's regions as scc_fused_wg's with meta before U, so that U and
+// what follows it lie in a row for the K blocks of W1 that land after the
+// projection.  Block 0 also zeroes the statistics' totals.
+template <int LB>
+__global__ void __launch_bounds__(wgs::NTW, 1) htb_fused_wg(Args a, Dims D, wgt::Tail t) {
+  constexpr int NF = nf<LB>();
+  extern __shared__ unsigned char smem_raw[];
+  Tile r;
+  r.Xa = wgs::align1k(smem_raw);
+  r.Bs = r.Xa + wgs::XA_B;
+  r.Pm = r.Bs + wgs::bias_b(LB);
+  r.Gi = r.Pm + wgs::PM_B;
+  r.Ba = r.Gi + wgs::G_B;
+  r.meta = (Meta*)(r.Ba + wgs::xs_ball_b(LB));
+  r.U = r.Ba + wgs::xs_ball_b(LB) + wgs::META_B;
+  r.Qt = r.U + wgs::KPVP_B;
+  r.Vt = r.Qt + wgs::QT_B;
+  r.Kt = r.Vt + wgs::VT_B;
+  unsigned char* xr = r.Bs + NF * W1C_B;          // the x rows, after W1's first blocks
+  bf16* par = (bf16*)(xr + XR_B);                 // ln1 scale, ln1 bias, b1
+  unsigned char* x2t = r.U + (KB - NF) * W1C_B;   // x2, fc1's A
+  const int g = threadIdx.x >> 7;
+  if (t.ssum != nullptr && blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < t.B * wgt::CC; e += wgs::NTW) {
+      t.ssum[e] = 0.0f;
+      t.smax[e] = -CUDART_INF_F;
+    }
+  }
+  wgs::attend_tile<LB>(a, D, r);
+  // the projection's weights over U; the x rows and the parameters over
+  // the window loop's regions
+  wgs::stage_packed(r.U, a.projp, wgs::NPROJ, wgs::KX);
+  cp_async_commit();
+  wgs::issue_rows(a, r.meta, xr);
+  wgt::issue_par1(t, par);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+  // W1's first blocks behind them, then attn = [out_s | out_c] @ proj +
+  // proj_b, 180 bfloat16 a token over Xa; then W1's other blocks over the
+  // projection's weights
+  wgt::stage_w1(r.Bs, t.w1p, 0, NF);
+  cp_async_commit();
+  wgs::proj_rows(a, r.Xa, wgs::saddr(r.U));
+  wgt::stage_w1(r.U, t.w1p, NF, KB);
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();
+  // x2 = x + LN1(attn): to device memory and into x2t
+  const long long* pix = r.meta->pix;
+  wgt::build_x((const bf16*)r.Xa, (const bf16*)xr, [&](int p) { return pix[p] >= 0; },
+               [&](int p) { return pix[p] < 0 ? -1LL : pix[p] * wgt::CC; }, par, x2t, t.xbuf);
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+  // h = gelu(x2 W1 + b1): the first blocks' slices while the others land
+  uint32_t w1[KB];
+#pragma unroll
+  for (int k = 0; k < KB; ++k)
+    w1[k] = k < NF ? wgs::saddr(r.Bs) + k * W1C_B : wgs::saddr(r.U) + (k - NF) * W1C_B;
+  float acc[wgt::NH / 2];
+#pragma unroll
+  for (int i = 0; i < wgt::NH / 2; ++i) acc[i] = 0.0f;
+  wgmma_fence();
+  wgt::fc1_product<0, 4 * NF>(acc, wgs::saddr(x2t), w1);
+  wgmma_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  wgmma_fence();
+  wgt::fc1_product<4 * NF, 4 * KB>(acc, wgs::saddr(x2t), w1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < wgt::NH / 2; ++i) fence_operand(acc[i]);
+  // The epilogue in loops, not unrolled over the accumulators as
+  // htb_tail_fc1_wg's: this kernel runs its straight-line code once a
+  // block, past what the instruction cache holds, and the unrolled gelu
+  // (51 KB of instructions) took ~19k cycles a tile here against ~8k in
+  // fc1_wg's loop over tiles (H100 SXM, clock64 phase marks).  The product
+  // rounded (u) into hs, a row of 360 a token, over W1's first block once
+  // both products have read it; then h = gelu_h(u, b1) a channel pair an
+  // item, and out to h.
+  __syncthreads();
+  unsigned char* hs = r.Bs;
+#pragma unroll
+  for (int i = 0; i < wgt::NH / 2; i += 2) {
+    const int n = wgt::acc_col(i);
+    if (n < wgt::CC)
+      *reinterpret_cast<__nv_bfloat162*>(hs + (wgt::acc_row(i) * wgt::CH + wgt::CC * g + n) * 2) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+  __syncthreads();
+  const __nv_bfloat162* b1 = reinterpret_cast<const __nv_bfloat162*>(par + 2 * wgt::CC);
+  __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(hs);
+  constexpr int PAIRS = wgt::CH / 2;
+  static_assert(wgs::NTW > PAIRS && wgs::NTW < 2 * PAIRS && wgs::TT * PAIRS % wgs::NTW == 0,
+                "the pair index steps by NTW - PAIRS");
+  int c2 = threadIdx.x % PAIRS;   // the channel pair of item e
+#pragma unroll 9
+  for (int e = threadIdx.x; e < wgs::TT * PAIRS; e += wgs::NTW) {
+    const float2 h = wgt::gelu_h(__bfloat1622float2(hp[e]), __bfloat1622float2(b1[c2]));
+    hp[e] = __floats2bfloat162_rn(h.x, h.y);
+    c2 += wgs::NTW - PAIRS;
+    if (c2 >= PAIRS) c2 -= PAIRS;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < wgs::TT * (wgt::CH / 4); e += wgs::NTW) {
+    const int row = e / (wgt::CH / 4), c = e % (wgt::CH / 4);
+    if (pix[row] >= 0)
+      *reinterpret_cast<uint2*>(t.hbuf + pix[row] * wgt::CH + c * 4) =
+          *reinterpret_cast<const uint2*>(hs + row * (wgt::CH * 2) + c * 8);
+  }
+}
+
+// Launch B: htb_tail's wgmma tail over an 8 x 16 output tile
+__global__ void __launch_bounds__(wgt::NTW, 1) htb_fused_tail_wg(wgt::Tail t) {
+  extern __shared__ unsigned char smem_raw[];
+  wgt::tail_out(t, smem_raw);
+}
+
+// the shapes this path takes (ops/kernels/htb_block.py::wgmma_path repeats it)
+__host__ __device__ inline bool takes(int C, int heads, int Ch, int L) {
+  return C == wgs::CC && heads == wgs::HEADS && Ch == wgt::CH && (L == 16 || L == 64);
+}
+
+int launch(const Args& a, wgt::Tail t, int Ch, cudaStream_t s) {
+  const Dims D = scc::dims_of(a.B, a.Hp, a.Wp, a.C, a.heads, a.wh, a.ww, a.lb);
+  if (!takes(a.C, a.heads, Ch, D.L) || a.lb != D.L || a.wkvp == nullptr ||
+      a.projp == nullptr || t.w1p == nullptr || t.w2p == nullptr)
+    return -1;
+  const unsigned units = (unsigned)((D.nwin * (long long)D.L + wgs::TT - 1) / wgs::TT);
+  if (D.L == 16) {
+    if (set_smem(htb_fused_wg<16>, smem<16>())) return -1;
+    htb_fused_wg<16><<<units, wgs::NTW, smem<16>(), s>>>(a, D, t);
+  } else {
+    if (set_smem(htb_fused_wg<64>, smem<64>())) return -1;
+    htb_fused_wg<64><<<units, wgs::NTW, smem<64>(), s>>>(a, D, t);
+  }
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  // the tail over the whole map as one band: h and x2 of every row
+  t.r0 = t.hr0 = 0;
+  t.r1 = t.hr1 = t.H;
+  if (set_smem(htb_fused_tail_wg, wgt::SMEM2)) return -1;
+  const dim3 grid((t.W + wgt::TW - 1) / wgt::TW, (t.H + wgt::TH - 1) / wgt::TH, t.B);
+  htb_fused_tail_wg<<<grid, wgt::NTW, wgt::SMEM2, s>>>(t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwg
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  x/out (B, H, W, C) with H % wh == W % ww
 // == 0 (no window padding); the SCC arguments as scc_block_launch's
-// (patches NULL: no SCA; pmat (L, L) = pw * I, of which only pmat[0] is
-// read; pb one float32 on the device); then the tail weights as
-// htb_tail_launch's: ln1 scale and bias (C), W1 (C, Ch), b1 (Ch), dw (5, 5,
-// Ch), dwb (Ch), W2 (Ch, C), b2 (C), ln2 scale and bias (C).  x2 (B, H, W,
-// C) and hbuf (B, H, W, Ch) are scratch in the storage type.  With cmean
-// non-NULL also cmean/cmax (B, H, W) and psum/pmax (B, nblocks, C) as
-// htb_tail_launch.  Returns cudaGetLastError() after the launches, or -1
-// for refused shapes.
+// (patches NULL: no SCA; pmat (L, L), of which the earlier kernels read
+// only pmat[0] = pw; pb one float32 on the device); then the tail weights
+// as htb_tail_launch's: ln1 scale and bias (C), W1 (C, Ch), b1 (Ch), dw (5,
+// 5, Ch), dwb (Ch), W2 (Ch, C), b2 (C), ln2 scale and bias (C).  x2 (B, H,
+// W, C) and hbuf (B, H, W, Ch) are scratch in the storage type.  With
+// cmean non-NULL also cmean/cmax (B, H, W) and psum/pmax (B, nblocks, C)
+// as htb_tail_launch.  wkvp (96, 192), projp (192, 192), w1p (368, 192)
+// and w2p (184, 384) are the wgmma path's packed weights
+// (ops/kernels/scc_block.py::pack_wkv, pack_proj, ops/kernels/ffn.py::
+// pack_w1, pack_w2) or NULL; with them (bfloat16 only) wkv may be NULL and
+// psum/pmax are the (B, C) totals.  Returns cudaGetLastError() after the
+// launches, or -1 for refused shapes.
 extern "C" int htb_fused_launch(int dtype, const void* x, const void* patches, const void* w9a,
                                 const void* b9a, const void* w9m, const void* b9m,
                                 const void* s1, const void* s2, const void* wkv, const void* bb,
@@ -498,8 +728,9 @@ extern "C" int htb_fused_launch(int dtype, const void* x, const void* patches, c
                                 const void* dwb, const void* w2, const void* b2,
                                 const void* ln2s, const void* ln2b, void* x2, void* hbuf,
                                 void* out, void* cmean, void* cmax, void* psum, void* pmax,
-                                int B, int H, int W, int C, int heads, int wh, int ww, int Ch,
-                                void* stream) {
+                                const void* wkvp, const void* projp, const void* w1p,
+                                const void* w2p, int B, int H, int W, int C, int heads, int wh,
+                                int ww, int Ch, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 2 || heads <= 0 || (C / 2) % heads ||
       wh <= 0 || ww <= 0 || H % wh || W % ww || Ch <= 0)
     return -1;
@@ -508,6 +739,17 @@ extern "C" int htb_fused_launch(int dtype, const void* x, const void* patches, c
   const void* tw[6] = {dw, dwb, w2, b2, ln2s, ln2b};
   float* st[4] = {(float*)cmean, (float*)cmax, (float*)psum, (float*)pmax};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && wkvp != nullptr) {
+    const wgs::Args wa{x,    patches, w9a,   b9a,  w9m,   b9m,     s1, s2, nullptr, bb, pmat,
+                       (const float*)pb, bias, proj, projb, wkvp, projp, nullptr, B, H, W, C,
+                       heads, wh, ww, wh * ww};
+    const bf16* const* w = (const bf16* const*)tw;   // dw, dwb, w2, b2, ln2s, ln2b
+    const wgt::Tail t{nullptr, nullptr, (const bf16*)ln1s, (const bf16*)ln1b, (const bf16*)w1p,
+                      (const bf16*)b1, w[0], w[1], (const bf16*)w2p, w[3], w[4], w[5],
+                      (bf16*)out, (bf16*)hbuf, (bf16*)x2, st[0], st[1], st[2], st[3], 0, 0, B,
+                      H, W, 0, 0, 0, 0};
+    return fwg::launch(wa, t, Ch, s);
+  }
   if (dtype == 0) return launch<float>(a, tw, out, st, s);
   if (dtype == 1) return launch<bf16>(a, tw, out, st, s);
   return -1;

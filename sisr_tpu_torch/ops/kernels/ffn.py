@@ -113,19 +113,21 @@ def stats_reference(out):
     return of.mean(-1), of.amax(-1), of.sum((1, 2)), of.amax((1, 2))
 
 
-def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool):
-    """The earlier kernels' device buffers: h = gelu(fc1), which passes
-    between the two launches, and the statistics (cmean, cmax, and the
-    per-tile partials psum, pmax), all None without ``stats``."""
+def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool, totals: bool = False):
+    """Device buffers of h = gelu(fc1) for every row, which passes between
+    the two launches, and the statistics (cmean, cmax, and the per-tile
+    partials psum, pmax of the earlier kernels or, with ``totals``, the
+    image's per-channel totals the wgmma tail sums), all None without
+    ``stats``."""
     hbuf = torch.empty((b, h, w, ch), dtype=dt, device=dev)
     if not stats:
         return hbuf, (None,) * 4
     f32 = torch.float32
-    tiles = -(-h // _TILE) * -(-w // _TILE)
+    parts = (b, c) if totals else (b, -(-h // _TILE) * -(-w // _TILE), c)
     return hbuf, (torch.empty((b, h, w), dtype=f32, device=dev),
                   torch.empty((b, h, w), dtype=f32, device=dev),
-                  torch.empty((b, tiles, c), dtype=f32, device=dev),
-                  torch.empty((b, tiles, c), dtype=f32, device=dev))
+                  torch.empty(parts, dtype=f32, device=dev),
+                  torch.empty(parts, dtype=f32, device=dev))
 
 
 def band_rows(b: int, h: int, w: int, ch: int) -> int:

@@ -8,6 +8,12 @@ attention output stays in shared memory.  The block's window must equal its
 base window (the pooling is then one scalar) and divide the map (no window
 padding).  Evaluation only, as in JAX (``htb_block.py:25``): the kernel has
 no backward, and on a CUDA tensor inputs that need a gradient raise.
+
+In bfloat16 at the model's shapes (``wgmma_path``) the kernel runs the
+attention on ``scc_block``'s wgmma phases and LN1, fc1 and the tail on
+``htb_tail``'s, over the same packed weights (``scc_block.pack_wkv``,
+``pack_proj``, ``ffn.pack_w1``, ``pack_w2``, kept on their weight tensors),
+and returns the statistics' per-channel totals as the kernel sums them.
 """
 
 from __future__ import annotations
@@ -18,9 +24,18 @@ import torch
 
 from sisr_tpu_torch.ops.kernels import build
 from sisr_tpu_torch.ops.kernels.autograd import needs_grad
-from sisr_tpu_torch.ops.kernels.ffn import (_tail_buffers, htb_tail_reference,
-                                            stats_reference)
-from sisr_tpu_torch.ops.kernels.scc_block import _patches, scc_block_reference
+from sisr_tpu_torch.ops.kernels.ffn import (_tail_buffers, htb_tail_reference, pack_w1,
+                                            pack_w2, stats_reference)
+from sisr_tpu_torch.ops.kernels.scc_block import (_patches, pack_proj, pack_wkv,
+                                                  scc_block_reference)
+
+
+def wgmma_path(dtype, c: int, heads: int, ch: int, l: int) -> bool:
+    """Whether ``csrc/htb_fused.cu`` runs this shape on its wgmma path
+    (``fwg::takes``): bfloat16, C = 180 in 6 heads, Ch = 360, and windows of
+    16 or 64 tokens.  Other shapes, and float32, take the earlier kernels."""
+    return (dtype == torch.bfloat16 and c == 180 and heads == 6 and ch == 360
+            and l in (16, 64))
 
 
 def htb_fused_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k,
@@ -62,8 +77,10 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                   cast(w9m), cast(b9m), cast(s1.reshape(b, c)), cast(s2.reshape(b, c)))
     else:
         sca_in = (None,) * 7
-    ins = (cast(torch.cat([w1, w2], dim=0)), cast(bb), cast(pmat), cast(bias),
-           cast(proj_k), cast(proj_b))
+    packed = wgmma_path(dt, c, heads, ch, big_l)
+    # k = qkv @ [w1; w2] + bb: packed on the wgmma path, else (C, C/2)
+    wkv = None if packed else cast(torch.cat([w1, w2], dim=0))
+    ins = (wkv, cast(bb), cast(pmat), cast(bias), cast(proj_k), cast(proj_b))
     build.check_cuda("htb_fused", x.device, dt, x=x,
                      **{f"sca{i}": t for i, t in enumerate(sca_in)},
                      **{f"in{i}": t for i, t in enumerate(ins)},
@@ -73,20 +90,32 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     out = torch.empty_like(x)
     # x2 = x + LN1(attn) and h = gelu(fc1) pass between the two launches
     x2 = torch.empty_like(x)
-    hbuf, st = _tail_buffers(b, h, w, c, ch, dt, dev, stats)
+    hbuf, st = _tail_buffers(b, h, w, c, ch, dt, dev, stats, totals=packed)
+    packs = (None,) * 4
+    if packed:
+        fc1_k, fc2_k = tail[2], tail[6]
+        packs = (build.cached(w1, "_scc_wkv_pack", (w1, w2),
+                              lambda: pack_wkv(w1, w2, heads).to(dt)),
+                 build.cached(proj_k, "_scc_proj_pack", (proj_k,),
+                              lambda: pack_proj(proj_k, heads).to(dt)),
+                 build.cached(fc1_k, "_htb_w1_pack", (fc1_k,), lambda: pack_w1(fc1_k)),
+                 build.cached(fc2_k, "_htb_w2_pack", (fc2_k,), lambda: pack_w2(fc2_k)))
     fn = build.library("htb_fused").htb_fused_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 32 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     code = fn(build.DTYPE_CODES[dt], build.ptr(x), *[build.ptr(t) for t in sca_in],
               *[build.ptr(t) for t in ins[:3]], build.ptr(pb32),
               *[build.ptr(t) for t in ins[3:]], *[build.ptr(t) for t in tail],
               build.ptr(x2), build.ptr(hbuf), build.ptr(out), *[build.ptr(t) for t in st],
-              b, h, w, c, heads, wh, ww, ch, build.stream(dev))
+              *[build.ptr(t) for t in packs], b, h, w, c, heads, wh, ww, ch,
+              build.stream(dev))
     build.raise_on_error("htb_fused", code)
     build.launches["htb_fused"] += 1
     if not stats:
         return out
+    if packed:          # the kernel's totals
+        return out, st
     cmean, cmax, psum, pmax = st
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 

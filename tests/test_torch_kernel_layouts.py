@@ -331,12 +331,13 @@ def test_scc_wgmma_bf16_rounding_stays_within_the_plain_bf16_error(win, nh, nw, 
 # --- htb_tail's wgmma path --------------------------------------------------
 
 def htb_wgmma_emulation(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b,
-                        rnd=_rbf):
+                        rnd=_rbf, w1_read=lambda w1p: w1p):
     """What ``csrc/htb_tail.cu``'s wgmma path computes, over the packed W1
     (two halves of the hidden channels, C padded to 192) and W2 (C padded
     to 184 rows over Ch padded to 384), in float32 with its rounding points
     (``rnd``): x = s + LN1(a), fc1's product, + b1, gelu; the depthwise conv
-    + dwb, gelu, h2; fc2's product, + b2, LN2, out."""
+    + dwb, gelu, h2; fc2's product, + b2, LN2, out.  ``w1_read`` maps the
+    packed W1 to W1 as fc1's product reads it."""
     from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference
     from sisr_tpu_torch.ops.kernels.ffn import layer_norm, pack_w1, pack_w2
 
@@ -344,7 +345,7 @@ def htb_wgmma_emulation(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, l
     h, w, c = shortcut.shape[1:]
     ch = w1.shape[1]
     x = rnd(f(shortcut) + rnd(layer_norm(f(attn[:, :h, :w]), f(ln1_s), f(ln1_b))))
-    w1p = rnd(pack_w1(f(w1)))
+    w1p = w1_read(rnd(pack_w1(f(w1))))
     acc = F.pad(x, (0, w1p.shape[1] - c)) @ w1p.t()
     rows = w1p.shape[0] // 2
     pre = torch.cat([acc[..., :ch // 2], acc[..., rows:rows + ch // 2]], dim=-1)
@@ -454,6 +455,180 @@ def test_weight_packs_are_kept_while_their_weights_are_unchanged():
         wi = w1 * 1.0
         assert build.cached(wi, "_test_pack", (wi,), make) is not \
             build.cached(wi, "_test_pack", (wi,), make)
+
+
+# --- htb_fused's wgmma path -------------------------------------------------
+
+# launch A's shared memory in bytes (csrc/htb_fused.cu, namespace fwg, over
+# csrc/scc_wg.cuh's regions): the attention's tiles, then W1's 64-deep K
+# blocks (SW(368, 64), 47,104 bytes each) where they land
+_XA_B, _PM_B, _G_B, _META_B, _U_ATT = 24576, 8192, 24576, 1024, 86016
+_W1C_B, _XR_B, _PAR1_B, _X2_B, _SMEM_MAX = 47104, 64 * 180 * 2, (2 * 180 + 360) * 2, 24576, 232448
+
+
+def fused_layout(lb):
+    """Launch A's layout at windows of ``lb`` tokens, as byte offsets from its
+    first region: W1's K blocks (the first ``nf`` over the regions the
+    window loop frees, bias to Ball, beside the x rows and the LN1 / fc1
+    parameters; the others over U once the projection's product is done),
+    the x2 tile, and the bytes the kernel asks for (1024 of alignment
+    slack included)."""
+    bias_b = 64 * ((6 * lb + 63) // 64 * 64) * 2
+    ball_b = 96 * ((2 * (16 + lb) + 63) // 64 * 64) * 2
+    xs_ball_b = max(ball_b, 64 * 180 * 2 + 64 * 18 * 2 + 256)
+    free = bias_b + _PM_B + _G_B + xs_ball_b
+    nf = (free - _XR_B - _PAR1_B) // _W1C_B
+    u = _XA_B + free + _META_B
+    blocks = [_XA_B + k * _W1C_B if k < nf else u + (k - nf) * _W1C_B for k in range(3)]
+    x2t = u + (3 - nf) * _W1C_B
+    smem = u + max(_U_ATT, (3 - nf) * _W1C_B + _X2_B) + 1024
+    return dict(nf=nf, blocks=blocks, x2t=x2t, free=(_XA_B, _XA_B + free), u=u, smem=smem)
+
+
+def w1_through_shared_memory(w1p, lb):
+    """The packed W1 (368, 192) as launch A's fc1 reads it: each K block
+    staged by ``wgt::stage_w1``'s copies (16 bytes: row n, chunk c at n * 128
+    + ((c ^ n % 8) << 4) of its block) into a model of the shared memory at
+    ``fused_layout``'s offsets, then read back through the wgmma
+    descriptors' 128-byte swizzle, element (n, k) of block b at
+    blocks[b] + n * 128 + ((k // 8 ^ n % 8) << 4) + 2 (k % 8)."""
+    lay = fused_layout(lb)
+    rows = w1p.shape[0]
+    mem = torch.full((lay["smem"] // 2,), float("nan"))
+    n = torch.arange(rows)[:, None, None]
+    c = torch.arange(8)[None, :, None]
+    j = torch.arange(8)[None, None, :]
+    for b, base in enumerate(lay["blocks"]):
+        byte = base + n * 128 + ((c ^ (n % 8)) << 4) + 2 * j
+        mem[byte // 2] = w1p[n, 64 * b + 8 * c + j]
+    k = torch.arange(64)[None, :]
+    nn = torch.arange(rows)[:, None]
+    return torch.cat([mem[(base + nn * 128 + (((k // 8) ^ (nn % 8)) << 4) + 2 * (k % 8)) // 2]
+                      for base in lay["blocks"]], dim=1)
+
+
+def htb_fused_wgmma_emulation(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads,
+                              window, *tail, rnd=_rbf):
+    """What ``csrc/htb_fused.cu``'s wgmma path computes: launch A's attention
+    (scc_block's wgmma phases: ``scc_wgmma_emulation``, attn rounded as the
+    chain stores it), x2 = x + LN1(attn) and h = gelu(x2 W1 + b1) with W1
+    read through launch A's shared memory (``w1_through_shared_memory``),
+    then launch B (htb_tail's wgmma tail): ``htb_wgmma_emulation`` with the
+    block's input as the shortcut, each value rounded where the chain
+    rounds."""
+    attn = scc_wgmma_emulation(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads,
+                               window, rnd=rnd)
+    lb = window[0] * window[1]
+    return htb_wgmma_emulation(attn, x, *tail, rnd=rnd,
+                               w1_read=lambda w1p: w1_through_shared_memory(w1p, lb))
+
+
+def _fused_model_args(win, nh, nw, threaded, seed=0):
+    """numpy inputs of one degenerate-window block of the model (C = 180, 6
+    heads, Ch = 360, base window 8: windows 4 and 8 pool by one scalar),
+    batch 2; ``threaded``: sca carries the previous tail's (cmean, cmax)
+    maps, shifted off x's own pools."""
+    args = list(_scc_model_args(win, nh, nw, True, seed=seed))
+    if threaded:
+        x = args[0]
+        args[1] = args[1] + (x.mean(-1) + 0.1, x.max(-1) - 0.1)
+    return args + list(_tail_model_args(1, 1, (0, 0), seed=seed + 1)[2:])
+
+
+def _fused_torch(args, dtype=torch.float32):
+    pt = _torch_args(args, dtype)
+    pt[13:] = [_t(a).to(dtype) for a in args[13:]]
+    return pt
+
+
+def test_fused_layout_places_w1_in_free_regions():
+    """Launch A's shared memory at windows of 16 and 64 tokens: W1's first
+    K blocks (two at L = 64, one at 16) with the x rows and the parameters
+    inside the regions the window loop frees, the others and the x2 tile
+    inside U, every block 1024-byte aligned, nothing overlapping, within
+    the 227 KB a block may ask for; the read-back returns W1 unchanged."""
+    for lb, nf in ((16, 1), (64, 2)):
+        lay = fused_layout(lb)
+        assert lay["nf"] == nf and lay["smem"] <= _SMEM_MAX
+        f0, f1 = lay["free"]
+        assert f0 + nf * _W1C_B + _XR_B + _PAR1_B <= f1
+        spans = [(o, o + _W1C_B) for o in lay["blocks"]] + [(lay["x2t"], lay["x2t"] + _X2_B)]
+        assert all(o % 1024 == 0 for o, _ in spans)
+        assert all(e <= lay["smem"] - 1024 for _, e in spans)
+        spans.sort()
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert all(f0 <= o and o + _W1C_B <= f1 for o in lay["blocks"][:nf])
+        assert all(lay["u"] <= o for o in lay["blocks"][nf:])
+        w1p = _t(np.random.default_rng(lb).normal(size=(368, 192)))
+        torch.testing.assert_close(w1_through_shared_memory(w1p, lb), w1p, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("win,nh,nw,threaded", [(4, 2, 3, False), (4, 3, 2, True),
+                                                (8, 1, 2, False), (8, 2, 1, True)])
+def test_htb_fused_wgmma_layout_matches_reference_and_pallas(win, nh, nw, threaded):
+    """The new launches' layouts (the attention's slots, W1's K blocks in
+    shared memory, x2 and h), emulated in float32 (no rounding), at C =
+    180, 6 heads, Ch = 360, windows 4 and 8, batch 2, with SCA and with the
+    previous tail's threaded maps: against the plain version (3e-4: the
+    same float32 products in another order, as the scc emulation's 2e-4
+    and the tail's 1e-4 add up) and JAX's Pallas ``htb_fused`` in interpret
+    mode (3e-3, as ``test_torch_ops.py`` holds the plain version to it)."""
+    from sisr_tpu.ops.pallas.htb_block import htb_fused as jx_fused
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused_reference, wgmma_path
+
+    args = _fused_model_args(win, nh, nw, threaded)
+    assert wgmma_path(torch.bfloat16, 180, 6, 360, win * win)
+    pt = _fused_torch(args)
+    got = htb_fused_wgmma_emulation(*pt[:7], *pt[8:], rnd=lambda t: t)
+    _close(got, htb_fused_reference(*pt), 3e-4, 3e-4)
+    jx = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+    jx[1] = tuple(map(jnp.asarray, args[1]))
+    _close(got, jx_fused(*jx, interpret=True), 3e-3, 3e-3)
+
+
+@pytest.mark.parametrize("win,nh,nw,threaded", [(4, 2, 3, True), (8, 1, 2, False)])
+def test_htb_fused_wgmma_bf16_rounding_stays_within_the_plain_bf16_error(win, nh, nw,
+                                                                        threaded):
+    """With the new launches' bfloat16 rounding points (the chain's: qkv, k,
+    [out_s | out_c], attn, x2, h, out), the emulation stays as close to the
+    float32 plain version as twice the plain bfloat16 version does, or
+    within 4 bf16 ulps of the output scale (the card tests' bar)."""
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused_reference
+
+    args = _fused_model_args(win, nh, nw, threaded, seed=5)
+    b16 = _fused_torch(args, torch.bfloat16)
+    up = [t.float() if isinstance(t, torch.Tensor) else t for t in b16]
+    up[1] = tuple(t.float() for t in b16[1])
+    truth = htb_fused_reference(*up)
+    e_plain = float((htb_fused_reference(*b16).float() - truth).abs().max())
+    e_kernel = float((htb_fused_wgmma_emulation(*up[:7], *up[8:]) - truth).abs().max())
+    scale = max(1.0, float(truth.abs().max()))
+    assert e_kernel <= max(2.0 * e_plain, 4 * 2.0 ** -8 * scale), (e_kernel, e_plain)
+
+
+def test_htb_fused_shape_rule_mirrors_the_kernel():
+    """``htb_block.wgmma_path`` against ``csrc/htb_fused.cu``'s
+    ``fwg::takes``, its return expression read from the source and
+    evaluated over model and other shapes: bfloat16 at C = 180 in 6 heads,
+    Ch = 360 and windows of 16 or 64 tokens (the flagship's fused blocks)
+    take the new launches; float32 and every other shape the earlier ones."""
+    import re
+
+    from sisr_tpu_torch.ops.kernels.htb_block import wgmma_path
+
+    src = (CSRC / "htb_fused.cu").read_text()
+    body = re.search(r"inline bool takes\(int C, int heads, int Ch, int L\) \{\s*return (.*?);",
+                     src, re.S).group(1)
+    expr = (body.replace("wgs::CC", "180").replace("wgs::HEADS", "6").replace("wgt::CH", "360")
+            .replace("&&", " and ").replace("||", " or "))
+    for c, heads, ch, l in [(180, 6, 360, 16), (180, 6, 360, 64), (180, 6, 360, 256),
+                            (180, 6, 360, 4), (180, 2, 360, 16), (24, 6, 48, 16),
+                            (180, 6, 720, 64), (20, 2, 40, 64)]:
+        want = eval(expr, {}, dict(C=c, heads=heads, Ch=ch, L=l))
+        assert wgmma_path(torch.bfloat16, c, heads, ch, l) == want, (c, heads, ch, l)
+        assert not wgmma_path(torch.float32, c, heads, ch, l)
+    assert wgmma_path(torch.bfloat16, 180, 6, 360, 16) and wgmma_path(torch.bfloat16, 180, 6,
+                                                                        360, 64)
 
 
 # --- the x4 head's shuffled convs on wgmma (conv3x3_shuffled, the tails) ------

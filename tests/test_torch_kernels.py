@@ -564,6 +564,50 @@ def test_htb_fused_takes_threaded_channel_maps_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("win,nh,nw,sca", [(4, 3, 5, "sca"), (4, 2, 3, "threaded"),
+                                           (8, 2, 3, "threaded"), (8, 3, 1, "none")])
+def test_htb_fused_wgmma_shapes_match_plain_and_the_chain_on_card(cuda_device, stats, win, nh,
+                                                                  nw, sca):
+    """bfloat16 at the flagship's fused blocks (C = 180 in 6 heads, Ch =
+    360, windows 4 and 8), batch 2, without SCA, with it and with the
+    previous tail's channel maps: htb_fused, one launch counted per call,
+    within the plain version's bar (``_check``); and it stores the bits of
+    the unfused kernel chain (scc_block, then htb_tail or htb_tail_stats)
+    on the same inputs, out and the channel maps exactly (its wgmma
+    launches round where the chain rounds and sum in its order; the earlier
+    launches, with their float32 spatial branch, cannot), the per-channel
+    sums within 1e-5 relative (atomics in another order)."""
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats
+    from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
+    from sisr_tpu_torch.ops.kernels.scc_block import scc_block
+
+    args = list(_fused_args(np.random.default_rng(50 + win), win, 6, 180, 360, nh, nw,
+                            sca != "none", cuda_device, torch.bfloat16, b=2))
+    if sca == "threaded":
+        x = args[0].float()
+        args[1] = args[1] + (x.mean(-1) + 0.1, x.amax(-1) - 0.1)   # float32, as the tail emits
+    fn = lambda *a, reference=False: htb_fused(*a, emit_stats=stats, reference=reference)
+    before = dict(build.launches)
+    got = _check(fn, args, 2e-3)
+    assert build.launches["htb_fused"] == before["htb_fused"] + 1
+    assert all(build.launches[k] == before[k] for k in build.launches if k != "htb_fused")
+    attn = scc_block(*args[:13])
+    chain = (htb_tail_stats if stats else htb_tail)(attn, args[0], *args[13:])
+    if not stats:
+        torch.testing.assert_close(got, chain, atol=0, rtol=0)
+        return
+    (out, st), (want, want_st) = got, chain
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    for i, (g, w) in enumerate(zip(st, want_st)):
+        if i == 2:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
+        else:
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
 def test_scc_block_kernel_over_65535_windows_on_card(cuda_device):
     """1032 x 1040 at window 4 is 67,080 windows, past gridDim.y's 65,535."""
     from sisr_tpu_torch.ops.kernels.scc_block import scc_block
