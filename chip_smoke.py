@@ -12,7 +12,8 @@ Phases:
            htb_tail and shuffled_tail libraries, of htb_fused's launch A
            (htb_fused_wg) in its library, and the HGMMA or HMMA of the
            shuffled conv's own kernels (shuffled_conv_wgmma_*) in conv3x3's
-           (their bfloat16 paths run on wgmma: none fails the run);
+           and of the Fusion gate's maps (fusion_maps) in fusion's (their
+           bfloat16 paths run on the tensor cores: none fails the run);
   kernels  each of the eleven kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
@@ -21,7 +22,8 @@ Phases:
            (scc_block with 130,560 windows of 4x4 and at window 48 on a
            padded map, htb_tail_stats with a padded attn, htb_fused's
            unfused pair on its inputs, conv3x3
-           180->180, fused_fusion, conv3x3_shuffled at a band); then
+           180->180, fusion_pools and fused_fusion, conv3x3_shuffled at
+           a band); then
            every kernel shape a training step launches (batch 2, LR
            64x64: each conv, the x4 head, the Fusion gate, scc_block at
            each window, 64x64 or reflect-padded to 96x96, htb_tail,
@@ -44,7 +46,9 @@ Phases:
            bound in both types.
            Then one dwconv5x5 dx through ``dwconv_vjp`` under
            torch.profiler, which must launch one device kernel;
-  split    device time of each kernel launch of one scc_block call at
+  split    device time of each kernel launch of one fusion_pools and one
+           fused_fusion call at a 192x192 tile (bfloat16 and float32) and
+           at the frame (bfloat16), of one scc_block call at
            every window of a 192x192 tile (bfloat16 and float32) and at
            the frame's windows 4 and 48, of one htb_tail call (with and
            without stats) at a tile and at the frame, and of one htb_fused
@@ -102,7 +106,8 @@ frame's head band, a training step), dwconv5x5 (forward and dx at both maps),
 scc_block (every window of a tile, the frame's windows 4 and 48),
 htb_tail and htb_tail_stats (a tile, the frame), htb_fused (a tile's and
 the frame's windows 4 and 8) and at the frame the unfused pair on its
-inputs in bfloat16 and float32, and the bfloat16 serving
+inputs, and the Fusion gate (fusion_pools and fused_fusion at a tile, the
+frame and a training step) in bfloat16 and float32, and the bfloat16 serving
 requests of 1 and 12 tiles (wall ms, median of three, and device busy ms
 under torch.profiler), from the package in the checkout BASE and from this
 one, one process each, in the order base, this, this, base; the first base
@@ -375,17 +380,20 @@ def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
                 library_prep=lambda ins: [_shuffled(ins[0])] + ins[1:])
 
 
-def fusion_cases(h, w, pools=True, scope="tile", nb=1):
+def fusion_cases(h, w, scope="tile", nb=1):
     """The Fusion gate (a, b nb x h x w x 180): the pools alone, and the
     whole gate (pools, maps, gate) with its packed weights made once, as
     the model keeps them.  Operations, per UA k of three:
 
     - pools (float32): 19 per input element (a + b; sum and max over C, H
       and W of a, a + b, b);
-    - maps (float32): per row of h_att (W rows) and w_att (H rows), three
-      outputs (the folded map and two border corrections) of three taps
-      of a C x C product: 2 * 3 * 3 * C^2 each, 2 * 27 * (H + W) * C^2 in
-      all; the 18-tap convs of the pools, 2 * 18 * 3 * (H*W + (H + W) * C);
+    - maps: per row of h_att (W rows) and w_att (H rows), three outputs
+      (the folded map and two border corrections) of three taps of a C x C
+      product: 2 * 3 * 3 * C^2 each, 2 * 27 * (H + W) * C^2 in all, one
+      (N, 3C) x (3C, 3C) product per UA and side, on the tensor cores in
+      the bfloat16 run (``flops``) and on the FP32 pipes in the float32
+      run; the 18-tap convs of the pools (float32),
+      2 * 18 * 3 * (H*W + (H + W) * C);
     - gate: base = p27 @ k1blk, nine nonzero taps per UA and output element,
       bfloat16 by bfloat16 in the bfloat16 run: 2 * 9 * 3 per output
       element; then 20 float32 operations per output element (six adds of
@@ -408,16 +416,15 @@ def fusion_cases(h, w, pools=True, scope="tile", nb=1):
 
     pool_bytes = lambda es: nb * (es * (2 * h * w * c + 6 * h * w + 6 * h * c) + 4 * 6 * w * c)
     pool_ops = 19.0 * nb * h * w * c
-    map_ops = nb * (2.0 * 27 * (h + w) * c * c + 2.0 * 18 * 3 * (h * w + (h + w) * c))
+    fold_ops = nb * 2.0 * 27 * (h + w) * c * c
+    conv_ops = nb * 2.0 * 18 * 3 * (h * w + (h + w) * c)
     fused = Case("fused_fusion", f"a, b {_bx(nb)}{h}x{w}x{c}, pools + maps + gate", 1,
                  make_fused,
                  lambda ins, reference: fused_fusion(ins[0], ins[1], ins[2], ins[3], reference),
                  lambda es: (es * (3 * nb * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
                              + 4 * (3 * 3 * 18 + 9 + 3 * c)),
-                 2.0 * 9 * 3 * nb * h * w * c, flops32=pool_ops + map_ops + 20.0 * nb * h * w * c,
-                 scope=scope)
-    if not pools:
-        return [fused]
+                 2.0 * 9 * 3 * nb * h * w * c + fold_ops,
+                 flops32=pool_ops + conv_ops + 20.0 * nb * h * w * c, scope=scope)
     return [Case("fusion_pools", f"a, b {_bx(nb)}{h}x{w}x{c}", 1, make_ab,
                  lambda ins, reference: fusion_pools(*ins, reference=reference), pool_bytes,
                  0.0, flops32=pool_ops, scope=scope), fused]
@@ -656,7 +663,7 @@ def frame_cases():
             + scc_cases([(h, w, 4, 0), (up48(h), up48(w), 48, 0)], scope="frame")
             + htb_cases(h, w, ((True, 0),), pad=(up48(h) - h, 0), scope="frame")
             + conv_cases([(h, w, 180, 180, "none", True, 0)], scope="frame")
-            + fusion_cases(h, w, pools=False, scope="frame")
+            + fusion_cases(h, w, scope="frame")
             + [shuffled_case(rows, w, 0, scope="frame")])
 
 
@@ -1493,14 +1500,16 @@ def check_dx_one_launch(failures: list) -> None:
 
 
 def split_cases():
-    """The cases the launch split profiles: scc_block at every window of a
-    192x192 tile and at the frame's windows 4 and 48, htb_tail with and
-    without stats at a tile and at the frame, and htb_fused at the frame's
-    windows 4 and 8 beside the unfused pair on the same inputs (scc_block
-    at windows 4 and 8, then htb_tail_stats)."""
+    """The cases the launch split profiles: the Fusion gate (fusion_pools
+    and fused_fusion) at a 192x192 tile and at the frame, scc_block at
+    every window of a tile and at the frame's windows 4 and 48, htb_tail
+    with and without stats at a tile and at the frame, and htb_fused at
+    the frame's windows 4 and 8 beside the unfused pair on the same inputs
+    (scc_block at windows 4 and 8, then htb_tail_stats)."""
     h, w = FRAME_ALIGNED
     up48 = lambda n: -(-n // 48) * 48
-    return (scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
+    return (fusion_cases(TILE, TILE) + fusion_cases(h, w, scope="frame")
+            + scc_cases([(TILE, TILE, win, 1) for win in STEP_WINDOWS])
             + scc_cases([(h, w, 4, 1), (up48(h), up48(w), 48, 1)], scope="frame")
             + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
             + htb_cases(h, w, ((False, 1),), pad=(up48(h) - h, 0), scope="frame")
@@ -1561,7 +1570,9 @@ def ab_cases():
     tile and at the frame's windows 4 and 48, htb_tail and htb_tail_stats
     at a tile and at the frame, htb_fused at a tile's and at the frame's
     windows 4 and 8, and at the frame beside it the unfused pair on the
-    same inputs (scc_block at windows 4 and 8, then htb_tail_stats)."""
+    same inputs (scc_block at windows 4 and 8, then htb_tail_stats), and
+    the Fusion gate (fusion_pools, fused_fusion) at a tile, the frame and a
+    training step."""
     n = TRAIN_LR
     h, w = FRAME_ALIGNED
     rows = BAND_ROWS_1080 + 4
@@ -1579,7 +1590,9 @@ def ab_cases():
             + htb_cases(TILE, TILE, ((False, 1), (True, 1)))
             + htb_cases(h, w, ((False, 0), (True, 0)), pad=(up48(h) - h, 0), scope="frame")
             + htb_fused_cases(TILE, TILE, ((4, False, 1), (8, True, 1)), scope="tile")
-            + htb_fused_cases(h, w, ((4, False, 0), (8, True, 0)), pair=True))
+            + htb_fused_cases(h, w, ((4, False, 0), (8, True, 0)), pair=True)
+            + fusion_cases(TILE, TILE) + fusion_cases(h, w, scope="frame")
+            + fusion_cases(n, n, scope="step", nb=TRAIN_BATCH))
 
 
 def ab_serving() -> dict:
@@ -1617,7 +1630,7 @@ def ab_worker(tree: str, split: bool) -> int:
     """One side of ``--ab``: the ``ab_cases`` run by the package in
     ``tree``, in bfloat16 and float32, after ``ab_serving``'s requests;
     prints one ``AB {...}`` line of ms per case, and before it, with
-    ``split``, the launch split of scc_block and htb_tail."""
+    ``split``, the launch split of ``split_cases``."""
     sys.path.insert(0, tree)
     import torch
     from sisr_tpu_torch.ops.kernels import build
@@ -1694,9 +1707,9 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases", default="build,kernels,split,serve,whole,train,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
-                   "convs, dwconv5x5, scc_block, htb_tail, htb_fused and the bfloat16 "
-                   "serving requests against the checkout BASE (one process each: base, "
-                   "this, this, base); prints no result line")
+                   "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
+                   "the bfloat16 serving requests against the checkout BASE (one process "
+                   "each: base, this, this, base); prints no result line")
     p.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
     p.add_argument("--ab-split", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
@@ -1711,8 +1724,8 @@ def main(argv=None) -> int:
     if args.ab_worker:
         return ab_worker(args.ab_worker, args.ab_split)
     if args.ab:
-        log("[ab] conv3x3, conv3x3_shuffled(_tail), dwconv5x5, scc_block, htb_tail(_stats) "
-            "and htb_fused, this tree against " + args.ab)
+        log("[ab] conv3x3, conv3x3_shuffled(_tail), dwconv5x5, scc_block, htb_tail(_stats), "
+            "htb_fused, fusion_pools and fused_fusion, this tree against " + args.ab)
         return run_ab(args.ab)
     from sisr_tpu_torch.ops.kernels import build
 
@@ -1749,6 +1762,12 @@ def main(argv=None) -> int:
         log(f"  conv3x3 SASS, shuffled_conv_wgmma_*: {shuf} HGMMA/HMMA instructions")
         if shuf == 0:
             failures.append("the shuffled conv's wgmma kernels hold no HGMMA or HMMA")
+        # the Fusion gate's folded maps on the tensor cores in bfloat16
+        maps = sass_count("fusion", ("HGMMA", "HMMA"), "fusion_maps")
+        log(f"  fusion SASS, fusion_maps: {maps} HGMMA/HMMA instructions")
+        if maps == 0:
+            failures.append("fusion_maps holds no HGMMA or HMMA: its bf16 product is not on "
+                            "the tensor cores")
     except Exception:
         failures.append(f"build: {traceback.format_exc()}")
         log(traceback.format_exc())
@@ -1761,8 +1780,8 @@ def main(argv=None) -> int:
             failures.append(f"dx profile: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "split" in phases and not failures:
-        log("[split] device time of each launch of scc_block, htb_tail and htb_fused "
-            "(torch.profiler)")
+        log("[split] device time of each launch of the Fusion gate, scc_block, htb_tail "
+            "and htb_fused (torch.profiler)")
         try:
             launch_split(split_cases())
         except Exception:

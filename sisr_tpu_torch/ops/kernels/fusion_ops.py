@@ -4,8 +4,10 @@ with the linear split of each UnionAttention's conv_last.
 Ports of ``sisr_tpu/ops/pallas/fusion_ops.py``:
 
     fusion_pools    _fusion_pools_pallas   csrc/fusion.cu fusion_pools_launch
+                                           (pools_cw, pools_h)
     fused_fusion    _fused_fusion_pallas   csrc/fusion.cu fusion_pools_launch,
                                            then fusion_maps_gate_launch
+                                           (fusion_maps, fusion_gate)
 
 each over its plain version (``fusion_pools_reference``,
 ``fused_fusion_reference``, which equals the Fusion module's math).
@@ -29,6 +31,7 @@ packed weights are derived from raws and get no gradient of their own.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,12 +52,49 @@ def fusion_pools_reference(a, b):
     return torch.stack(cps, 1), torch.stack(hps, 1), torch.stack(wps, 1)
 
 
+# csrc/fusion.cu's pools: pools_cw's loading threads at most; the shared
+# memory a block may ask for
+CW_NT = 384
+MAX_SMEM = 232448
+
+
+class PoolsLayout(NamedTuple):
+    """pools_cw's layout (``csrc/fusion.cu::cw_layout``): ``v`` channels and
+    ``s`` pixels a thread a chunk, ``pl`` pixel lanes, ``nt`` loading
+    threads, chunks of ``p`` pixels."""
+    v: int
+    s: int
+    pl: int
+    nt: int
+    p: int
+
+
+def pools_layout(bsz: int, w: int, c: int, itemsize: int, aligned: bool = True):
+    """The layout ``fusion_pools_launch`` takes for a (bsz, h, w, c) input of
+    ``itemsize``-byte elements whose pointers are 4-element aligned
+    (``aligned``); None where the kernel refuses the shape (more than 384
+    channel groups, more than 65,535 images, a chunk's stage past shared
+    memory)."""
+    v = 4 if c % 4 == 0 and aligned else 1
+    s = 4 if itemsize == 2 else 2
+    g = c // v
+    pl = max(1, min(CW_NT // g, 32, -(-w // s)))
+    p = s * pl
+    if g > CW_NT or bsz > 65535 or max(itemsize * 6 * p * c, 4 * 6 * pl * c) > MAX_SMEM:
+        return None
+    return PoolsLayout(v, s, pl, pl * g, p)
+
+
 def _fusion_pools_cuda(a, b):
     bsz, h, w, c = a.shape
     if tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"fusion_pools: a {tuple(a.shape)} != b {tuple(b.shape)}")
     dt = a.dtype
     build.check_cuda("fusion_pools", a.device, dt, a=a, b=b)
+    es = a.element_size()
+    aligned = a.data_ptr() % (4 * es) == 0 and b.data_ptr() % (4 * es) == 0
+    if pools_layout(bsz, w, c, es, aligned) is None:
+        raise ValueError(f"fusion_pools: the kernel refuses shape {tuple(a.shape)}")
     cp3 = torch.empty((bsz, 6, h, w), dtype=dt, device=a.device)
     hp3 = torch.empty((bsz, 6, w, c), dtype=torch.float32, device=a.device)
     wp3 = torch.empty((bsz, 6, h, c), dtype=dt, device=a.device)
@@ -155,8 +195,7 @@ def _fused_fusion_cuda(a, b, packed):
         if t.device != a.device:
             raise TypeError(f"fused_fusion: a packed weight lies on {t.device}")
     cp3, hp3, wp3 = _fusion_pools_cuda(a, b)
-    scratch = torch.empty(bsz * (3 * h * w + 9 * w * c + 9 * h * c), dtype=torch.float32,
-                          device=a.device)
+    scratch = torch.empty(bsz * 9 * (w * c + h * c), dtype=torch.float32, device=a.device)
     out = torch.empty_like(a)
     fn = build.library("fusion").fusion_maps_gate_launch
     fn.restype = ctypes.c_int

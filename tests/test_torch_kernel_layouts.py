@@ -808,3 +808,232 @@ def test_shuffled_shape_rules_mirror_the_kernels():
     assert not tail_wgmma(8, 12, 3)                         # a patch pixel is 64 channels
     assert not tail_wgmma(72, 64, 3)
     assert not tail_wgmma(64, 64, 9)                        # conv_last is n8
+
+
+# --- the Fusion gate's kernels (fusion.cu) -----------------------------------
+
+def pools_emulation(a, b, layout):
+    """What ``csrc/fusion.cu``'s pools compute, in their order, with
+    ``layout`` (``pools_layout``): a + b rounded to a's type; the C pools
+    (pools_cw) as 8 lanes a pixel, each summing its share of the channel
+    groups (``v`` channels each, in order), combined by a xor-shuffle tree;
+    the W pools (pools_cw) as each pixel lane's pixels (pl, pl + pl_n, ..)
+    in order, then the lanes in order; the H pools (pools_h) as 4 row
+    groups (rows g, g + 4, ..), then the groups in order.  Means divided at
+    the end; cp and wp rounded to a's type, hp float32."""
+    dt = a.dtype
+    bsz, h, w, c = a.shape
+    v, pl_n = layout.v, layout.pl
+    g = c // v
+    parts, per = 8, -(-g // 8)
+    srcs = [a.float(), (a.float() + b.float()).to(dt).float(), b.float()]
+    cps, hps, wps = [], [], []
+
+    def seq(items, op):
+        acc = items[0]
+        for item in items[1:]:
+            acc = op(acc, item)
+        return acc
+
+    for x in srcs:
+        for op, mean in ((torch.add, True), (torch.maximum, False)):
+            # C: each lane's groups, v channels at a time, then the xor tree
+            chans = [x[..., i] for i in range(c)]
+            neutral = (torch.zeros_like(chans[0]) if mean
+                       else torch.full_like(chans[0], -float("inf")))
+            lanes = [seq([neutral] + chans[min(g, part * per) * v:min(g, part * per + per) * v],
+                         op) for part in range(parts)]
+            for o in (4, 2, 1):
+                lanes = [op(lanes[i], lanes[i ^ o]) for i in range(parts)]
+            cps.append((lanes[0] / c if mean else lanes[0]).to(dt))
+            # W: each pixel lane's pixels in order, then the lanes in order
+            lane_sums = [seq([x[:, :, q] for q in range(lane, w, pl_n)], op)
+                         for lane in range(min(pl_n, w))]
+            wpool = seq(lane_sums, op)
+            wps.append((wpool / w if mean else wpool).to(dt))
+            # H: four row groups in order, then the groups in order
+            groups = [seq([x[:, y] for y in range(rg, h, 4)], op) for rg in range(min(4, h))]
+            hpool = seq(groups, op)
+            hps.append(hpool / h if mean else hpool)
+    return torch.stack(cps, 1), torch.stack(hps, 1), torch.stack(wps, 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 18, 40, 12), (1, 24, 70, 8),
+                                   (1, 7, 5, 7)])
+def test_pools_order_matches_reference_and_pallas(shape):
+    """The pools' order (C by lanes and a shuffle tree, W by pixel lanes, H
+    by row groups) in float32 against the plain version at 1e-5 and JAX's
+    ``_fusion_pools_pallas`` in interpret mode at 1e-5 (``test_torch_ops.py``'s
+    bar) where its row tiles allow (H % 8 == 0); heights 18 and 7 leave a
+    partial row group, widths 70 and 5 a partial chunk, C = 7 one channel a
+    thread."""
+    from sisr_tpu.ops.pallas.fusion_ops import _fusion_pools_pallas
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools_reference, pools_layout
+
+    rng = np.random.default_rng(11)
+    a, b = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    bsz, _, w, c = shape
+    bsz, _, w, c = shape
+    got = pools_emulation(_t(a), _t(b), pools_layout(bsz, w, c, 4))
+    ref = fusion_pools_reference(_t(a), _t(b))
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5, 1e-5)
+        assert torch.equal(g[:, 1::2], r[:, 1::2])   # the max slots: exact in any order
+    if shape[1] % 8 == 0:
+        for g, j in zip(got, _fusion_pools_pallas(jnp.asarray(a), jnp.asarray(b),
+                                                  interpret=True)):
+            _close(g, j, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 18, 40, 12)])
+def test_pools_bf16_order_keeps_the_plain_rounding(shape):
+    """In bfloat16 the kernel's order rounds where the plain version rounds
+    (a + b, cp, wp): the emulation stays within one bfloat16 ulp of the
+    plain bfloat16 version, and its max slots are equal to it."""
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools_reference, pools_layout
+
+    rng = np.random.default_rng(12)
+    a, b = (_t(rng.normal(size=shape)).to(torch.bfloat16) for _ in range(2))
+    got = pools_emulation(a, b, pools_layout(shape[0], shape[2], shape[3], 2))
+    for g, r in zip(got, fusion_pools_reference(a, b)):
+        assert g.dtype == r.dtype
+        _close(g.float(), r.float(), 2.0 ** -8, 2.0 ** -7)
+        assert torch.equal(g[:, 1::2], r[:, 1::2])
+
+
+def test_pools_layout_mirrors_the_kernel():
+    """``pools_layout`` (``csrc/fusion.cu::cw_layout``): at C = 180 pools_cw
+    takes 8 pixel lanes of 45 four-channel groups (360 threads) and chunks
+    of 32 pixels in bfloat16, 16 in float32; C % 4 != 0 or misaligned
+    pointers take one channel a thread; narrow rows fewer lanes; the shapes
+    the kernel refuses are None."""
+    from sisr_tpu_torch.ops.kernels.fusion_ops import pools_layout
+
+    assert pools_layout(1, 192, 180, 2) == (4, 4, 8, 360, 32)
+    assert pools_layout(1, 1920, 180, 2) == (4, 4, 8, 360, 32)
+    assert pools_layout(2, 64, 180, 4) == (4, 2, 8, 360, 16)
+    assert pools_layout(1, 3, 300, 2) == (4, 4, 1, 75, 4)        # one lane covers the row
+    assert pools_layout(1, 5, 7, 2).v == 1                       # C % 4 != 0
+    assert pools_layout(1, 8, 180, 2, aligned=False).v == 1
+    assert pools_layout(1, 8, 385, 2) is None                    # 385 groups of one
+    assert pools_layout(1, 8, 1540, 2) is None                   # 385 groups of four
+    assert pools_layout(65536, 8, 180, 2) is None
+
+
+def fused_fusion_emulation(a, b, pools, packed, rnd=lambda t: t):
+    """What ``csrc/fusion.cu``'s maps and gate compute from the pools and
+    ``pack_params``'s weights, in float32 with the kernel's rounding points
+    (``rnd``: bfloat16, or the identity): c_att from cp by conv1, rounded
+    (p27); h_att (w_att) from hp (wp) by conv2 (conv3); each UA's and side's
+    folded maps as ONE product, the rows of h_att (w_att) with their +-1
+    neighbours (N, 3C), rounded, times the (3C, 3C) block of khw whose row
+    block j and column block q is khw[k][base + 3q + j]: [main | corr0 |
+    corr1]; the gate from base = p27 @ k1blk, the maps and their border
+    corrections; out rounded to a's type."""
+    f32 = torch.float32
+    c1w, c2w, c3w, cb, khw, clb, k1blk = (t.to(f32) for t in packed)
+    cp3, hp3, wp3 = (t.to(f32) for t in pools)
+    bsz, h, w, c = a.shape
+
+    def conv18(m0, m1, taps, bias):
+        """3x3 2-in-1-out conv over the last two axes, taps [ch*9 + i*3 + j]
+        along (axis -2, axis -1), zero padded."""
+        pad = [F.pad(m, (1, 1, 1, 1)) for m in (m0, m1)]
+        n0, n1 = m0.shape[-2:]
+        out = torch.zeros_like(m0)
+        for ch in range(2):
+            for i in range(3):
+                for j in range(3):
+                    out = out + pad[ch][..., i:i + n0, j:j + n1] * taps[ch * 9 + i * 3 + j]
+        return out + bias
+
+    atts = []
+    for k in range(3):
+        catt = rnd(conv18(cp3[:, 2 * k], cp3[:, 2 * k + 1], c1w[k], cb[3 * k]))  # (B, H, W)
+        # the side convs run over the grid (C, N): taps [ch*9 + a*3 + bb], a along C
+        hatt = conv18(hp3[:, 2 * k].transpose(1, 2), hp3[:, 2 * k + 1].transpose(1, 2),
+                      c2w[k], cb[3 * k + 1]).transpose(1, 2)                    # (B, W, C)
+        watt = conv18(wp3[:, 2 * k].transpose(1, 2), wp3[:, 2 * k + 1].transpose(1, 2),
+                      c3w[k], cb[3 * k + 2]).transpose(1, 2)                    # (B, H, C)
+        maps = []
+        for att, base in ((hatt, 0), (watt, 9)):
+            n = att.shape[1]
+            ap = F.pad(att, (0, 0, 1, 1))
+            rows = rnd(torch.cat([ap[:, j:j + n] for j in range(3)], -1))       # (B, N, 3C)
+            blk = torch.cat([torch.cat([khw[k, base + 3 * q + j] for q in range(3)], 1)
+                             for j in range(3)], 0)                             # (3C, 3C)
+            prod = rows @ blk
+            maps.append([prod[..., q * c:(q + 1) * c] for q in range(3)])
+        (hout, hc0, hc1), (wout, wc0, wc1) = maps
+        hout = hout + clb[k]
+        cpad = F.pad(catt, (1, 1, 1, 1))
+        p9 = torch.stack([cpad[:, i:i + h, j:j + w] for i in range(3) for j in range(3)], -1)
+        base = p9 @ k1blk[9 * k:9 * (k + 1), k * c:(k + 1) * c]                 # (B, H, W, C)
+        att = base + hout[:, None] + wout[:, :, None]
+        att[:, 0] -= hc0
+        att[:, h - 1] -= hc1
+        att[:, :, 0] -= wc0
+        att[:, :, w - 1] -= wc1
+        atts.append(att)
+    g = torch.sigmoid(atts[1])
+    out = (a.to(f32) * torch.sigmoid(atts[0] * g)
+           + b.to(f32) * torch.sigmoid(atts[2] * (1.0 - g)))
+    return out.to(a.dtype)
+
+
+def _fusion_args(shape, seed):
+    rng = np.random.default_rng(seed)
+    a, b = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    mk = lambda *s: rng.normal(size=s).astype(np.float32) * 0.3
+    c = shape[-1]
+    raws = tuple(((mk(3, 3, 2, 1), mk(1)), (mk(3, 3, 2, 1), mk(1)), (mk(3, 3, 2, 1), mk(1)),
+                  (mk(3, 3, c, c) / np.sqrt(c), mk(c))) for _ in range(3))
+    return a, b, raws
+
+
+def _nest(raws, fn):
+    return tuple(tuple((fn(k), fn(b)) for k, b in ua) for ua in raws)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12), (1, 8, 13, 20)])
+def test_fusion_maps_as_one_product_match_reference_and_pallas(shape):
+    """The folded maps as one (N, 3C) x (3C, 3C) product over khw's layout,
+    with the gate, in float32: against the plain version (2e-5: the same
+    float32 math, summed in another order) and JAX's ``_fused_fusion_pallas``
+    in interpret mode (1e-4, ``test_torch_ops.py``'s bar)."""
+    from sisr_tpu.ops.pallas.fusion_ops import _fused_fusion_pallas
+    from sisr_tpu_torch.ops.kernels.fusion_ops import (fused_fusion_reference,
+                                                       fusion_pools_reference, pack_params)
+
+    a, b, raws = _fusion_args(shape, 13)
+    ta, tb, traws = _t(a), _t(b), _nest(raws, _t)
+    got = fused_fusion_emulation(ta, tb, fusion_pools_reference(ta, tb),
+                                 pack_params(traws, shape[-1], torch.float32))
+    _close(got, fused_fusion_reference(ta, tb, traws), 2e-5, 2e-5)
+    if shape[1] % 8 == 0:        # JAX's row tiles need H % 8 == 0
+        ref = _fused_fusion_pallas(jnp.asarray(a), jnp.asarray(b), _nest(raws, jnp.asarray),
+                                   interpret=True)
+        _close(got, ref, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12)])
+def test_fusion_maps_bf16_rounding_stays_within_the_plain_bf16_error(shape):
+    """With the kernel's bfloat16 rounding points (the pools, p27, h_att and
+    w_att as the product's inputs, khw and k1blk, out), the emulation stays
+    as close to the float32 plain version as twice the plain bfloat16
+    version does (the bar the card tests hold the kernel to)."""
+    from sisr_tpu_torch.ops.kernels.fusion_ops import (fused_fusion_reference,
+                                                       fusion_pools_reference, pack_params)
+
+    a, b, raws = _fusion_args(shape, 14)
+    b16 = torch.bfloat16
+    ta, tb = _t(a).to(b16), _t(b).to(b16)
+    traws = _nest(raws, lambda x: _t(x).to(b16).float())
+    truth = fused_fusion_reference(ta.float(), tb.float(), traws)
+    e_plain = float((fused_fusion_reference(ta, tb, _nest(raws, lambda x: _t(x).to(b16)))
+                     .float() - truth).abs().max())
+    got = fused_fusion_emulation(ta, tb, fusion_pools_reference(ta, tb),
+                                 pack_params(traws, shape[-1], b16), rnd=_rbf)
+    e_kernel = float((got.float() - truth).abs().max())
+    scale = max(1.0, float(truth.abs().max()))
+    assert e_kernel <= max(2.0 * e_plain, 4 * 2.0 ** -8 * scale), (e_kernel, e_plain)

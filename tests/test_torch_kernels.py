@@ -453,7 +453,8 @@ def test_head_model_shapes_take_the_redesigned_kernels_on_card(cuda_device, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 9, 70, 180), (1, 5, 3, 300)])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 9, 70, 180), (1, 5, 3, 300),
+                                   (1, 9, 1920, 180), (1, 37, 200, 180), (1, 16, 5, 7)])
 def test_fusion_pools_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools
 
@@ -476,7 +477,8 @@ def _ua_raws(rng, c, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12), (1, 24, 20, 180),
-                                   (1, 1, 5, 8)])
+                                   (1, 1, 5, 8), (1, 9, 1920, 180), (1, 37, 200, 180),
+                                   (1, 16, 5, 7), (1, 192, 192, 180), (1, 300, 400, 180)])
 def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
     """Pools, maps and gate against the Fusion module's math, including a
     one-row image (both row corrections on one row)."""
@@ -492,6 +494,26 @@ def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
            1e-4)
     assert build.launches["fused_fusion"] == before["fused_fusion"] + 1
     assert build.launches["fusion_pools"] == before["fusion_pools"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 9, 1920, 180), (2, 37, 70, 180), (1, 192, 192, 180),
+                                   (1, 300, 400, 180)])
+def test_fusion_kernels_store_the_same_bits_twice(cuda_device, dtype, shape):
+    """No float atomics and no block writing another's pixels: every sum is
+    taken in a fixed order, so two calls of each kernel on the same inputs
+    store the same bits (a 192x192 tile and a 300x400 map have interior
+    gate blocks, 8 and 16 rows high)."""
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, fusion_pools, pack_params
+
+    rng = np.random.default_rng(8)
+    a, b = _on(cuda_device, dtype, _rand(rng, *shape, scale=1.0), _rand(rng, *shape, scale=1.0))
+    raws = _ua_raws(rng, shape[-1], cuda_device)
+    packed = pack_params(raws, shape[-1], dtype)
+    for first, second in zip(fusion_pools(a, b), fusion_pools(a, b)):
+        assert torch.equal(first, second)
+    assert torch.equal(fused_fusion(a, b, raws, packed), fused_fusion(a, b, raws, packed))
 
 
 @pytest.mark.cuda
