@@ -77,6 +77,20 @@ Phases:
            events and one under torch.profiler (device busy time, idle
            share); the same 2 + 5 steps on the plain path
            (``reference=True``) as a yardstick;
+  runner   the experiment runner as ``python -m sisr_tpu_torch hitsir_pro``
+           builds it (the full flagship in float32, L1, Adam, batch 2, crop
+           64, two spawned loader workers, weights from param_synth) on
+           image folders synthesized under build/smoke/runner: 2 epochs of
+           train (BSRGAN-degraded crops) and eval (Y-PSNR/SSIM; LR 96x120 on
+           the whole forward, 256x320 on BandedHeadSR's 2 packed bands),
+           the same command resumed to epoch 3 (model, optimizer state,
+           the cosine lr), then test mode on the best checkpoint.  Every
+           train step must launch what a ``train`` step does, every eval
+           and test image what its route does; each SR of the last evals
+           within 1e-3 of the plain model (float32, TF32 off), the logged
+           metrics the port's psnr / ssim of those SRs, every log and
+           checkpoint parsed back; epoch and eval seconds, steps/s and the
+           share of a train epoch spent waiting on the loader;
   profile  one bfloat16 and one float32 tile, and a bfloat16 1080p frame
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
@@ -115,8 +129,8 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
-...}`` and ``{"kernels": [...]}`` lines and, as the last line when every
-phase passed,
+...}``, ``{"runner": ...}`` and ``{"kernels": [...]}`` lines and, as the
+last line when every phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result line, when there is no CUDA card or any
 check fails.
@@ -1443,6 +1457,346 @@ def run_train_check(failures: list) -> None:
         failures.append("training step check against the plain path")
 
 
+# --- the runner: the command line's experiment, train, eval, resume, test ----
+
+# hitsir_pro_experiment as ``python -m sisr_tpu_torch hitsir_pro`` builds it
+# (its defaults: the full flagship, L1, Adam 2e-5, batch 2, crop 64, float32,
+# two spawned loader workers) on folders synthesized under build/smoke/runner:
+# 4 train images (the BSRGAN degradation needs the 256 crop and a margin) and
+# 2 eval/test images whose LR areas, 96x120 and 256x320, fall on either side
+# of the band area: one runs the whole forward, one BandedHeadSR (2 bands)
+RUNNER_TRAIN = ((320, 320),) * 4          # HR (h, w)
+RUNNER_EVAL = ((384, 480), (1024, 1280))
+RUNNER_BAND_AREA = 200 * 200
+RUNNER_EPOCHS = 2                         # then a resume to epoch 3, then test mode
+RUNNER_KERNELS = tuple(k for k in SOURCES if k != "htb_fused")
+
+
+def runner_folders(root) -> None:
+    """PNG folders data/{train/setA, eval/setB, test/setB} under ``root``,
+    smooth seeded images (a coarse random grid, bicubic-upsampled)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for split, sizes in (("train", RUNNER_TRAIN), ("eval", RUNNER_EVAL),
+                         ("test", RUNNER_EVAL)):
+        d = root / "data" / split / ("setA" if split == "train" else "setB")
+        d.mkdir(parents=True)
+        for i, (h, w) in enumerate(sizes):
+            coarse = (rng.random((h // 16, w // 16, 3)) * 255).astype(np.uint8)
+            Image.fromarray(coarse).resize((w, h), Image.BICUBIC).save(d / f"im{i}.png")
+
+
+def instrument(exp, rec: dict) -> None:
+    """Wrap ``exp``'s train, train_batch, eval, _infer_one, eval_batch and
+    save_model_weights to record each epoch's seconds (and within them the
+    checkpoint writes, the inference and the metrics), each step's
+    launches, and each eval's and test's images (lr, sr, hr arrays and
+    launches) in ``rec``."""
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+
+    train, batch, evaluate, infer_one, eval_batch, save = (
+        exp.train, exp.train_batch, exp.eval, exp._infer_one, exp.eval_batch,
+        exp.save_model_weights)
+    spent = dict(save=0.0, metrics=0.0)
+
+    def delta(before):
+        return {k: build.launches[k] - before[k] for k in build.launches}
+
+    def timed_train():
+        n, saved, t0 = len(rec["steps"]), spent["save"], time.perf_counter()
+        train()
+        torch.cuda.synchronize()
+        rec["train"].append(dict(epoch=exp.start_epoch, s=time.perf_counter() - t0,
+                                 steps=len(rec["steps"]) - n, loader_wait_s=exp.train_wait_s,
+                                 step_s=exp.train_step_s, save_s=spent["save"] - saved,
+                                 loss=exp.epoch_loss.avg))
+
+    def counted_batch(lr_imgs, hr_imgs):
+        before = dict(build.launches)
+        batch(lr_imgs, hr_imgs)
+        rec["steps"].append(delta(before))
+
+    def timed_eval(start_epoch=None):
+        rec["images"], saved, metrics = [], spent["save"], spent["metrics"]
+        t0 = time.perf_counter()
+        evaluate(start_epoch)
+        rec["eval"].append(dict(epoch=start_epoch or exp.start_epoch,
+                                s=time.perf_counter() - t0, images=len(rec["images"]),
+                                infer_s=sum(im["s"] for im in rec["images"]),
+                                metrics_s=spent["metrics"] - metrics,
+                                save_s=spent["save"] - saved))
+        rec["evals"].append(rec["images"])
+
+    def counted_infer(lr_img):
+        before, t0 = dict(build.launches), time.perf_counter()
+        sr = infer_one(lr_img)
+        rec["images"].append(dict(lr=lr_img, sr=sr, s=time.perf_counter() - t0,
+                                  launches=delta(before)))
+        return sr
+
+    def kept_eval_batch(hr_img, sr_img):
+        rec["images"][-1]["hr"] = hr_img
+        t0 = time.perf_counter()
+        eval_batch(hr_img, sr_img)
+        spent["metrics"] += time.perf_counter() - t0
+
+    def timed_save(path):
+        t0 = time.perf_counter()
+        save(path)
+        spent["save"] += time.perf_counter() - t0
+
+    exp.train, exp.train_batch, exp.eval = timed_train, counted_batch, timed_eval
+    exp._infer_one, exp.eval_batch, exp.save_model_weights = (counted_infer, kept_eval_batch,
+                                                             timed_save)
+
+
+def image_counts(exp, lr_img) -> dict:
+    """Launches of one eval image: the whole forward (one head), or
+    BandedHeadSR's bands at or above the band area."""
+    h, w = lr_img.shape[1:3]
+    if h * w >= exp.eval_band_area:
+        _, _, pos, packed = exp._banded_eval.plan(h, w)
+        return expected_counts(h, w, len(pos), packed, False)
+    return expected_counts(h, w, 1, False, False)
+
+
+def check_images(exp, images: list, failures: list, label: str, plain: bool,
+                 card: str) -> None:
+    """Each image's launches; with ``plain``, its SR against the plain
+    model (float32, TF32 off) within 1e-3 max abs."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    for im in images:
+        want = image_counts(exp, im["lr"])
+        ok_count = im["launches"] == want
+        err = None
+        if plain:
+            x = torch.from_numpy(im["lr"]).to(exp.device)
+            with torch.inference_mode(), exact_mode():
+                ref = exp.model(x, reference=True).clamp(0, 1).float().cpu().numpy()
+            err = float(np.abs(ref - im["sr"]).max())
+        shape = im["lr"].shape[1:3]
+        log(f"  {label} LR {shape[0]}x{shape[1]}: {im['s']:.2f} s, launches "
+            f"{'ok' if ok_count else im['launches']}"
+            + ("" if err is None else f", max |SR - plain| {err:.2e}") + f" [{card}]")
+        if not ok_count:
+            failures.append(f"runner {label} {shape}: launches {im['launches']}, want {want}")
+        if err is not None and not err <= 1e-3:
+            failures.append(f"runner {label} {shape}: SR {err:.2e} from the plain model")
+
+
+def check_logged_metrics(exp, images: list, failures: list) -> None:
+    """The last eval's logged PSNR / SSIM: the port's psnr / ssim of the
+    SR images it recorded (Y channel, averaged as AverageMeter does)."""
+    from sisr_tpu_torch.data.transforms import convert_image
+    from sisr_tpu_torch.ops.metrics import psnr, ssim
+    from sisr_tpu_torch.utils.meters import AverageMeter
+
+    p, s = AverageMeter(), AverageMeter()
+    for im in images:
+        hr_y = convert_image(im["hr"][0], "[0,1]", "y-channel")
+        sr_y = convert_image(im["sr"][0], "[0,1]", "y-channel")
+        p.update(psnr(hr_y, sr_y, 1.0), 1)
+        s.update(ssim(hr_y, sr_y, 1.0), 1)
+    row = exp.psnr_ssim_lpips_log[-1]
+    if (float(row[1]), float(row[2])) != (p.avg, s.avg):
+        failures.append(f"runner: logged metrics {row} are not psnr {p.avg}, ssim {s.avg}")
+
+
+def check_runner_files(root, exp, failures: list) -> dict:
+    """Every log and checkpoint of the run exists and parses back; returns
+    the parsed logs."""
+    import torch
+
+    logs = root / exp.model_config.log_folder
+    weights = root / exp.model_config.checkpoint_folder
+    epochs = exp.model_config.epochs
+
+    def rows(name):
+        return [line.split() for line in (logs / name).read_text().splitlines()
+                if line.strip()]
+
+    parsed = {}
+    try:
+        loss = rows("loss_log.txt")
+        parsed["loss"] = [float(r[1].split(":")[1]) for r in loss]
+        metrics = rows("psnr_ssim_lpips_log.txt")
+        parsed["psnr_ssim"] = [(float(r[1]), float(r[2]), float(r[3])) for r in metrics]
+        parsed["best"] = [float(v) for v in rows("best_epoch_psnr_ssim_lpips_log.txt")[0]]
+        lrs = [r[0] for r in rows("lr_log.txt")]
+        parsed["lr_epochs"] = [int(r.split(",")[0].split(":")[1]) for r in lrs]
+        secs = rows("train_eval_seconds_consume_log.txt")
+        parsed["seconds"] = [(float(r[1].split("训练时长:")[1]), float(r[2].split("验证时长:")[1]))
+                             for r in secs]
+        parsed["total_s"] = float(rows("total_seconds_consume_log.txt")[0][0])
+        parsed["params"] = int((logs / "模型参数量.txt").read_text().split(":")[1])
+        ok = ([r[0] for r in loss] == [f"epoch:{e:05d}" for e in range(1, epochs + 1)]
+              and [r[0] for r in metrics] == [r[0] for r in loss]
+              and parsed["lr_epochs"] == list(range(1, epochs + 2))
+              and len(secs) == epochs and all(r[3] == "验证数据集:setB" for r in secs)
+              and parsed["params"] == sum(p.numel() for p in exp.model.parameters())
+              and all(math.isfinite(v) for v in parsed["loss"])
+              and all(math.isfinite(v) for r in parsed["psnr_ssim"] for v in r))
+        if not ok:
+            failures.append(f"runner logs: {parsed}")
+        keys = set(exp.model.state_dict())
+        for name in ("new_epoch_model.pth", "best_psnr_model.pth", "best_ssim_model.pth",
+                     "best_psnr_ssim_lpips_model.pth"):
+            dic = torch.load(weights / name, map_location="cpu", weights_only=True)
+            if set(dic["model"]) != keys or not dic["optimizer"]["state"]:
+                failures.append(f"runner checkpoint {name}: keys or optimizer state")
+        parsed["new_epoch_start_epoch"] = int(torch.load(
+            weights / "new_epoch_model.pth", map_location="cpu",
+            weights_only=True)["start_epoch"])
+        if parsed["new_epoch_start_epoch"] != epochs:
+            failures.append(f"runner: new_epoch_model.pth at epoch "
+                            f"{parsed['new_epoch_start_epoch']}, want {epochs}")
+    except (OSError, ValueError, IndexError, KeyError):
+        failures.append(f"runner logs or checkpoints: {traceback.format_exc()}")
+    return parsed
+
+
+def run_runner(failures: list, card: str) -> dict:
+    """The experiment runner on the card: 2 epochs of train + eval from
+    synthesized weights, a resume to epoch 3 (model, optimizer state and
+    the cosine learning rate), then test mode on the best checkpoint.
+    Returns the launches over the whole phase."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.__main__ import experiment_kwargs, parse_args
+    from sisr_tpu_torch.configs.model_config import get_scheduler
+    from sisr_tpu_torch.experiments.hitsir_pro_experiment import hitsir_pro_experiment
+    from sisr_tpu_torch.ops.kernels import build
+
+    root = Path(__file__).resolve().parent / "build" / "smoke" / "runner"
+    shutil.rmtree(root, ignore_errors=True)
+    runner_folders(root)
+    kw = experiment_kwargs(parse_args(
+        ["hitsir_pro", "--epochs", str(RUNNER_EPOCHS), "--train-sets", "setA",
+         "--eval-sets", "setB", "--test-sets", "setB"]))
+    kw.update(progress=False, eval_band_area=RUNNER_BAND_AREA, run=False)
+    rec = dict(train=[], steps=[], eval=[], images=[], evals=[])
+    want_step = {k: PER_STEP.get(k, 0) for k in build.launches}
+    summary = dict(card=card)
+    cwd = os.getcwd()
+    os.chdir(root)
+    exps = []
+    try:
+        build.reset_launches()
+        exp = hitsir_pro_experiment(**kw)
+        exps.append(exp)
+        infer.synth_weights(exp.model, seed=0)
+        instrument(exp, rec)
+        # the spawned loader workers start (and import torch) before the
+        # first epoch: timed apart, so that the epochs show the steady state
+        t0 = time.perf_counter()
+        for loader in exp.train_loaders:
+            loader._ensure_pool()
+        summary["loader_start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exp.run()
+        summary["first_run_s"] = time.perf_counter() - t0
+        for epoch, images in enumerate(rec["evals"], 1):
+            check_images(exp, images, failures, f"eval epoch {epoch}", epoch == RUNNER_EPOCHS,
+                         card)
+        check_logged_metrics(exp, rec["images"], failures)
+
+        # the resume: the same command with --epochs 3
+        kw.update(epochs=RUNNER_EPOCHS + 1)
+        resumed = hitsir_pro_experiment(**kw)
+        exps.append(resumed)
+        opt_a, opt_b = exp.state.optimizer.state_dict(), resumed.state.optimizer.state_dict()
+        same_opt = opt_a["state"].keys() == opt_b["state"].keys() and all(
+            torch.equal(opt_a["state"][i][k], opt_b["state"][i][k])
+            for i in opt_a["state"] for k in opt_a["state"][i])
+        same_model = all(torch.equal(a, b) for a, b in
+                         zip(exp.model.state_dict().values(), resumed.model.state_dict().values()))
+        lr = resumed.state.optimizer.param_groups[0]["lr"]
+        want_lr = get_scheduler(2e-5, 1e-7, RUNNER_EPOCHS + 1)(RUNNER_EPOCHS)
+        log(f"  resume: start_epoch {resumed.start_epoch}, optimizer state "
+            f"{'equal' if same_opt else 'DIFFERS'}, model {'equal' if same_model else 'DIFFERS'}"
+            f", lr {lr!r} (want {want_lr!r})")
+        if not (resumed.start_epoch == RUNNER_EPOCHS + 1 and same_opt and same_model
+                and len(opt_b["state"]) > 0 and lr == want_lr):
+            failures.append("runner resume: start_epoch, optimizer state, model or lr")
+        exp.close()
+        exps.remove(exp)
+        del exp, opt_a, opt_b
+        instrument(resumed, rec)
+        for loader in resumed.train_loaders:
+            loader._ensure_pool()
+        resumed.run()
+        check_images(resumed, rec["images"], failures, f"eval epoch {RUNNER_EPOCHS + 1}", True,
+                     card)
+        check_logged_metrics(resumed, rec["images"], failures)
+        summary["logs"] = check_runner_files(root, resumed, failures)
+
+        # test mode on the best checkpoint
+        kw.update(is_test=True)
+        tested = hitsir_pro_experiment(**kw)
+        exps.append(tested)
+        instrument(tested, rec)
+        rec["images"], t0 = [], time.perf_counter()
+        tested.run()
+        summary["test_s"] = time.perf_counter() - t0
+        check_images(tested, rec["images"], failures, "test", False, card)
+        result = Path(tested.result_path) / "setB"
+        tlog = (result / "test_log.txt").read_text().split()
+        summary["test_psnr"], summary["test_ssim"] = (float(tlog[0].split(":")[1]),
+                                                      float(tlog[1].split(":")[1]))
+        written = all((result / f"im{i}_{tag}.png").exists()
+                      for i in range(len(RUNNER_EVAL)) for tag in ("hr", "sr"))
+        if not (written and len(rec["images"]) == len(RUNNER_EVAL)
+                and math.isfinite(summary["test_psnr"]) and math.isfinite(summary["test_ssim"])):
+            failures.append(f"runner test stage: PNGs {written}, log {tlog}")
+        counts = dict(build.launches)
+    finally:
+        for e in exps:
+            e.close()
+        os.chdir(cwd)
+
+    bad = [s for s in rec["steps"] if s != want_step]
+    if bad or not rec["steps"]:
+        failures.append(f"runner: {len(bad)} of {len(rec['steps'])} train steps launch "
+                        f"otherwise than the train phase's {PER_STEP}: {bad[:1]}")
+    summary["epochs"] = []
+    for tr, ev in zip(rec["train"], rec["eval"]):
+        busy = tr["loader_wait_s"] + tr["step_s"]
+        row = dict(epoch=tr["epoch"], train_s=tr["s"], steps=tr["steps"],
+                   steps_per_s=tr["steps"] / tr["s"], loader_wait_s=tr["loader_wait_s"],
+                   step_s=tr["step_s"], loader_wait_share=tr["loader_wait_s"] / busy,
+                   train_checkpoint_s=tr["save_s"], loss=tr["loss"], eval_s=ev["s"],
+                   eval_images=ev["images"], eval_s_per_image=ev["s"] / max(ev["images"], 1),
+                   eval_infer_s=ev["infer_s"], eval_metrics_s=ev["metrics_s"],
+                   eval_checkpoint_s=ev["save_s"])
+        summary["epochs"].append(row)
+        log(f"  epoch {row['epoch']}: train {row['train_s']:.3f} s ({row['steps']} steps, "
+            f"{row['steps_per_s']:.3f} steps/s; waiting on the loader {row['loader_wait_s']:.3f}"
+            f" s against {row['step_s']:.3f} s in steps: host share "
+            f"{100 * row['loader_wait_share']:.1f}%; checkpoint {row['train_checkpoint_s']:.3f}"
+            f" s), eval {row['eval_s']:.3f} s ({row['eval_images']} images: inference "
+            f"{row['eval_infer_s']:.3f} s, metrics {row['eval_metrics_s']:.3f} s, best "
+            f"checkpoints {row['eval_checkpoint_s']:.3f} s), L1 {row['loss']:.5f} [{card}]")
+        if not math.isfinite(row["loss"]):
+            failures.append(f"runner epoch {row['epoch']}: loss {row['loss']}")
+    summary["launches"] = counts
+    log(f"  loader workers' start: {summary['loader_start_s']:.3f} s [{card}]")
+    log(f"  test stage: {summary['test_s']:.2f} s for {len(RUNNER_EVAL)} images, Y-PSNR "
+        f"{summary['test_psnr']:.4f} dB, SSIM {summary['test_ssim']:.5f} [{card}]")
+    log(f"  launches over the phase: {counts}")
+    log(json.dumps({"runner": summary}))
+    return counts
+
+
 # what each path must launch: serving the tiles, the whole-image path and
 # the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
@@ -1705,7 +2059,8 @@ def sass_count(kernel: str, opcodes, function: str = "") -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--phases", default="build,kernels,split,serve,whole,train,profile,check")
+    p.add_argument("--phases",
+                   default="build,kernels,split,serve,whole,train,runner,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -1737,7 +2092,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     failures: list = []
-    rows, extra, served, whole, trained = {}, {}, None, None, None
+    rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
 
     log("[build]")
     try:
@@ -1808,6 +2163,14 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"train: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "runner" in phases and not failures:
+        log("[runner] python -m sisr_tpu_torch hitsir_pro's experiment: 2 epochs, a resume "
+            "to epoch 3, test mode")
+        try:
+            ran = run_runner(failures, card)
+        except Exception:
+            failures.append(f"runner: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "profile" in phases and served is not None:
         for dt in ("bfloat16", "float32"):
             log(f"[profile] one {dt} 192x192 tile")
@@ -1835,9 +2198,10 @@ def main(argv=None) -> int:
             log(traceback.format_exc())
 
     # each path's counts, set to 0 just before it and read just after
-    paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained}
+    paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
+             "runner": ran}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
-                        ("train", TRAIN_KERNELS)):
+                        ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
     kernels = []
@@ -1865,7 +2229,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if not {"build", "kernels", "serve", "whole", "train", "check"} <= phases:
+    if not {"build", "kernels", "serve", "whole", "train", "runner", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

@@ -8,7 +8,8 @@ state_dict}``, such as the reference's fusion checkpoint named by
 tiles, overlap 16), clips to [0,1] and writes a PNG.
 
     python -m sisr_tpu_torch.infer lr.png [-o out.png] [--weights ckpt.pth]
-        [--tile 192] [--dtype bfloat16] [--device cuda]
+        [--tile 192] [--dtype bfloat16] [--device cuda] [--show]
+    python -m sisr_tpu_torch.infer hr.png --make-lr   # writes hr_bicubic_lr.png
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def upscale(model, lr: torch.Tensor, tile="192") -> torch.Tensor:
 
 def main(img_path: str, out_path: str = None,
          weights_path: str = DEFAULT_WEIGHTS, tile="192",
-         dtype: str = "float32", device: str = "cuda") -> str:
+         dtype: str = "float32", device: str = "cuda", show: bool = False) -> str:
     from PIL import Image
 
     model = create_model(dtype, device)
@@ -90,7 +91,26 @@ def main(img_path: str, out_path: str = None,
         out_path = f"{stem}_sr{ext or '.png'}"
     result.save(out_path)
     print(f"saved {result.size[0]}x{result.size[1]} SR image to {out_path}")
+    if show:
+        result.show()
     return out_path
+
+
+def get_bicubic_lr(img_path: str, scale: int = 4) -> str:
+    """Write a bicubic /scale LR image next to the input (the reference's
+    test_experiment.py:83-92): the image cropped to multiples of ``scale``,
+    then PIL's bicubic resize.  Returns the path written."""
+    from PIL import Image
+
+    with Image.open(img_path) as handle:
+        img = handle.convert("RGB")
+        img = img.crop((0, 0, img.width - img.width % scale,
+                        img.height - img.height % scale))
+        lr = img.resize((img.width // scale, img.height // scale), Image.BICUBIC)
+    stem, ext = os.path.splitext(img_path)
+    out = f"{stem}_bicubic_lr{ext or '.png'}"
+    lr.save(out)
+    return out
 
 
 if __name__ == "__main__":
@@ -103,5 +123,12 @@ if __name__ == "__main__":
                    help='tile size: "192" (square) or "192x1920" (strips)')
     p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     p.add_argument("--device", default="cuda")
+    p.add_argument("--show", action="store_true", help="open the SR image in a viewer")
+    p.add_argument("--make-lr", action="store_true",
+                   help="write a bicubic LR of the input instead of running SR")
     args = p.parse_args()
-    main(args.image, args.out, args.weights, args.tile, args.dtype, args.device)
+    if args.make_lr:
+        print(get_bicubic_lr(args.image))
+    else:
+        main(args.image, args.out, args.weights, args.tile, args.dtype, args.device,
+             args.show)

@@ -597,9 +597,10 @@ class HiTSIR(nn.Module):
         if upsampler != "nearest+conv" or upscale != 4:
             raise NotImplementedError(
                 f"only the nearest+conv x4 head is ported (got {upsampler!r} "
-                f"x{upscale})")
+                f"x{upscale}; ROADMAP.md, Queue 1: the other shallow conv and heads)")
         if not is_mult_size_conv_feat_extract:
-            raise NotImplementedError("only the MSCE shallow extractor is ported")
+            raise NotImplementedError("only the MSCE shallow extractor is ported (ROADMAP.md, "
+                                      "Queue 1: the other shallow conv and heads)")
         c = embed_dim
         self.in_chans = in_chans
         self.img_range = img_range
