@@ -91,6 +91,34 @@ Phases:
            metrics the port's psnr / ssim of those SRs, every log and
            checkpoint parsed back; epoch and eval seconds, steps/s and the
            share of a train epoch spent waiting on the loader;
+  heads    the flagship's widths and depth (weights from param_synth) with
+           each other head of the reference: pixelshuffle x4 and x2,
+           pixelshuffledirect x4, and the nearest+conv head after the plain
+           3x3 conv_first, on a 192x192 tile in float32 and bfloat16: every
+           launch counter checked per forward, the wall ms (median of 3),
+           and the kernel path against the plain model at the whole-model
+           bars (float32 within 1e-3 max abs and 5e-5 rms, TF32 off;
+           bfloat16 >= min(44, plain bfloat16 - 3) dB);
+  gan      the GAN fine-tune: ``train_state.make_gan_train_step`` over the
+           flagship in float32, UNetDiscriminatorSN(64) and a random
+           full-width VGG19 (L1 + 1.0 perceptual + 0.1 adversarial, Adam
+           2e-5, betas (0.9, 0.99), batch 2, LR 64 -> HR 256), first the
+           kernel path against the plain path from the same state on one
+           batch, TF32 off (g_loss and d_loss within 1e-4 relative; every
+           generator gradient at the train check's bar, its noise probed
+           on the GAN loss; the discriminator's parameters and u, v after
+           the step within 5e-5 + 1e-3 relative); then 2 warm + 5 timed
+           steps on each path with PyTorch's TF32 defaults (median ms, peak
+           memory, launches checked per step), one kernel-path step split
+           into its G phase, G optimizer, D phase and D optimizer by CUDA
+           events and one profiled; then ``python -m sisr_tpu_torch
+           hitsir_pro_gan``'s experiment on the runner's folders (under
+           build/smoke/gan, LPIPS from random weights written there): 1
+           epoch, the resume to epoch 2 from the discriminator's checkpoint
+           (both models, both optimizers' state, the lr), test mode; every
+           step's and image's launches, the last eval's SRs within 1e-3 of
+           the plain model, d_loss, discriminator_lr, a real LPIPS column
+           and both checkpoints parsed back;
   profile  one bfloat16 and one float32 tile, and a bfloat16 1080p frame
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
@@ -129,7 +157,8 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
-...}``, ``{"runner": ...}`` and ``{"kernels": [...]}`` lines and, as the
+...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"gan": ...}`` and
+``{"kernels": [...]}`` lines and, as the
 last line when every phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result line, when there is no CUDA card or any
@@ -1797,12 +1826,570 @@ def run_runner(failures: list, card: str) -> dict:
     return counts
 
 
+# --- the other heads: the flagship's widths with each head of the reference --
+
+# (label, HiTSIR overrides of flagship_config): the pixel-shuffle heads x4
+# and x2, the one-step head, and the nearest+conv head after the plain
+# shallow conv
+HEADS = (("pixelshuffle x4", dict(upsampler="pixelshuffle", upscale=4)),
+         ("pixelshuffle x2", dict(upsampler="pixelshuffle", upscale=2)),
+         ("pixelshuffledirect x4", dict(upsampler="pixelshuffledirect", upscale=4)),
+         ("nearest+conv, plain conv_first", dict(is_mult_size_conv_feat_extract=False)))
+
+
+def head_counts(over: dict) -> dict:
+    """Launches of one 192x192 tile's forward with the head ``over``: the
+    body's as a tile's (``PER_TILE``); conv3x3 runs conv_after_body, and
+    conv_before_upsample where the head has one; only the nearest+conv
+    head runs the packed x4 head (conv_up1 on conv3x3, conv_up2, the tail)."""
+    from sisr_tpu_torch.ops.kernels import build
+
+    up = over.get("upsampler", "nearest+conv")
+    want = dict.fromkeys(build.launches, 0)
+    want.update(PER_TILE)
+    if up != "nearest+conv":
+        want.update(conv3x3=7 + (up == "pixelshuffle"), conv3x3_shuffled=0,
+                    conv3x3_shuffled_tail=0)
+    return want
+
+
+def _psnr_db(a, b) -> float:
+    return 10 * math.log10(1.0 / max(float(((a - b) ** 2).mean()), 1e-20))
+
+
+def run_heads(failures: list, card: str) -> dict:
+    """Each head of ``HEADS`` at the flagship's widths and depth (weights
+    from param_synth, seed 0) on a 192x192 tile, float32 and bfloat16:
+    every launch counter checked per forward, the wall ms (median of 3),
+    then the kernel path as timed (PyTorch's defaults) against the plain
+    model (float32, TF32 off):
+    float32 within 1e-3 max abs and 5e-5 rms, bfloat16 >= min(44, plain
+    bfloat16 - 3) dB.  Returns the launches over the phase."""
+    import statistics
+
+    import torch
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tile = torch.rand((1, TILE, TILE, 3), generator=g, device="cuda")
+    summary = {}
+    build.reset_launches()
+    for label, over in HEADS:
+        models = {}
+        for dt in ("float32", "bfloat16"):
+            model = HiTSIR(**flagship_config(**over), dtype=getattr(torch, dt))
+            model = model.to("cuda").eval()
+            infer.synth_weights(model, seed=0)
+            models[dt] = model
+        want = head_counts(over)
+        row = dict(params=sum(p.numel() for p in models["float32"].parameters()))
+        with torch.inference_mode():
+            for dt, model in models.items():
+                model(tile)                       # warm
+                torch.cuda.synchronize()
+                ms, ok = [], True
+                for _ in range(3):
+                    before = dict(build.launches)
+                    t0 = time.perf_counter()
+                    out = model(tile)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    got = {k: build.launches[k] - before[k] for k in build.launches}
+                    scale = over.get("upscale", 4)
+                    ok = ok and (got == want and bool(torch.isfinite(out).all())
+                                 and tuple(out.shape) == (1, TILE * scale, TILE * scale, 3))
+                if not ok:
+                    failures.append(f"heads {label} {dt}: shape/finite/launches "
+                                    f"{ {k: v for k, v in got.items() if v} }, want "
+                                    f"{ {k: v for k, v in want.items() if v} }")
+                row[dt] = dict(median_ms=statistics.median(ms), runs_ms=ms,
+                               launches={k: v for k, v in got.items() if v})
+            # the kernel path under PyTorch's defaults, as timed and served
+            err = models["float32"](tile).clamp(0, 1)
+            k16 = models["bfloat16"](tile).float().clamp(0, 1)
+            with exact_mode():
+                ref = models["float32"](tile, reference=True).clamp(0, 1)
+                p16 = models["bfloat16"](tile, reference=True).float().clamp(0, 1)
+            err = (err - ref).abs()
+        row.update(max_abs=float(err.max()), rms=float(err.square().mean().sqrt()),
+                   db_bf16=_psnr_db(k16, ref), db_plain_bf16=_psnr_db(p16, ref))
+        bar16 = min(44.0, row["db_plain_bf16"] - 3.0)
+        ok = row["max_abs"] < 1e-3 and row["rms"] < 5e-5 and row["db_bf16"] >= bar16
+        log(f"  {label:31s} {row['params']:,} params: f32 {row['float32']['median_ms']:.1f} ms"
+            f", bf16 {row['bfloat16']['median_ms']:.1f} ms ({TILE}x{TILE}, wall median of 3); "
+            f"f32 vs plain max abs {row['max_abs']:.3e} (bar 1e-3), rms {row['rms']:.3e} "
+            f"(bar 5e-5); bf16 {row['db_bf16']:.2f} dB (bar {bar16:.2f}; plain bf16 "
+            f"{row['db_plain_bf16']:.2f}) {'ok' if ok else 'FAIL'} [{card}]")
+        log(f"    launches a forward: {row['float32']['launches']}")
+        if not ok:
+            failures.append(f"heads {label}: the kernel path against the plain model")
+        summary[label] = row
+        del models
+        torch.cuda.empty_cache()
+    counts = dict(build.launches)
+    log(f"  launches over the phase: {counts}")
+    log(json.dumps({"heads": summary}))
+    return counts
+
+
+# --- the GAN fine-tune: the two-optimizer step and its runner ----------------
+
+GAN_WARM, GAN_STEPS = 2, 5
+# the D state after a step: |kernel - plain| <= GAN_D_ATOL + GAN_D_RTOL |plain|
+# (the reference's D steps' bar, tests/test_gan_components.py)
+GAN_D_ATOL, GAN_D_RTOL = 5e-5, 1e-3
+
+
+def gan_parts():
+    """The GAN step's other networks on the card, seeded: the reference's
+    UNetDiscriminatorSN(64) in train mode, and the perceptual loss over a
+    random full-width VGG19 (the repo holds no pretrained weights)."""
+    import torch
+    from sisr_tpu_torch.models.discriminator import UNetDiscriminatorSN
+    from sisr_tpu_torch.models.vgg import PerceptualLoss
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        d = UNetDiscriminatorSN(64)
+        torch.manual_seed(0)
+        perceptual = PerceptualLoss()
+    return d.to("cuda").train(), perceptual.to("cuda")
+
+
+def gan_grads(g, d, perceptual, lr_img, hr_img, stale_uv: bool = False) -> tuple:
+    """The plain path's gradients of one GAN step without its optimizer
+    updates, against a copy of ``d``: the generator's of the G phase's
+    loss, then the discriminator's of the D phase (u, v advancing on the
+    copy, as in the step).  ``stale_uv`` plants the check's control fault:
+    the D phase starts from u, v as they were before the G phase's
+    forward."""
+    import copy
+
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import (gan_discriminator_backward,
+                                                  gan_generator_loss)
+
+    d_run = copy.deepcopy(d).requires_grad_(False)
+    g.zero_grad(set_to_none=True)
+    sr = g(lr_img, reference=True, deterministic=False)
+    gan_generator_loss(sr, hr_img, d_run, l1_loss, perceptual).backward()
+    if stale_uv:
+        d_run = copy.deepcopy(d)
+    gan_discriminator_backward(d_run.requires_grad_(True), hr_img, sr)
+    return _grads(g), _grads(d_run)
+
+
+def _grads(model) -> dict:
+    return {k: None if p.grad is None else p.grad.clone() for k, p in model.named_parameters()}
+
+
+def run_gan_check(failures: list, card: str) -> dict:
+    """The GAN step on the kernel path against the plain path from the
+    same generator, discriminator (with u, v) and VGG19, on one seeded
+    batch, float32 with TF32 off: g_loss and d_loss within 1e-4 relative;
+    every generator and discriminator gradient within max(1e-3,
+    NOISE_MULT x the plain path's own move under one-ulp moves of the LR
+    batch or the generator's weights, or the batch by 1e-6 relative); the
+    discriminator's parameters and u, v after the step within 5e-5 abs +
+    1e-3 rel (a bar that one Adam step at 2e-5 cannot cross: the D
+    gradients hold the D phase).  The control: the D phase from stale
+    u, v must fail the D gradients' bars.  Then the kernel step once more
+    under PyTorch's defaults (cuDNN TF32 on for D and the VGG19), its
+    losses against the exact plain step's, for the record."""
+    import copy
+
+    import torch
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_gan_train_step
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    lr_img, hr_img = train_batches(1, seed=7)[0]
+
+    def run(g, d, reference):
+        # hitsir_pro_gan_experiment's settings: L1 + 1.0 perceptual + 0.1
+        # adversarial, Adam 2e-5, betas (0.9, 0.99) for both networks
+        step = make_gan_train_step(g, d, l1_loss, perceptual, adam(g), adam(d),
+                                   reference=reference)
+        g_loss, d_loss = step(lr_img, hr_img)
+        return dict(g_loss=float(g_loss), d_loss=float(d_loss), grads=_grads(g),
+                    d_grads=_grads(d), d_state={k: v.clone() for k, v in d.state_dict().items()})
+
+    with exact_mode():
+        d0, perceptual = gan_parts()
+        plain = train_model()
+        base = gan_grads(plain, d0, perceptual, lr_img, hr_img)
+        moved = [gan_grads(plain, d0, perceptual, x, hr_img)
+                 for x in (_ulp_move(lr_img, 11), _ulp_move(lr_img, 12), lr_img * (1 + 1e-6))]
+        shifted = train_model()
+        for seed in (13, 14):
+            with torch.no_grad():
+                for i, (p, q) in enumerate(zip(shifted.parameters(), plain.parameters())):
+                    p.copy_(_ulp_move(q, seed * 1000 + i))
+            moved.append(gan_grads(shifted, d0, perceptual, lr_img, hr_img))
+        del shifted
+        stale = gan_grads(plain, d0, perceptual, lr_img, hr_img, stale_uv=True)[1]
+        res = dict(kernels=run(train_model(), copy.deepcopy(d0), False),
+                   plain=run(plain, copy.deepcopy(d0), True))
+    tf32 = run(train_model(), copy.deepcopy(d0), False)
+    bars = [{}, {}]
+    for j, bar in enumerate(bars):
+        for k, r in base[j].items():
+            if r is not None and all(m[j][k] is not None for m in moved):
+                noise = max(rel(m[j][k], r) for m in moved)
+                bar[k] = (noise, max(1e-3, NOISE_MULT * noise))
+    rows, bad = _over_bars(res["kernels"]["grads"], res["plain"]["grads"], bars[0])
+    d_rows, d_bad = _over_bars(res["kernels"]["d_grads"], res["plain"]["d_grads"], bars[1])
+    # the probes' losses are the step's two phases: the plain step's
+    # gradients stay within the bars of the probes' unmoved ones
+    unlike = (_over_bars(res["plain"]["grads"], base[0], bars[0])[1]
+              + _over_bars(res["plain"]["d_grads"], base[1], bars[1])[1])
+    control = _over_bars(stale, base[1], bars[1])[1]
+    k_d, p_d = res["kernels"]["d_state"], res["plain"]["d_state"]
+    d_over = {k: float(((k_d[k] - v).abs() - GAN_D_RTOL * v.abs()).max())
+              for k, v in p_d.items()}
+    d_worst = max(d_over, key=d_over.get)
+    loss_err = {k: abs(res["kernels"][k] - res["plain"][k]) / abs(res["plain"][k])
+                for k in ("g_loss", "d_loss")}
+    tf32_err = {k: abs(tf32[k] - res["plain"][k]) / abs(res["plain"][k])
+                for k in ("g_loss", "d_loss")}
+    worst = max(rows, key=lambda r: r["err"])
+    tight = max(rows, key=lambda r: r["err"] / r["bar"])
+    d_worst_grad = max(d_rows, key=lambda r: r["err"])
+    d_tight = max(d_rows, key=lambda r: r["err"] / r["bar"])
+    ok = (all(v <= 1e-4 for v in loss_err.values()) and not bad and not d_bad
+          and d_over[d_worst] <= GAN_D_ATOL and not unlike and bool(control))
+    log(f"  GAN step (TF32 off): g_loss {res['kernels']['g_loss']:.7f} vs plain "
+        f"{res['plain']['g_loss']:.7f} (rel {loss_err['g_loss']:.2e}), d_loss "
+        f"{res['kernels']['d_loss']:.7f} vs {res['plain']['d_loss']:.7f} (rel "
+        f"{loss_err['d_loss']:.2e}; bar 1e-4); {len(rows)} generator gradients, worst "
+        f"{worst['err']:.2e} ({worst['name']}, noise {worst['noise']:.2e}), nearest its bar "
+        f"{tight['err']:.2e} of {tight['bar']:.2e} ({tight['name']}), {len(bad)} failed; "
+        f"{len(d_rows)} discriminator gradients, worst {d_worst_grad['err']:.2e} "
+        f"({d_worst_grad['name']}, noise {d_worst_grad['noise']:.2e}), nearest its bar "
+        f"{d_tight['err']:.2e} of {d_tight['bar']:.2e} ({d_tight['name']}), {len(d_bad)} "
+        f"failed; the plain step's vs the probe's: {len(unlike)} over their bar; D state "
+        f"worst |k - p| - 1e-3 |p| {d_over[d_worst]:.2e} ({d_worst}; bar 5e-5) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    log(f"  control, the D phase from stale u, v: {len(control)} of {len(d_rows)} "
+        f"discriminator gradients over their bar (must be > 0)")
+    log(f"  the kernel step under PyTorch's defaults (cuDNN TF32 on) against the exact "
+        f"plain step: g_loss rel {tf32_err['g_loss']:.2e}, d_loss rel "
+        f"{tf32_err['d_loss']:.2e} (recorded, not a bar) [{card}]")
+    for line in (bad + d_bad + unlike)[:10]:
+        log(f"    {line}")
+    if not ok:
+        failures.append("GAN step check against the plain path")
+    return dict(loss_err=loss_err, worst_grad=worst, tightest=tight,
+                d_worst_grad=d_worst_grad, d_tightest=d_tight, d_worst=d_over[d_worst],
+                plain_vs_probe_over_bar=len(unlike), failed=len(bad) + len(d_bad),
+                stale_uv_over_bar=len(control), tf32_loss_err=tf32_err)
+
+
+def gan_split(step, g_opt, d_opt, lr_img, hr_img) -> dict:
+    """One more kernel-path GAN step, ``step`` itself, with CUDA events
+    recorded by hooks on the two optimizers' ``step``: the G phase (the
+    generator's forward, the three losses, the backward) ends where G's
+    optimizer starts, the D phase (two forwards and backwards) where D's
+    starts."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    hooks = []
+    for opt, i in ((g_opt, 1), (d_opt, 3)):
+        hooks.append(opt.register_step_pre_hook(lambda *_, i=i: ev[i].record()))
+        hooks.append(opt.register_step_post_hook(lambda *_, i=i: ev[i + 1].record()))
+    ev[0].record()
+    try:
+        step(lr_img, hr_img)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    names = ("g_phase_ms", "g_optimizer_ms", "d_phase_ms", "d_optimizer_ms")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def run_gan_steps(failures: list, card: str) -> dict:
+    """GAN steps of the flagship in float32 (TF32 as PyTorch sets it: on
+    for cuDNN's convolutions, off for matmuls) through
+    ``make_gan_train_step``: 2 warm, 5 timed, every launch counter checked
+    per step (the train phase's ``PER_STEP``: the discriminator and the
+    VGG launch no kernel of ours), on the kernel path then the plain path;
+    one more kernel-path step split by CUDA events and one profiled."""
+    import statistics
+
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_gan_train_step
+
+    summary = dict(card=card, tf32_cudnn=torch.backends.cudnn.allow_tf32,
+                   tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+    mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
+    for label, reference in (("kernels", False), ("plain", True)):
+        g = train_model()
+        d, perceptual = gan_parts()
+        g_opt, d_opt = adam(g), adam(d)
+        step = make_gan_train_step(g, d, l1_loss, perceptual, g_opt, d_opt, reference=reference)
+        batches = train_batches(GAN_WARM + GAN_STEPS, seed=0)
+        for lr_img, hr_img in batches[:GAN_WARM]:
+            step(lr_img, hr_img)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
+        ms, losses = [], []
+        for lr_img, hr_img in batches[GAN_WARM:]:
+            before = dict(build.launches)
+            t0 = time.perf_counter()
+            g_loss, d_loss = step(lr_img, hr_img)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append((float(g_loss), float(d_loss)))
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want or not all(math.isfinite(v) for v in losses[-1]):
+                failures.append(f"gan step {label}: losses {losses[-1]}, launches {got}, "
+                                f"want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(ms)
+        row = summary[label] = dict(median_ms=med, min_ms=min(ms), runs_ms=ms,
+                                    lr_mp_per_s=mp / (med / 1e3), peak_gib=peak,
+                                    losses=losses)
+        log(f"  {label:7s} {GAN_STEPS} GAN steps (batch {TRAIN_BATCH}, LR {TRAIN_LR} -> HR "
+            f"{4 * TRAIN_LR}, float32): median {med:.1f} ms, min {min(ms):.1f} ms, "
+            f"{row['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} GiB; (g_loss, d_loss) "
+            + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in losses) + f" [{card}]")
+        if not reference:
+            row["launches_per_step"] = {k: v for k, v in want.items() if v}
+            log(f"  launches per step (each checked): {row['launches_per_step']}")
+            row["split"] = split = gan_split(step, g_opt, d_opt, *batches[-1])
+            log("  one more step: " + ", ".join(f"{k[:-3].replace('_', ' ')} {v:.1f} ms"
+                                               for k, v in split.items()) + " (CUDA events)")
+            log("[profile] one float32 GAN step")
+            prof = profile_call(lambda: step(*batches[-1]), warm=False)
+            row["profile"] = dict(prof, idle_share_of_median=1 - prof["busy_ms"] / med)
+        del g, d, perceptual, step, g_opt, d_opt
+        torch.cuda.empty_cache()
+    summary["plain_over_kernels"] = summary["plain"]["median_ms"] / summary["kernels"]["median_ms"]
+    log(f"  plain path / kernel path GAN step time: {summary['plain_over_kernels']:.2f}x")
+    return summary
+
+
+def lpips_file(path) -> None:
+    """Random LPIPSVgg weights (its heads non-negative, as lpips's), seeded,
+    written where ``lpips_weights_path`` reads them: the repo holds no
+    pretrained LPIPS."""
+    import torch
+    from sisr_tpu_torch.models.vgg import LPIPSVgg
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        lp = LPIPSVgg()
+    with torch.no_grad():
+        for i in range(5):
+            getattr(lp, f"lin{i}").model[1].weight.abs_()
+    torch.save(lp.state_dict(), path)
+
+
+def check_gan_files(root, exp, failures: list) -> dict:
+    """The GAN run's logs and both checkpoints parse back: loss and d_loss
+    each epoch, the lr log's discriminator_lr, a real LPIPS value each
+    eval (not the 1.0 sentinel), the generator's and the discriminator's
+    checkpoints at the last epoch (the discriminator's with its u, v)."""
+    import torch
+
+    logs = root / exp.model_config.log_folder
+    weights = root / exp.model_config.checkpoint_folder
+    epochs = exp.model_config.epochs
+
+    def rows(name):
+        return [line.split() for line in (logs / name).read_text().splitlines()
+                if line.strip()]
+
+    parsed = {}
+    try:
+        loss = rows("loss_log.txt")
+        parsed["loss"] = [(float(r[1].split(":")[1]), float(r[2].split(":")[1])) for r in loss]
+        lrs = [" ".join(r) for r in rows("lr_log.txt")]
+        parsed["lr_log"] = lrs
+        metrics = rows("psnr_ssim_lpips_log.txt")
+        parsed["psnr_ssim_lpips"] = [tuple(float(v) for v in r[1:4]) for r in metrics]
+        ok = ([r[0] for r in loss] == [f"epoch:{e:05d}" for e in range(1, epochs + 1)]
+              and all(r[2].startswith("d_loss:") for r in loss)
+              and all(math.isfinite(v) for r in parsed["loss"] for v in r)
+              and all("discriminator_lr:" in r for r in lrs[1:]) and len(lrs) == epochs + 1
+              and [r[0] for r in metrics] == [r[0] for r in loss]
+              and all(math.isfinite(v) for r in parsed["psnr_ssim_lpips"] for v in r)
+              and all(r[2] != 1.0 for r in parsed["psnr_ssim_lpips"]))
+        if not ok:
+            failures.append(f"gan runner logs: {parsed}")
+        for name, model in (("new_epoch_model.pth", exp.model),
+                            ("discriminator_new_epoch_model.pth", exp.discriminator)):
+            dic = torch.load(weights / name, map_location="cpu", weights_only=True)
+            if (set(dic) != {"start_epoch", "model", "optimizer"} or dic["start_epoch"] != epochs
+                    or set(dic["model"]) != set(model.state_dict())
+                    or not dic["optimizer"]["state"]):
+                failures.append(f"gan runner checkpoint {name}: {set(dic)}, epoch "
+                                f"{dic.get('start_epoch')}")
+        parsed["d_has_uv"] = "conv1.weight_u" in exp.discriminator.state_dict()
+    except (OSError, ValueError, IndexError, KeyError):
+        failures.append(f"gan runner logs or checkpoints: {traceback.format_exc()}")
+    return parsed
+
+
+def run_gan_runner(failures: list, card: str) -> dict:
+    """``python -m sisr_tpu_torch hitsir_pro_gan``'s experiment (the full
+    flagship in float32, UNetDiscriminatorSN(64), a random VGG19, batch 2,
+    crop 64, two spawned loader workers; LPIPS from random weights the
+    phase writes) on the runner's folders under build/smoke/gan: 1 epoch,
+    the same command resumed to epoch 2 (from the discriminator's
+    checkpoint: both models, both optimizers' state, the lr), then test
+    mode.  Every train step launches what a GAN step does, every eval and
+    test image what its route does; the last eval's SRs within 1e-3 of the
+    plain model."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.__main__ import experiment_kwargs, main as port_main, parse_args
+    from sisr_tpu_torch.configs.model_config import get_scheduler
+    from sisr_tpu_torch.ops.kernels import build
+
+    root = Path(__file__).resolve().parent / "build" / "smoke" / "gan"
+    shutil.rmtree(root, ignore_errors=True)
+    runner_folders(root)
+    lpips_path = root / "lpips_vgg.pth"
+    lpips_file(lpips_path)
+    kw = experiment_kwargs(parse_args(
+        ["hitsir_pro_gan", "--epochs", "1", "--train-sets", "setA", "--eval-sets", "setB",
+         "--test-sets", "setB"]))
+    kw.update(progress=False, eval_band_area=RUNNER_BAND_AREA, run=False,
+              lpips_weights_path=str(lpips_path))
+    rec = dict(train=[], steps=[], eval=[], images=[], evals=[])
+    want_step = {k: PER_STEP.get(k, 0) for k in build.launches}
+    summary = dict(card=card)
+    cwd = os.getcwd()
+    os.chdir(root)
+    exps = []
+    try:
+        exp = port_main("hitsir_pro_gan", **kw)
+        exps.append(exp)
+        infer.synth_weights(exp.model, seed=0)
+        instrument(exp, rec)
+        for loader in exp.train_loaders:
+            loader._ensure_pool()
+        t0 = time.perf_counter()
+        exp.run()
+        summary["first_run_s"] = time.perf_counter() - t0
+        check_images(exp, rec["images"], failures, "gan eval epoch 1", False, card)
+
+        kw.update(epochs=2)
+        resumed = port_main("hitsir_pro_gan", **kw)
+        exps.append(resumed)
+
+        def same(a, b):
+            return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+        def same_opt(a, b):
+            sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+            return sa.keys() == sb.keys() and len(sa) > 0 and all(same(sa[i], sb[i]) for i in sa)
+
+        checks = dict(
+            epoch=resumed.start_epoch == 2,
+            generator=same(exp.model.state_dict(), resumed.model.state_dict()),
+            discriminator=same(exp.discriminator.state_dict(),
+                               resumed.discriminator.state_dict()),
+            g_optimizer=same_opt(exp.state.optimizer, resumed.state.optimizer),
+            d_optimizer=same_opt(exp.d_state.optimizer, resumed.d_state.optimizer),
+            lr=(resumed.state.optimizer.param_groups[0]["lr"]
+                == resumed.d_state.optimizer.param_groups[0]["lr"]
+                == get_scheduler(2e-5, 1e-7, 2)(1)))
+        log(f"  resume: {checks}")
+        if not all(checks.values()):
+            failures.append(f"gan runner resume: {checks}")
+        exp.close()
+        exps.remove(exp)
+        del exp
+        instrument(resumed, rec)
+        for loader in resumed.train_loaders:
+            loader._ensure_pool()
+        resumed.run()
+        check_images(resumed, rec["images"], failures, "gan eval epoch 2", True, card)
+        summary["logs"] = check_gan_files(root, resumed, failures)
+
+        kw.update(is_test=True)
+        tested = port_main("hitsir_pro_gan", **kw)
+        exps.append(tested)
+        instrument(tested, rec)
+        rec["images"], t0 = [], time.perf_counter()
+        tested.run()
+        summary["test_s"] = time.perf_counter() - t0
+        check_images(tested, rec["images"], failures, "gan test", False, card)
+        tlog = (Path(tested.result_path) / "setB" / "test_log.txt").read_text().split()
+        summary["test"] = [float(c.split(":")[1]) for c in tlog[:3]]
+        if not (all(math.isfinite(v) for v in summary["test"]) and summary["test"][2] != 1.0):
+            failures.append(f"gan runner test stage: {tlog}")
+    finally:
+        for e in exps:
+            e.close()
+        os.chdir(cwd)
+
+    bad = [s for s in rec["steps"] if s != want_step]
+    if bad or not rec["steps"]:
+        failures.append(f"gan runner: {len(bad)} of {len(rec['steps'])} train steps launch "
+                        f"otherwise than a GAN step's {PER_STEP}: {bad[:1]}")
+    summary["epochs"] = [dict(epoch=tr["epoch"], train_s=tr["s"], steps=tr["steps"],
+                              loader_wait_s=tr["loader_wait_s"], step_s=tr["step_s"],
+                              checkpoint_s=tr["save_s"], g_loss=tr["loss"], eval_s=ev["s"],
+                              eval_infer_s=ev["infer_s"], eval_metrics_s=ev["metrics_s"],
+                              eval_checkpoint_s=ev["save_s"])
+                         for tr, ev in zip(rec["train"], rec["eval"])]
+    for row in summary["epochs"]:
+        log(f"  GAN epoch {row['epoch']}: train {row['train_s']:.3f} s ({row['steps']} steps: "
+            f"{row['step_s']:.3f} s in steps, {row['loader_wait_s']:.3f} s waiting on the "
+            f"loader, generator checkpoint {row['checkpoint_s']:.3f} s), eval "
+            f"{row['eval_s']:.3f} s (inference {row['eval_infer_s']:.3f} s, metrics with "
+            f"LPIPS {row['eval_metrics_s']:.3f} s, best checkpoints "
+            f"{row['eval_checkpoint_s']:.3f} s), g_loss {row['g_loss']:.5f} [{card}]")
+    log(f"  GAN test stage: {summary['test_s']:.2f} s for {len(RUNNER_EVAL)} images, Y-PSNR "
+        f"{summary['test'][0]:.4f} dB, SSIM {summary['test'][1]:.5f}, LPIPS "
+        f"{summary['test'][2]:.5f} [{card}]")
+    return summary
+
+
+def run_gan(failures: list, card: str) -> dict:
+    """The GAN phase: the step's check against the plain path, its times,
+    then the runner.  Returns the launches of the timed steps and the
+    runner (the check's launches compare the kernels with the plain path
+    and are not counted)."""
+    from sisr_tpu_torch.ops.kernels import build
+
+    summary = dict(check=run_gan_check(failures, card))
+    build.reset_launches()
+    summary["step"] = run_gan_steps(failures, card)
+    summary["runner"] = run_gan_runner(failures, card)
+    counts = dict(build.launches)
+    summary["launches"] = counts
+    log(f"  launches over the GAN steps and the runner: {counts}")
+    log(json.dumps({"gan": summary}))
+    return counts
+
+
 # what each path must launch: serving the tiles, the whole-image path and
 # the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
                  "scc_block", "fusion_pools", "fused_fusion")
 WHOLE_KERNELS = tuple(k for k in SOURCES if k != "dwconv5x5")
 TRAIN_KERNELS = tuple(k for k, v in PER_STEP.items() if v)
+# the heads' forwards (the nearest+conv case runs the packed x4 head), and
+# the GAN steps and runner (the train steps, the eval routes)
+HEADS_KERNELS = SERVE_KERNELS + ("htb_tail_stats",)
+GAN_KERNELS = RUNNER_KERNELS
 PER = {"tile": "one 192x192 tile (sum over its shapes)",
        "frame": "one 1080p frame, LR 1088x1920 aligned (sum over its calls: 8 bands; "
                 "6 window-4 and 6 window-8 blocks with fused_htb)",
@@ -2060,7 +2647,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases",
-                   default="build,kernels,split,serve,whole,train,runner,profile,check")
+                   default="build,kernels,split,serve,whole,train,runner,heads,gan,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -2093,6 +2680,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
+    heads, ganned = None, None
 
     log("[build]")
     try:
@@ -2171,6 +2759,22 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"runner: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "heads" in phases and not failures:
+        log("[heads] the flagship's widths with the pixel-shuffle heads, the one-step head "
+            "and the plain conv_first, a 192x192 tile")
+        try:
+            heads = run_heads(failures, card)
+        except Exception:
+            failures.append(f"heads: {traceback.format_exc()}")
+            log(traceback.format_exc())
+    if "gan" in phases and not failures:
+        log("[gan] make_gan_train_step over the flagship, UNetDiscriminatorSN(64) and a "
+            "random VGG19, float32; python -m sisr_tpu_torch hitsir_pro_gan's experiment")
+        try:
+            ganned = run_gan(failures, card)
+        except Exception:
+            failures.append(f"gan: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "profile" in phases and served is not None:
         for dt in ("bfloat16", "float32"):
             log(f"[profile] one {dt} 192x192 tile")
@@ -2199,9 +2803,10 @@ def main(argv=None) -> int:
 
     # each path's counts, set to 0 just before it and read just after
     paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
-             "runner": ran}
+             "runner": ran, "heads": heads, "gan": ganned}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
-                        ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS)):
+                        ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS),
+                        ("heads", HEADS_KERNELS), ("gan", GAN_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
     kernels = []
@@ -2229,7 +2834,8 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if not {"build", "kernels", "serve", "whole", "train", "runner", "check"} <= phases:
+    if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "gan",
+            "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

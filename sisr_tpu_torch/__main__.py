@@ -4,6 +4,7 @@ plus ``--device``):
     python -m sisr_tpu_torch hitsir_pro --epochs 400 --batch-size 2
     python -m sisr_tpu_torch hitsir_pro --test --test-model best_psnr_ssim_lpips_model.pth
     python -m sisr_tpu_torch hitsir_pro --device cpu ...   # without a card
+    python -m sisr_tpu_torch hitsir_pro_gan --epochs 10    # the GAN fine-tune
 
 Runs on the card (``--device cuda``) unless asked for the CPU.
 """
@@ -19,8 +20,10 @@ def main(model_name: str, is_test: bool, **kwargs):
 
         return hitsir_pro_experiment(is_test, **kwargs)
     if model_name == "hitsir_pro_gan":
-        raise NotImplementedError("the GAN fine-tune is not ported yet (ROADMAP.md, "
-                                  "Queue 1: GAN and the other model families)")
+        from sisr_tpu_torch.experiments.hitsir_pro_gan_experiment import (
+            hitsir_pro_gan_experiment)
+
+        return hitsir_pro_gan_experiment(is_test, **kwargs)
     raise ValueError(f"unknown experiment {model_name!r}")
 
 

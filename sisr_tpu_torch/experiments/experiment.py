@@ -15,8 +15,12 @@ Lifecycle parity with reference experiments/experiment.py:25-878:
     rebuilt from start_epoch (:247-252), interrupted-eval repair
     (:826-833), rolling epoch=N snapshot folders every 5 epochs (:857-878)
   * eval/test metrics: Y-channel PSNR / SSIM (+ gaussian SSIM in test
-    mode); LPIPS is not ported and is logged as its neutral 1.0; NaN
-    metrics raise (:489-491)
+    mode), LPIPS when a weights file is given (else logged as its neutral
+    1.0); NaN metrics raise (:489-491)
+  * GAN mode (``gan_mode``, set by the GAN experiment): the discriminator's
+    checkpoint drives the resume epoch, the generator's optimizer state is
+    not loaded on the first GAN epoch, and the subclass writes the loss
+    and lr logs
 
 The train step is ``train_state.make_train_step`` (the kernels forward,
 their autograd Functions backward), fed by the host loader through
@@ -68,6 +72,10 @@ class Experiment:
     ``self.model`` (an ``nn.Module`` on ``self.device``) and then calls
     this class's ``init_model``."""
 
+    # GAN experiments own the resume epoch (driven by the discriminator
+    # checkpoint) and the loss/lr log writes (they append d_loss first)
+    gan_mode = False
+
     def __init__(
         self,
         train_data_config: DatasetConfig,
@@ -94,6 +102,8 @@ class Experiment:
         # (BandedHeadSR) at/above this input area (px); the head banding is
         # value-identical, it only bounds the head's activation memory
         eval_band_area: int = 640 * 640,
+        # LPIPSVgg's state dict, torch.save'd (models/vgg.py); None logs
+        # LPIPS as its neutral 1.0
         lpips_weights_path: Optional[str] = None,
         progress: bool = True,
         n_devices: Optional[int] = None,
@@ -103,10 +113,6 @@ class Experiment:
             raise NotImplementedError(
                 "data parallelism over several cards is not ported yet "
                 "(ROADMAP.md, Queue 1: Multi-GPU)")
-        if lpips_weights_path is not None:
-            raise NotImplementedError(
-                "LPIPS is not ported yet (ROADMAP.md, Queue 1: GAN and the other "
-                "model families); it is logged as 1.0")
         if eval_precision not in ("fast", "exact"):
             raise ValueError(f"eval_precision must be 'fast' or 'exact', got {eval_precision!r}")
         if eval_mode not in ("whole", "tiled"):
@@ -124,6 +130,8 @@ class Experiment:
         self.is_test = is_test
         self.eval_mode = eval_mode
         self.progress = progress
+
+        self.lpips = self._init_lpips(lpips_weights_path)
 
         self.train_loaders: List[DataLoader] = []
         self.eval_loaders: List[DataLoader] = []
@@ -177,6 +185,31 @@ class Experiment:
         self.init_tools()
 
     # ------------------------------------------------------------------ setup
+
+    def _init_lpips(self, weights_path: Optional[str]):
+        """LPIPS(vgg) as a function of two Y images, from ``LPIPSVgg``'s
+        state dict in the file ``weights_path``; None (LPIPS logged as its
+        neutral 1.0) without a file, as in the JAX runner."""
+        if not (weights_path and os.path.exists(weights_path)):
+            return None
+        from sisr_tpu_torch.models.vgg import LPIPSVgg
+
+        model = LPIPSVgg()
+        model.load_state_dict(torch.load(weights_path, map_location="cpu", weights_only=True),
+                              strict=True)
+        model = model.to(self.device).eval()
+
+        def compute(a_y: np.ndarray, b_y: np.ndarray) -> float:
+            # reference quirks (experiment.py:469): LPIPS is fed the (h, w)
+            # Y image, broadcast across RGB, with lpips.LPIPS's default
+            # normalize=False: the [0,1] image is taken as already in [-1,1]
+            a, b = (torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32))
+                    .to(self.device)[None, :, :, None].expand(1, *y.shape, 3)
+                    for y in (a_y, b_y))
+            with torch.inference_mode():
+                return float(model(a, b, normalize=False)[0])
+
+        return compute
 
     def init_data_loaders(self, is_shuffle: bool = True):
         mc = self.model_config
@@ -248,11 +281,17 @@ class Experiment:
         self.state = create_train_state(self.model, tx)
         self.train_step = make_train_step(self.model, self.loss_function, tx)
 
-    def load_model_weights_scheduler(self):
+    def load_model_weights_scheduler(self, is_gan_start: bool = False):
+        """Load ``new_epoch_model.pth`` (test mode: the test model): the
+        weights, and the optimizer's state unless ``is_gan_start`` (the
+        first GAN epoch starts a fresh optimizer on PSNR-trained weights).
+        In GAN mode the discriminator's checkpoint sets the epoch."""
         path = self.model_config.test_model_path if self.is_test else self.new_model_path
         if os.path.exists(path):
-            loaded = ckpt.load_any(path, self.model, self.state.optimizer)
-            self.start_epoch = loaded["start_epoch"] + 1
+            loaded = ckpt.load_any(path, self.model,
+                                   None if is_gan_start else self.state.optimizer)
+            if not self.gan_mode:
+                self.start_epoch = loaded["start_epoch"] + 1
             print(f"loaded weights from {path}, trained epochs: {self.start_epoch - 1}")
         self._sync_epoch_lr()
 
@@ -331,7 +370,7 @@ class Experiment:
             self.best_epoch_psnr_ssim_lpips_log = [float(x) for x in flat[:4]]
         if os.path.exists(p["lr"]):
             self.lr_log = [" ".join(r) for r in self._read_rows(p["lr"])]
-        if self.lr_log:
+        if not self.gan_mode and self.lr_log:
             self.lr_log[-1] = (f"epoch:{self.start_epoch},"
                                f"lr:{format_str(self.current_lr(), 25)}")
         if os.path.exists(p["seconds"]):
@@ -390,8 +429,9 @@ class Experiment:
         # next-epoch lr (cosine stepped per epoch)
         next_lr = self.lr_schedule(self.start_epoch)
         self.lr_log.append(f"epoch:{self.start_epoch + 1},lr:{format_str(next_lr, 25)}")
-        self._write_rows(self.loss_log_path, self.loss_log)
-        self._write_rows(self.lr_log_path, [[row] for row in self.lr_log])
+        if not self.gan_mode:
+            self._write_rows(self.loss_log_path, self.loss_log)
+            self._write_rows(self.lr_log_path, [[row] for row in self.lr_log])
         self._write_rows(self.train_eval_seconds_consume_log_path,
                          self.train_eval_seconds_consume_log)
 
@@ -429,18 +469,22 @@ class Experiment:
             sr = self._whole_eval(x)
         return sr.float().cpu().numpy()
 
-    @staticmethod
-    def _metrics_of(hr: np.ndarray, sr: np.ndarray, gaussian: bool):
+    def _metrics_of(self, hr: np.ndarray, sr: np.ndarray, gaussian: bool):
+        """(PSNR, SSIM, LPIPS or None) on the Y channel."""
         hr_y = convert_image(hr[0], source="[0,1]", target="y-channel")
         sr_y = convert_image(sr[0], source="[0,1]", target="y-channel")
-        return psnr_fn(hr_y, sr_y, 1.0), ssim_fn(hr_y, sr_y, 1.0, gaussian_weights=gaussian)
+        lp = self.lpips(hr_y, sr_y) if self.lpips else None
+        return (psnr_fn(hr_y, sr_y, 1.0), ssim_fn(hr_y, sr_y, 1.0, gaussian_weights=gaussian),
+                lp)
 
     def eval_batch(self, hr_img, sr_img):
-        p, s = self._metrics_of(hr_img, sr_img, gaussian=False)
-        if np.isnan(p) or np.isnan(s):
+        p, s, lp = self._metrics_of(hr_img, sr_img, gaussian=False)
+        if np.isnan(p) or np.isnan(s) or (lp is not None and np.isnan(lp)):
             raise ValueError("experiment metric is NaN")
         self.epoch_psnr.update(p, 1)
         self.epoch_ssim.update(s, 1)
+        if lp is not None:
+            self.epoch_lpips.update(lp, 1)
 
     def eval(self, start_epoch: Optional[int] = None):
         self.epoch_psnr.reset()
@@ -484,9 +528,12 @@ class Experiment:
             self.save_model_weights(self.best_lpips_model_path)
         # without LPIPS the metric is pinned at 1.0: it must not veto the
         # combined-best rule (reference semantics assume lpips present)
+        best_lpips = float(self.best_epoch_psnr_ssim_lpips_log[3])
+        lpips_improved = (self.epoch_lpips.avg < best_lpips if self.lpips
+                          else self.epoch_lpips.avg <= best_lpips)
         if (self.epoch_psnr.avg > float(self.best_epoch_psnr_ssim_lpips_log[1])
                 and self.epoch_ssim.avg > float(self.best_epoch_psnr_ssim_lpips_log[2])
-                and self.epoch_lpips.avg <= float(self.best_epoch_psnr_ssim_lpips_log[3])):
+                and lpips_improved):
             self.best_epoch_psnr_ssim_lpips_log = [
                 f"{start_epoch:05d}", self.epoch_psnr.avg,
                 self.epoch_ssim.avg, self.epoch_lpips.avg]
@@ -504,9 +551,11 @@ class Experiment:
     # ------------------------------------------------------------------- test
 
     def test_batch(self, hr_img, sr_img, filename, suffix, dataloader_name):
-        p, s = self._metrics_of(hr_img, sr_img, gaussian=True)
+        p, s, lp = self._metrics_of(hr_img, sr_img, gaussian=True)
         self.test_set_psnr.update(p, 1)
         self.test_set_ssim.update(s, 1)
+        if lp is not None:
+            self.test_set_lpips.update(lp, 1)
 
         result_path = os.path.join(self.result_path, dataloader_name)
         os.makedirs(result_path, exist_ok=True)

@@ -20,7 +20,7 @@ from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
 class HITSIRPROExperiment(Experiment):
     def init_model(self):
         mc = self.model_config
-        # torch's default initialization, drawn from seed 0 without
+        # the reference's initialization, drawn from seed 0 without
         # disturbing the caller's generator (the JAX runner inits from
         # PRNGKey(0)); a checkpoint, when there is one, replaces it
         with torch.random.fork_rng(devices=[]):
@@ -43,7 +43,21 @@ class HITSIRPROExperiment(Experiment):
         super().init_model()
 
 
-def hitsir_pro_experiment(
+# the reference's default train sets of the PSNR experiment
+PSNR_TRAIN_SETS = ["blend", "RealSR(V3)", "DIV2K_train_HR", "wuthering_wave", "Flickr2K_HR"]
+
+
+def hitsir_pro_experiment(is_test: bool, **kwargs):
+    """Build (and with ``run``, run) the PSNR experiment; the arguments
+    are ``make_experiment``'s."""
+    return make_experiment(HITSIRPROExperiment, "hitsir_pro", PSNR_TRAIN_SETS, is_test,
+                           **kwargs)
+
+
+def make_experiment(
+    experiment_cls,
+    name: str,
+    default_train_sets,
     is_test: bool,
     loss: str,
     is_mult_size_conv_feat_extract: bool,
@@ -69,8 +83,11 @@ def hitsir_pro_experiment(
     run: bool = True,
     **extra,
 ):
-    """Build (and with ``run``, run) the experiment; ``extra`` goes to
-    ``Experiment`` (``device``, the ``eval_*`` options, ``progress``)."""
+    """Build (and with ``run``, run) ``experiment_cls`` with the
+    reference's configs: the run folders named ``name`` and the flags, the
+    train sets ``default_train_sets`` unless given; ``extra`` goes to the
+    experiment (``device``, the ``eval_*`` options, ``progress``, and the
+    GAN experiment's ``perceptual_weights_path``)."""
     train_data_config = DatasetConfig(
         split="train", crop_size=64, scaling_factor=4,
         lr_img_type="[0,1]", hr_img_type="[0,1]",
@@ -80,7 +97,7 @@ def hitsir_pro_experiment(
     test_data_config = copy.deepcopy(train_data_config)
     test_data_config.split = "eval|test"
 
-    folder_name = (f"hitsir_pro_loss({loss})_mulsizeconvextract"
+    folder_name = (f"{name}_loss({loss})_mulsizeconvextract"
                    f"({is_mult_size_conv_feat_extract})_casa({is_channel_spatial_attn})"
                    f"{'_fusion' if is_fusion else ''}_embed_dim({embed_dim})"
                    f"_len(depths)({len(depths)})")
@@ -100,8 +117,7 @@ def hitsir_pro_experiment(
         result_folder=f"results/{folder_name}",
         log_folder=f"logs/{folder_name}",
         train_data_folder=f"{data_root}/train",
-        train_data_name_list=train_data_name_list or [
-            "blend", "RealSR(V3)", "DIV2K_train_HR", "wuthering_wave", "Flickr2K_HR"],
+        train_data_name_list=train_data_name_list or list(default_train_sets),
         eval_data_folder=f"{data_root}/eval",
         eval_data_name_list=eval_data_name_list or ["DIV2K_valid_HR30"],
         test_data_folder=f"{data_root}/test",
@@ -121,7 +137,7 @@ def hitsir_pro_experiment(
         loader_worker_type=loader_worker_type,
     )
 
-    experiment = HITSIRPROExperiment(
+    experiment = experiment_cls(
         train_data_config=train_data_config,
         eval_data_config=eval_data_config,
         test_data_config=test_data_config,

@@ -3,12 +3,14 @@
 
     input (B,H,W,3) in [0,1]
       -> mean-subtract
-      -> MultipleSizeConvExtract (packed 9x9 im2col matmul)
+      -> MultipleSizeConvExtract (packed 9x9 im2col matmul), or one 3x3 conv
       -> patch LayerNorm -> len(depths) x RHTB -> LayerNorm -> conv_after_body
       -> Fusion gate with shallow (three UnionAttentions; or + shallow
          without the gate)
-      -> conv_before_upsample -> packed nearest+conv x4 head -> mean
-         add-back, crop
+      -> the head: conv_before_upsample -> packed nearest+conv x4 (the
+         flagship's); or the pixel-shuffle heads (x2, x4, or one-step
+         direct); or the denoise head (input + conv_last)
+      -> mean add-back, crop
 
 ``stage`` splits the forward for whole-image evaluation as in JAX:
 'features' stops after conv_before_upsample, 'head' runs the x4 head and
@@ -31,6 +33,7 @@ configuration the experiments build leaves its rates at 0).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -48,8 +51,10 @@ from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
 from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
                                                       pooling_matrix)
 from sisr_tpu_torch.ops.kernels.scc_block import scc_block
+from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from sisr_tpu_torch.ops.windows import pad_to_multiple
 from sisr_tpu_torch.utils.constants import device_constant
+from sisr_tpu_torch.utils.precision import exact_mode
 
 
 def _linear(x, mod: nn.Linear, dt):
@@ -119,6 +124,18 @@ def _hwio(conv: nn.Conv2d, dt):
 def _conv_weights(conv: nn.Conv2d, dt, device):
     """(HWIO kernel, bias) of a 3x3 conv in dt, cached."""
     return _derived(conv, "conv", dt, device, lambda: (_hwio(conv, dt), conv.bias.to(dt)))
+
+
+def _plain_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A same-padded conv of an NHWC map in x's dtype, ``F.conv2d``: the
+    convs that the JAX package also computes outside its kernels (its
+    ``_conv``).  A float32 forward runs with TF32 off, in full float32 as
+    the kernels around it do (its backward follows PyTorch's flags)."""
+    dt = x.dtype
+    with exact_mode() if dt == torch.float32 else nullcontext():
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), conv.bias.to(dt),
+                     padding=conv.padding)
+    return y.permute(0, 2, 3, 1)
 
 
 class MultipleSizeConvExtract(nn.Module):
@@ -575,12 +592,22 @@ class PatchEmbed(nn.Module):
 class HiTSIR(nn.Module):
     """HiT-SIR-Pro network (reference :1065-1344).  NHWC input in [0,1].
 
-    The port serves the nearest+conv x4 head and MSCE shallow extraction,
-    with or without the Fusion gate; other settings raise
-    ``NotImplementedError``.  ``head_packed`` makes ``stage='head'`` return
-    the packed (B, H, W/16, 16*in_chans) layout (JAX's attribute, set by
-    ``BandedHeadSR``); ``fused_htb`` runs the degenerate-window blocks as
-    one ``htb_fused`` call each.  Neither adds parameters."""
+    Shallow extraction: MSCE, or one 3x3 conv (``conv_first``) with
+    ``is_mult_size_conv_feat_extract=False``.  Heads (``upsampler``):
+    'nearest+conv' (x4 only, the packed head), 'pixelshuffle' (x2, x4:
+    ``conv_before_upsample``, then ``upsample.{0,2,..}`` conv + shuffle,
+    ``conv_last``), 'pixelshuffledirect' (``upsample.0`` conv + one
+    shuffle), anything else the denoise head (input + ``conv_last``).
+    ``conv_after_body`` and ``conv_before_upsample`` run on the conv3x3
+    kernel on every head, the Fusion gate on its kernels; the shallow
+    conv and the pixel-shuffle heads' convs are plain ``F.conv2d``, as
+    JAX computes them outside its kernels.  The parameters are initialised
+    as the reference's (every Linear trunc-normal 0.02, bias 0), so that
+    under one seed the state dict is the reference's.  ``head_packed``
+    makes ``stage='head'`` return the packed (B, H, W/16, 16*in_chans)
+    layout (JAX's attribute, set by ``BandedHeadSR``); ``fused_htb`` runs
+    the degenerate-window blocks as one ``htb_fused`` call each.  Neither
+    adds parameters."""
 
     def __init__(self, is_mult_size_conv_feat_extract: bool = True,
                  is_channel_spatial_attn: bool = True, is_fusion: bool = True,
@@ -594,22 +621,21 @@ class HiTSIR(nn.Module):
                  num_feat: int = 64, dtype: torch.dtype = torch.float32,
                  head_packed: bool = False, fused_htb: bool = False):
         super().__init__()
-        if upsampler != "nearest+conv" or upscale != 4:
-            raise NotImplementedError(
-                f"only the nearest+conv x4 head is ported (got {upsampler!r} "
-                f"x{upscale}; ROADMAP.md, Queue 1: the other shallow conv and heads)")
-        if not is_mult_size_conv_feat_extract:
-            raise NotImplementedError("only the MSCE shallow extractor is ported (ROADMAP.md, "
-                                      "Queue 1: the other shallow conv and heads)")
+        if upsampler == "nearest+conv" and upscale != 4:
+            raise ValueError(f"the nearest+conv head is x4 only (got x{upscale})")
+        if upsampler == "pixelshuffle" and upscale not in (2, 4):
+            raise ValueError(f"the pixelshuffle head is x2 or x4 (got x{upscale})")
         c = embed_dim
         self.in_chans = in_chans
         self.img_range = img_range
         self.upscale = upscale
+        self.upsampler = upsampler
         self.dtype = dtype
         self.head_packed = head_packed
         wins = tuple((int(base_win_size[0] * r), int(base_win_size[1] * r))
                      for r in hier_win_ratios)
-        self.conv_first = MultipleSizeConvExtract(in_chans, c)
+        self.conv_first = (MultipleSizeConvExtract(in_chans, c) if is_mult_size_conv_feat_extract
+                           else nn.Conv2d(in_chans, c, 3, padding=1))
         # registered here for the reference's state-dict order
         self.fusion = Fusion(c) if is_fusion else None
         self.patch_embed = PatchEmbed(c)
@@ -619,12 +645,38 @@ class HiTSIR(nn.Module):
             for i, depth in enumerate(depths)])
         self.norm = nn.LayerNorm(c)
         self.conv_after_body = nn.Conv2d(c, c, 3, padding=1)
-        self.conv_before_upsample = nn.Sequential(
-            nn.Conv2d(c, num_feat, 3, padding=1), nn.LeakyReLU(inplace=True))
-        self.conv_up1 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
-        self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
-        self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, padding=1)
-        self.conv_last = nn.Conv2d(num_feat, in_chans, 3, padding=1)
+        # the reference's heads (:1235-1262), in its construction order
+        if upsampler in ("pixelshuffle", "nearest+conv"):
+            self.conv_before_upsample = nn.Sequential(
+                nn.Conv2d(c, num_feat, 3, padding=1), nn.LeakyReLU(inplace=True))
+        if upsampler == "pixelshuffle":
+            ups = []
+            for _ in range(int(np.log2(upscale))):
+                ups += [nn.Conv2d(num_feat, 4 * num_feat, 3, padding=1), nn.PixelShuffle(2)]
+            self.upsample = nn.Sequential(*ups)
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, padding=1)
+        elif upsampler == "pixelshuffledirect":
+            self.upsample = nn.Sequential(
+                nn.Conv2d(c, upscale ** 2 * in_chans, 3, padding=1), nn.PixelShuffle(upscale))
+        elif upsampler == "nearest+conv":
+            self.conv_up1 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+            self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+            self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, padding=1)
+        else:
+            self.conv_last = nn.Conv2d(c, in_chans, 3, padding=1)
+        self._init_linears()
+
+    def _init_linears(self):
+        """The reference's init pass (its ``_init_weights``, applied after
+        construction): every Linear weight trunc-normal with std 0.02,
+        drawn as ``normal_`` then ``clamp_`` to [-2, 2] in module order,
+        every Linear bias 0; LayerNorm and conv keep torch's defaults."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    m.weight.normal_(0.0, 0.02).clamp_(-2.0, 2.0)
+                    nn.init.zeros_(m.bias)
 
     def _x4_head(self, y: torch.Tensor, reference: bool, packed: bool = False) -> torch.Tensor:
         """The packed nearest+conv x4 tail (``hit_sir_pro.py`` _x4_head,
@@ -655,6 +707,8 @@ class HiTSIR(nn.Module):
         forward (see the module docstring)."""
         if stage not in ("full", "features", "head"):
             raise ValueError(f"unknown stage {stage!r}")
+        if stage != "full" and self.upsampler != "nearest+conv":
+            raise ValueError(f"stage {stage!r} needs the nearest+conv head")
         _, h, w, cin = x.shape
         dt = self.dtype
         x = x.to(dt)
@@ -667,7 +721,10 @@ class HiTSIR(nn.Module):
         mean = device_constant(_input_mean, (cin,), dt, x.device)
         x = (x - mean) * self.img_range
 
-        shallow = self.conv_first(x, dt)
+        if isinstance(self.conv_first, MultipleSizeConvExtract):
+            shallow = self.conv_first(x, dt)
+        else:
+            shallow = _plain_conv(x, self.conv_first)
         feat = _layer_norm_slabs(shallow, self.patch_embed.norm.weight,
                                  self.patch_embed.norm.bias)
         for layer in self.layers:
@@ -677,11 +734,21 @@ class HiTSIR(nn.Module):
                        "none", reference)
         y = (self.fusion(deep, shallow, reference) if self.fusion is not None
              else deep + shallow)
-        y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, x.device),
-                    "leaky", reference)
+        if self.upsampler in ("pixelshuffle", "nearest+conv"):
+            y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, x.device),
+                        "leaky", reference)
         if stage == "features":
             return y
-        y = self._x4_head(y, reference)
+        if self.upsampler == "nearest+conv":
+            y = self._x4_head(y, reference)
+        elif self.upsampler == "pixelshuffle":
+            for conv in self.upsample[::2]:
+                y = pixel_shuffle(_plain_conv(y, conv), 2)
+            y = _plain_conv(y, self.conv_last)
+        elif self.upsampler == "pixelshuffledirect":
+            y = pixel_shuffle(_plain_conv(y, self.upsample[0]), self.upscale)
+        else:
+            y = x + _plain_conv(y, self.conv_last)
         y = y / self.img_range + mean
         return y[:, :h * self.upscale, :w * self.upscale, :]
 

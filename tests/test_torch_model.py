@@ -95,12 +95,13 @@ def test_flagship_names_shapes_and_count():
 
 
 def test_unported_settings_raise():
+    """The reference's heads take no other scale (JAX asserts as much);
+    every shallow conv and head is ported (``test_torch_heads.py``)."""
     from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
 
     with torch.device("meta"):
-        for over in ({"upsampler": "pixelshuffle"}, {"upsampler": "pixelshuffledirect"},
-                     {"is_mult_size_conv_feat_extract": False}):
-            with pytest.raises(NotImplementedError):
+        for over in ({"upscale": 2}, {"upsampler": "pixelshuffle", "upscale": 3}):
+            with pytest.raises(ValueError):
                 HiTSIR(**flagship_config(**over))
     model = _port_model(CONFIGS["a"])
     with pytest.raises(ValueError):

@@ -1,8 +1,9 @@
 """The port's experiment runner, command line and inference helpers on the
 CPU: mirrors of ``tests/test_experiment_runner.py``'s cases (tiny model,
 tiny synthesized folders, one module-scoped run), the resume contract with
-the optimizer's state, the options that are not ported yet, and
-``python -m sisr_tpu_torch`` / ``python -m sisr_tpu_torch.infer``.
+the optimizer's state, LPIPS from a weights file, the other heads, the
+option that is not ported yet, and ``python -m sisr_tpu_torch`` (both
+experiments) / ``python -m sisr_tpu_torch.infer``.
 The run against the JAX runner on the same data is in
 ``test_torch_runner_parity.py``.
 """
@@ -297,14 +298,51 @@ def test_test_stage_outputs(ran_experiment):
 # what is not ported yet, and the device rule
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,item", [(dict(n_devices=2), "Multi-GPU"),
-                                     (dict(lpips_weights_path="lpips.msgpack"), "GAN"),
-                                     (dict(upsampler="pixelshuffle"), "other shallow conv"),
-                                     (dict(is_mult_size_conv_feat_extract=False),
-                                      "other shallow conv")])
+@pytest.mark.parametrize("kw,item", [(dict(n_devices=2), "Multi-GPU")])
 def test_not_ported_options_raise(workdir, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _experiment(workdir, is_test=False, epochs=1, run=False, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(upsampler="pixelshuffle"),
+                                dict(upsampler="pixelshuffledirect"),
+                                dict(is_mult_size_conv_feat_extract=False)])
+def test_other_heads_build(tmp_path, kw):
+    """The other heads and the plain shallow conv build the runner; only
+    the nearest+conv head evaluates through BandedHeadSR."""
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+
+    exp = _experiment(_make_data(tmp_path), is_test=False, epochs=1, run=False, **kw)
+    assert isinstance(exp.model, HiTSIR)
+    assert (exp._banded_eval is not None) == (exp.model.upsampler == "nearest+conv")
+    x = torch.from_numpy(np.random.default_rng(3).random((1, 8, 12, 3), dtype=np.float32))
+    assert exp._whole_eval(x).shape == (1, 32, 48, 3)
+
+
+def test_lpips_from_weights_file(workdir, tmp_path):
+    """``lpips_weights_path`` (LPIPSVgg's state dict) gives the metric:
+    LPIPSVgg on the Y images broadcast to RGB with normalize=False; the
+    eval and test logs carry it, not the 1.0 sentinel."""
+    from sisr_tpu_torch.models.vgg import LPIPSVgg
+
+    torch.manual_seed(4)
+    lp = LPIPSVgg()
+    with torch.no_grad():   # lpips's heads are non-negative
+        for i in range(5):
+            getattr(lp, f"lin{i}").model[1].weight.abs_()
+    path = tmp_path / "lpips_vgg.pth"
+    torch.save(lp.state_dict(), path)
+    exp = _experiment(workdir, is_test=False, epochs=1, run=False, lpips_weights_path=str(path))
+    rng = np.random.default_rng(5)
+    a, b = (rng.random((20, 24), dtype=np.float32) for _ in range(2))
+    with torch.inference_mode():
+        want = lp(*(torch.from_numpy(y)[None, :, :, None].repeat(1, 1, 1, 3) for y in (a, b)),
+                  normalize=False)
+    assert float(want[0]) > 0
+    assert exp.lpips(a, b) == pytest.approx(float(want[0]), rel=1e-5)
+    hr, sr = (rng.random((1, 20, 24, 3), dtype=np.float32) for _ in range(2))
+    exp.eval_batch(hr, sr)
+    assert exp.epoch_lpips.count == 1 and exp.epoch_lpips.avg != 1.0
 
 
 def test_cuda_without_card_raises(workdir, monkeypatch):
@@ -357,23 +395,50 @@ def test_cli_takes_every_main_py_flag(argv, monkeypatch):
     assert _port_kwargs(argv + ["--device", "cpu"], monkeypatch)["device"] == "cpu"
 
 
-def test_cli_gan_choice_raises():
+def test_cli_gan_needs_card(workdir, monkeypatch):
+    """``hitsir_pro_gan`` runs on the card by default: without one it
+    raises, and nothing carries on on the CPU."""
     from sisr_tpu_torch.__main__ import cli
 
-    with pytest.raises(NotImplementedError, match="GAN"):
-        cli(["hitsir_pro_gan", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(workdir)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli(["hitsir_pro_gan", "--epochs", "1"] + TINY_FLAGS)
 
 
-def test_cli_no_msce_raises(workdir):
+def test_cli_no_msce_needs_card(workdir, monkeypatch):
+    """``--no-msce`` as any other command: without a card it raises."""
     from sisr_tpu_torch.__main__ import cli
 
-    cwd = os.getcwd()
-    os.chdir(workdir)
-    try:
-        with pytest.raises(NotImplementedError, match="other shallow conv"):
-            cli(["hitsir_pro", "--no-msce", "--device", "cpu", "--epochs", "1"] + TINY_FLAGS)
-    finally:
-        os.chdir(cwd)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(workdir)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli(["hitsir_pro", "--no-msce", "--epochs", "1"] + TINY_FLAGS)
+
+
+@pytest.mark.parametrize("argv,folder", [
+    (["hitsir_pro_gan"], "hitsir_pro_gan_loss(l1)_mulsizeconvextract(True)_casa(True)"
+                         "_fusion_embed_dim(20)_len(depths)(1)_augment"),
+    (["hitsir_pro", "--no-msce", "--upsampler", "pixelshuffle"],
+     "hitsir_pro_loss(l1)_mulsizeconvextract(False)_casa(True)_fusion_embed_dim(20)"
+     "_len(depths)(1)_augment"),
+], ids=["gan", "no_msce_pixelshuffle"])
+def test_cli_gan_and_other_heads_run(argv, folder, tmp_path, monkeypatch):
+    """``python -m sisr_tpu_torch hitsir_pro_gan --device cpu`` and
+    ``hitsir_pro --no-msce --upsampler pixelshuffle``: one epoch (the GAN
+    logs its d_loss), then test mode."""
+    from sisr_tpu_torch.__main__ import cli
+
+    root = _make_data(tmp_path)
+    monkeypatch.chdir(root)
+    base = argv + ["--device", "cpu", "--epochs", "1", "--loader-workers", "0"] + TINY_FLAGS
+    cli(base)
+    cli(base + ["--test"])
+    loss = (root / "logs" / folder / "loss_log.txt").read_text().split()
+    assert loss[0] == "epoch:00001" and np.isfinite(float(loss[1].split(":")[1]))
+    assert (loss[2].startswith("d_loss:") if argv[0] == "hitsir_pro_gan" else len(loss) == 2)
+    assert (root / "results" / folder / "best_psnr_ssim_lpips_model" / "setB"
+            / "im0_sr.png").exists()
 
 
 def test_cli_trains_and_tests_in_a_subprocess(tmp_path):
