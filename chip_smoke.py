@@ -28,7 +28,10 @@ Phases:
            64x64: each conv, the x4 head, the Fusion gate, scc_block at
            each window, 64x64 or reflect-padded to 96x96, htb_tail,
            dwconv5x5 forward and dx through ``dwconv_vjp``), with its calls
-           a step, and dwconv5x5 at a tile's (1, 192, 192, 360).  In
+           a step, and dwconv5x5 at a tile's (1, 192, 192, 360); then the
+           Fusion gate at DenseSR's width (C = 64): its training step's
+           (2, 64, 64, 64), an eval image's (1, 96, 120, 64) and a 192x192
+           tile's.  In
            float32 (TF32 off)
            within 2e-4 x max(1, max|plain|), and in bfloat16, where the
            kernel must stay within twice the plain bfloat16 version's
@@ -45,7 +48,9 @@ Phases:
            activation); each case's line adds its TFLOP/s and share of its
            bound in both types.
            Then one dwconv5x5 dx through ``dwconv_vjp`` under
-           torch.profiler, which must launch one device kernel;
+           torch.profiler, which must launch one device kernel, and the
+           Fusion gate's gradients through ``KernelFunction`` at DenseSR's
+           step against the plain path's (1e-6, deterministic cuDNN);
   split    device time of each kernel launch of one fusion_pools and one
            fused_fusion call at a 192x192 tile (bfloat16 and float32) and
            at the frame (bfloat16), of one scc_block call at
@@ -119,6 +124,25 @@ Phases:
            step's and image's launches, the last eval's SRs within 1e-3 of
            the plain model, d_loss, discriminator_lr, a real LPIPS column
            and both checkpoints parsed back;
+  families DenseSR at its experiment's defaults (C = 64, the multi-size
+           extraction, SCA, the Fusion gate, num_blocks (4, 4); flax's init
+           from seed 0): its float32 training step against the plain path
+           (the L1 loss 1e-5, every gradient at the train check's bar, the
+           step's SR at the whole-model bars) with a control (one packed
+           tap of the gate 2^-8 relative off must fail them), a 192x192
+           tile in float32 and bfloat16 at the whole-model bars; UNetSR at
+           its defaults, the card's float32 forward against the CPU's
+           (1e-4); deform_conv2d, deform_attn and upfirdn2d against the CPU
+           (1e-5).  Then, counted: 2 warm + 5 timed training steps of each
+           family (and Dense's plain path) with every launch checked per
+           step (Dense: the gate's two once; UNet: none), and one step of
+           each split by CUDA events and one profiled (device busy);
+           ``main("dense" | "unet", ...)`` on folders synthesized under
+           build/smoke/families (1 epoch, test mode; every step's and
+           image's launches, the eval SR within 1e-3 of the plain model);
+           and one float32 step of the flagship with each of HiTSIR's
+           options (drop_path_rate=0.1, ape, 3conv, use_checkpoint), its
+           launches as the routing rule says;
   profile  one bfloat16 and one float32 tile, and a bfloat16 1080p frame
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
@@ -157,8 +181,8 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
-...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"gan": ...}`` and
-``{"kernels": [...]}`` lines and, as the
+...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"gan": ...}``,
+``{"families": ...}`` and ``{"kernels": [...]}`` lines and, as the
 last line when every phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result line, when there is no CUDA card or any
@@ -423,10 +447,11 @@ def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
                 library_prep=lambda ins: [_shuffled(ins[0])] + ins[1:])
 
 
-def fusion_cases(h, w, scope="tile", nb=1):
-    """The Fusion gate (a, b nb x h x w x 180): the pools alone, and the
-    whole gate (pools, maps, gate) with its packed weights made once, as
-    the model keeps them.  Operations, per UA k of three:
+def fusion_cases(h, w, scope="tile", nb=1, c=180, count=1):
+    """The Fusion gate (a, b nb x h x w x c: the flagship's 180, DenseSR's
+    64): the pools alone, and the whole gate (pools, maps, gate) with its
+    packed weights made once, as the model keeps them; ``count`` calls a
+    scope.  Operations, per UA k of three:
 
     - pools (float32): 19 per input element (a + b; sum and max over C, H
       and W of a, a + b, b);
@@ -442,8 +467,6 @@ def fusion_cases(h, w, scope="tile", nb=1):
       element; then 20 float32 operations per output element (six adds of
       the maps, three sigmoids at three, five for the gate)."""
     from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, fusion_pools, pack_params
-
-    c = 180
 
     def make_ab(dt):
         rn = _gen(21)
@@ -461,14 +484,14 @@ def fusion_cases(h, w, scope="tile", nb=1):
     pool_ops = 19.0 * nb * h * w * c
     fold_ops = nb * 2.0 * 27 * (h + w) * c * c
     conv_ops = nb * 2.0 * 18 * 3 * (h * w + (h + w) * c)
-    fused = Case("fused_fusion", f"a, b {_bx(nb)}{h}x{w}x{c}, pools + maps + gate", 1,
+    fused = Case("fused_fusion", f"a, b {_bx(nb)}{h}x{w}x{c}, pools + maps + gate", count,
                  make_fused,
                  lambda ins, reference: fused_fusion(ins[0], ins[1], ins[2], ins[3], reference),
                  lambda es: (es * (3 * nb * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
                              + 4 * (3 * 3 * 18 + 9 + 3 * c)),
                  2.0 * 9 * 3 * nb * h * w * c + fold_ops,
                  flops32=pool_ops + conv_ops + 20.0 * nb * h * w * c, scope=scope)
-    return [Case("fusion_pools", f"a, b {_bx(nb)}{h}x{w}x{c}", 1, make_ab,
+    return [Case("fusion_pools", f"a, b {_bx(nb)}{h}x{w}x{c}", count, make_ab,
                  lambda ins, reference: fusion_pools(*ins, reference=reference), pool_bytes,
                  0.0, flops32=pool_ops, scope=scope), fused]
 
@@ -735,6 +758,62 @@ def step_cases():
             + dwconv_cases([(b, n, n, 360, 36), (1, TILE, TILE, 360, 0)], scope="step"))
 
 
+# DenseSR at its experiment's defaults (dense_experiment.py: C = 64, the
+# multi-size extraction, SCA and the Fusion gate, num_blocks (4, 4)): the
+# gate once a forward, at the training step's batch and at the eval images
+DENSE_C = 64
+DENSE_EVAL_LR = (96, 120)
+
+
+def dense_cases():
+    """The Fusion gate at DenseSR's width: the training step's (2, 64, 64,
+    64) (one call a step), and an eval image's (1, 96, 120, 64) and a
+    bfloat16-served 192x192 tile's (1, 192, 192, 64) (calls 0: checked and
+    timed, outside the step's sums)."""
+    n, b = TRAIN_LR, TRAIN_BATCH
+    return (fusion_cases(n, n, scope="dense", nb=b, c=DENSE_C)
+            + fusion_cases(*DENSE_EVAL_LR, scope="dense", c=DENSE_C, count=0)
+            + fusion_cases(TILE, TILE, scope="dense", c=DENSE_C, count=0))
+
+
+def check_fusion_backward(failures: list) -> dict:
+    """The Fusion gate's gradients at DenseSR's training step (2, 64, 64,
+    64), float32 (TF32 off, cuDNN's deterministic algorithms): through
+    ``KernelFunction`` (the kernels forward, the plain version's vjp
+    backward) against the plain path's, for a, b and every raw parameter,
+    within 1e-6 relative norm (the backward recomputes the plain forward
+    from the same saved inputs)."""
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    n, b = TRAIN_LR, TRAIN_BATCH
+    (case,) = [c for c in fusion_cases(n, n, scope="dense", nb=b, c=DENSE_C)
+               if c.kernel == "fused_fusion"]
+    a, bb, raws, packed = case.make(torch.float32)
+    dy = _gen(23)(b, n, n, DENSE_C)
+    leaves = [a, bb] + [t for ua in raws for kb in ua for t in kb]
+    for t in leaves:
+        t.requires_grad_(True)
+    grads, launched = [], []
+    with exact_mode(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                  deterministic=True, allow_tf32=False):
+        for reference in (False, True):
+            before = build.launches["fused_fusion"]
+            out = case.call([a, bb, raws, packed], reference)
+            grads.append(torch.autograd.grad(out, leaves, dy))
+            launched.append(build.launches["fused_fusion"] - before)
+    rel = [float((g - r).norm() / r.norm().clamp_min(1e-30)) for g, r in zip(*grads)]
+    ok = max(rel) <= 1e-6 and launched == [1, 0] and all(
+        bool(torch.isfinite(g).all()) for g in grads[0])
+    log(f"  fused_fusion backward through KernelFunction, a, b {b}x{n}x{n}x{DENSE_C} float32: "
+        f"{len(rel)} gradients, worst relative norm error {max(rel):.2e} (bar 1e-6), launches "
+        f"{launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fused_fusion's backward at DenseSR's step against the plain path")
+    return dict(worst_rel=max(rel), gradients=len(rel))
+
+
 def run_kernels(failures: list) -> tuple:
     """Hold every kernel against its plain version; time both.  Returns
     (rows, extra): rows[(kernel, scope)] sums a kernel's cases over a tile,
@@ -749,7 +828,7 @@ def run_kernels(failures: list) -> tuple:
     per_step = {k: sum(c.count for c in steps if c.kernel == k) for k in PER_STEP}
     if per_step != PER_STEP:
         failures.append(f"the step's cases make {per_step} calls, a step launches {PER_STEP}")
-    for case in tile_cases() + frame_cases() + steps:
+    for case in tile_cases() + frame_cases() + steps + dense_cases():
         # a frame case runs for seconds: time it over one call after the warm-up
         few = dict(min_iters=1) if case.scope == "frame" else {}
         try:
@@ -1296,7 +1375,7 @@ def profile_step(model, opt, lr_img, hr_img) -> dict:
                  optimizer_ms=ev[2].elapsed_time(ev[3]))
     log(f"  one more step: forward {split['forward_ms']:.1f} ms, backward "
         f"{split['backward_ms']:.1f} ms, optimizer {split['optimizer_ms']:.1f} ms (CUDA events)")
-    log("[profile] one float32 training step")
+    log(f"[profile] one float32 training step of {type(model).__name__}")
     prof = profile_call(one, warm=False)
     split.update(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
                  idle_share=1 - prof["busy_ms"] / prof["wall_ms"], kernels_ms=prof["kernels_ms"])
@@ -1304,15 +1383,16 @@ def profile_step(model, opt, lr_img, hr_img) -> dict:
 
 
 def step_grads(model, lr_img, hr_img, reference: bool):
-    """The L1 loss of one training forward and every parameter's gradient
-    (None where the forward does not read it)."""
+    """The L1 loss of one training forward, every parameter's gradient
+    (None where the forward does not read it) and the forward's SR."""
     from sisr_tpu_torch.train.losses import l1_loss
 
     model.zero_grad(set_to_none=True)
-    loss = l1_loss(model(lr_img, reference=reference, deterministic=False), hr_img)
+    sr = model(lr_img, reference=reference, deterministic=False)
+    loss = l1_loss(sr, hr_img)
     loss.backward()
     return float(loss.detach()), {k: None if p.grad is None else p.grad.clone()
-                                  for k, p in model.named_parameters()}
+                                  for k, p in model.named_parameters()}, sr.detach()
 
 
 def _ulp_move(t, seed: int):
@@ -1324,16 +1404,18 @@ def _ulp_move(t, seed: int):
     return torch.nextafter(t, torch.where(up, torch.inf, -torch.inf))
 
 
-def probe_grads(plain_model, lr_img, hr_img) -> list:
+def probe_grads(plain_model, lr_img, hr_img, make=None) -> list:
     """The plain path's gradients after moves at float32's rounding level:
     the LR batch one ulp up or down at random (two seeds) and by 1e-6
     relative; every weight one ulp up or down at random (two seeds), a
-    move at every layer as the kernels' own rounding is."""
+    move at every layer as the kernels' own rounding is.  ``make`` builds
+    a model of ``plain_model``'s kind (default: the flagship's
+    ``train_model``)."""
     import torch
 
     grads = [step_grads(plain_model, x, hr_img, True)[1]
              for x in (_ulp_move(lr_img, 11), _ulp_move(lr_img, 12), lr_img * (1 + 1e-6))]
-    moved = train_model()
+    moved = (make or train_model)()
     for seed in (13, 14):
         with torch.no_grad():
             for i, (p, q) in enumerate(zip(moved.parameters(), plain_model.parameters())):
@@ -1397,7 +1479,7 @@ def _over_bars(grads: dict, ref: dict, bars: dict) -> tuple:
 
 
 def gradient_agreement(kernel_model, plain_model, lr_img, hr_img,
-                       faults=("unflipped", "half-ulp")) -> dict:
+                       faults=("unflipped", "half-ulp"), make=None) -> dict:
     """The kernel path's gradients against the plain path's, float32 with
     TF32 off, from the same weights and batch.  A parameter's bar is a
     relative norm error of max(1e-3, NOISE_MULT x its noise), where its
@@ -1407,19 +1489,23 @@ def gradient_agreement(kernel_model, plain_model, lr_img, hr_img,
     MLPs of some blocks) move by up to several 1e-2 when the input moves
     by one ulp, so no float32 implementation holds them to 1e-3; the
     kernels' rounding moves them by as much.  Then the same kernel-path
-    step under each planted fault, which the bars must reject.  Returns
-    the losses, per-parameter rows, the failures and, per fault, its
-    rows and failures."""
+    step under each planted fault, which the bars must reject: a kind of
+    ``planted_fault``, or in a dict of label to a context manager's
+    factory.  ``make`` as ``probe_grads``'.  Returns the losses and SRs,
+    per-parameter rows, the failures and, per fault, its rows, failures,
+    loss error and SR."""
     from sisr_tpu_torch.utils.precision import exact_mode
 
     rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    if not isinstance(faults, dict):
+        faults = {kind: (lambda kind=kind: planted_fault(kind)) for kind in faults}
     with exact_mode():
-        loss_k, got = step_grads(kernel_model, lr_img, hr_img, False)
-        loss_p, ref = step_grads(plain_model, lr_img, hr_img, True)
-        moved = probe_grads(plain_model, lr_img, hr_img)
+        loss_k, got, sr_k = step_grads(kernel_model, lr_img, hr_img, False)
+        loss_p, ref, sr_p = step_grads(plain_model, lr_img, hr_img, True)
+        moved = probe_grads(plain_model, lr_img, hr_img, make)
         planted = {}
-        for kind in faults:
-            with planted_fault(kind):
+        for kind, fault in faults.items():
+            with fault():
                 planted[kind] = step_grads(kernel_model, lr_img, hr_img, False)
     bars = {}
     for k, r in ref.items():
@@ -1428,11 +1514,11 @@ def gradient_agreement(kernel_model, plain_model, lr_img, hr_img,
             bars[k] = (noise, max(1e-3, NOISE_MULT * noise))
     rows, bad = _over_bars(got, ref, bars)
     controls = {kind: dict(zip(("rows", "bad"), _over_bars(g, ref, bars)),
-                           loss_err=abs(loss - loss_p) / abs(loss_p))
-                for kind, (loss, g) in planted.items()}
+                           loss_err=abs(loss - loss_p) / abs(loss_p), sr=sr)
+                for kind, (loss, g, sr) in planted.items()}
     return dict(loss_kernels=loss_k, loss_plain=loss_p,
                 loss_err=abs(loss_k - loss_p) / abs(loss_p), rows=rows, bad=bad,
-                controls=controls)
+                controls=controls, sr_kernels=sr_k, sr_plain=sr_p)
 
 
 def run_train_check(failures: list) -> None:
@@ -1501,15 +1587,15 @@ RUNNER_EPOCHS = 2                         # then a resume to epoch 3, then test 
 RUNNER_KERNELS = tuple(k for k in SOURCES if k != "htb_fused")
 
 
-def runner_folders(root) -> None:
-    """PNG folders data/{train/setA, eval/setB, test/setB} under ``root``,
+def runner_folders(root, train=RUNNER_TRAIN, evals=RUNNER_EVAL) -> None:
+    """PNG folders data/{train/setA, eval/setB, test/setB} under ``root``
+    with HR images of the sizes ``train`` and ``evals`` (eval and test),
     smooth seeded images (a coarse random grid, bicubic-upsampled)."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(0)
-    for split, sizes in (("train", RUNNER_TRAIN), ("eval", RUNNER_EVAL),
-                         ("test", RUNNER_EVAL)):
+    for split, sizes in (("train", train), ("eval", evals), ("test", evals)):
         d = root / "data" / split / ("setA" if split == "train" else "setB")
         d.mkdir(parents=True)
         for i, (h, w) in enumerate(sizes):
@@ -2380,6 +2466,429 @@ def run_gan(failures: list, card: str) -> dict:
     return counts
 
 
+# --- the UNet and Dense families, HiTSIR's options, the library ops ----------
+
+# the families at their experiments' defaults (dense_experiment.py,
+# unet_experiment.py); a Dense forward runs the Fusion gate once, a UNet
+# forward no kernel (JAX computes its convs, norms and attention outside
+# Pallas)
+DENSE_DEFAULTS = dict(is_sa_attn=True, is_fusion=True, is_mult_size_conv_feat_extract=True,
+                      num_blocks=(4, 4), skip_blocks=(0,), middle_channels=DENSE_C)
+PER_FORWARD = {"dense": {"fusion_pools": 1, "fused_fusion": 1}, "unet": {}}
+# the families' runner folders: 4 train images (2 steps an epoch) and one
+# eval and one test image of LR 96x120 (the UNet's attention holds an L x L
+# score matrix, as JAX's: 0.53 GB in float32 at 11,520 tokens)
+FAMILY_TRAIN = ((320, 320),) * 4
+FAMILY_EVAL = ((384, 480),)
+# HiTSIR's options, one float32 training step each on the flagship: the
+# launches a step makes against PER_STEP's.  drop_path's linspace leaves
+# the first of the 36 blocks at rate 0, so its tail keeps the kernel (and
+# its backward's two dwconv5x5 launches); the others' tails run plain.
+# 3conv turns the six RHTB convs plain; use_checkpoint runs each block's
+# scc_block and htb_tail again in the backward
+OPTIONS = (("drop_path_rate=0.1", dict(drop_path_rate=0.1),
+            dict(htb_tail=1, dwconv5x5=2)),
+           ("ape, img_size=64", dict(ape=True, img_size=TRAIN_LR), {}),
+           ("resi_connection='3conv'", dict(resi_connection="3conv"), dict(conv3x3=3)),
+           ("use_checkpoint", dict(use_checkpoint=True), dict(scc_block=72, htb_tail=72)))
+
+
+def family_model(family: str, dtype: str = "float32"):
+    """The family at its experiment's defaults on the card, flax's
+    initialization drawn from seed 0 as the experiment draws it."""
+    import torch
+    from sisr_tpu_torch.models.dense_sr import DenseSR
+    from sisr_tpu_torch.models.unet_sr import UNetSR
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = DenseSR(**DENSE_DEFAULTS) if family == "dense" else UNetSR()
+    model.dtype = getattr(torch, dtype)
+    return model.to("cuda")
+
+
+def family_want(family: str) -> dict:
+    from sisr_tpu_torch.ops.kernels import build
+
+    return {k: PER_FORWARD[family].get(k, 0) for k in build.launches}
+
+
+def fusion_fault():
+    """The Dense check's control: ``pack_params`` with one tap of the gate
+    UA's H-pool conv (packed ``c2w[1, 2]``) 2^-8 relative too large, for as
+    long as the context lasts.  The kernel reads it in the forward; the
+    backward (the plain version's vjp from the raw weights) does not."""
+    from sisr_tpu_torch.models import hit_sir_pro
+
+    sound = hit_sir_pro.pack_params
+
+    def faulty(raws, c, dt):
+        packed = list(sound(raws, c, dt))
+        packed[1] = packed[1].clone()
+        packed[1][1, 2] *= 1 + 2.0 ** -8
+        return tuple(packed)
+
+    return _swapped(hit_sir_pro, "pack_params", faulty)
+
+
+@contextlib.contextmanager
+def _swapped(owner, name: str, value):
+    sound = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, sound)
+
+
+def _whole_model_bars(out, ref) -> tuple:
+    """(max abs, rms, ok) of a float32 output against the plain model's:
+    ``test_model_parity.py``'s 1e-3 and 5e-5."""
+    err = (out.float() - ref.float()).abs()
+    mx, rms = float(err.max()), float(err.square().mean().sqrt())
+    return mx, rms, mx < 1e-3 and rms < 5e-5
+
+
+def run_dense_check(failures: list, card: str) -> dict:
+    """DenseSR's training step, kernel path against the plain path from the
+    same weights and batch (float32, TF32 off): the L1 loss within 1e-5
+    relative, every gradient within its bar (``gradient_agreement``), the
+    step's SR at the whole-model bars; as the control, the same step with
+    ``fusion_fault`` must fail them (the gradients see a forward fault of the
+    gate only through L1's signs: the loss and SR bars carry it).  Then a
+    192x192 tile in float32 (whole-model bars) and bfloat16 (min(44, plain
+    bfloat16 - 3) dB) against the float32 plain model, its launches checked."""
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    kernel, plain = family_model("dense"), family_model("dense")
+    res = gradient_agreement(kernel, plain, *train_batches(1, seed=3)[0],
+                             faults={"fusion-tap": fusion_fault},
+                             make=lambda: family_model("dense"))
+    mx, rms, sr_ok = _whole_model_bars(res["sr_kernels"], res["sr_plain"])
+    worst = max(res["rows"], key=lambda r: r["err"])
+    ok = res["loss_err"] <= 1e-5 and not res["bad"] and sr_ok
+    log(f"  Dense step: L1 loss {res['loss_kernels']:.7f} vs plain {res['loss_plain']:.7f} "
+        f"(rel {res['loss_err']:.2e}, bar 1e-5); {len(res['rows'])} gradients, worst "
+        f"{worst['err']:.2e} ({worst['name']}, bar {worst['bar']:.2e}), {len(res['bad'])} over "
+        f"their bar; SR max abs {mx:.2e}, rms {rms:.2e} {'ok' if ok else 'FAIL'} [{card}]")
+    c = res["controls"]["fusion-tap"]
+    cmx, crms, c_sr_ok = _whole_model_bars(c["sr"], res["sr_plain"])
+    rejected = bool(c["bad"]) or c["loss_err"] > 1e-5 or not c_sr_ok
+    log(f"  control, Fusion gate packed c2w[1, 2] x (1 + 2^-8): loss rel {c['loss_err']:.2e}, "
+        f"{len(c['bad'])} gradients over their bar, SR max abs {cmx:.2e}, rms {crms:.2e} "
+        f"{'rejected' if rejected else 'FAIL: the check passes it'}")
+    if not (ok and rejected):
+        failures.append("Dense training step against the plain path, or its control")
+    summary = dict(loss_err=res["loss_err"], worst_grad=worst, grads_over=len(res["bad"]),
+                   sr_max_abs=mx, sr_rms=rms,
+                   control=dict(loss_err=c["loss_err"], grads_over=len(c["bad"]),
+                                sr_max_abs=cmx, sr_rms=crms, rejected=rejected))
+    del kernel, plain
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tile = torch.rand((1, TILE, TILE, 3), generator=g, device="cuda")
+    models = {dt: family_model("dense", dt).eval() for dt in ("float32", "bfloat16")}
+    want = family_want("dense")
+    with torch.inference_mode():
+        outs = {}
+        for dt, model in models.items():
+            before = dict(build.launches)
+            outs[dt] = model(tile).float()
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want or not bool(torch.isfinite(outs[dt]).all()):
+                failures.append(f"Dense {dt} tile: launches {got} or not finite")
+        with exact_mode():
+            ref = models["float32"](tile, reference=True)
+            p16 = models["bfloat16"](tile, reference=True).float()
+    mx, rms, ok32 = _whole_model_bars(outs["float32"], ref)
+    db16, db_plain = _psnr_db(outs["bfloat16"], ref), _psnr_db(p16, ref)
+    bar16 = min(44.0, db_plain - 3.0)
+    ok = ok32 and db16 >= bar16
+    log(f"  Dense {TILE}x{TILE} tile: f32 vs plain max abs {mx:.3e} (bar 1e-3), rms {rms:.3e} "
+        f"(bar 5e-5); bf16 {db16:.2f} dB (bar {bar16:.2f}; plain bf16 {db_plain:.2f}) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        failures.append("Dense tile against the plain model")
+    summary["tile"] = dict(max_abs=mx, rms=rms, db_bf16=db16, db_plain_bf16=db_plain)
+    return summary
+
+
+def run_unet_check(failures: list, card: str) -> dict:
+    """UNetSR at its defaults: the card's float32 forward of the training
+    batch (2, 64, 64, 3) against the CPU's, TF32 off, within 1e-4 max abs;
+    no kernel launched."""
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    model = family_model("unet").eval()
+    lr_img = train_batches(1, seed=6)[0][0]
+    before = dict(build.launches)
+    with torch.inference_mode(), exact_mode():
+        got = model(lr_img).cpu()
+        want = model.to("cpu")(lr_img.cpu())
+    err = float((got - want).abs().max())
+    ok = err <= 1e-4 and dict(build.launches) == before and bool(torch.isfinite(got).all())
+    log(f"  UNet float32 forward, LR {TRAIN_BATCH}x{TRAIN_LR}x{TRAIN_LR}: card vs CPU max abs "
+        f"{err:.2e} (bar 1e-4), no launch {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        failures.append("UNet forward on the card against the CPU")
+    return dict(max_abs_vs_cpu=err)
+
+
+def run_library_ops(failures: list, card: str) -> dict:
+    """deform_conv2d (v1, v2), deform_attn and upfirdn2d on the card
+    against the CPU, float32 (TF32 off), at ``test_deform.py``'s and
+    ``test_aux_ops.py``'s shapes, within 1e-5."""
+    import torch
+    from sisr_tpu_torch.ops.deform import deform_attn, deform_conv2d
+    from sisr_tpu_torch.ops.stylegan_ops import upfirdn2d
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    g = torch.Generator().manual_seed(7)
+    rn = lambda *s: torch.randn(*s, generator=g)
+    x, w, b = rn(2, 7, 6, 4), rn(3, 3, 4, 5) * 0.3, rn(5)
+    off, mask = rn(2, 7, 6, 18) * 1.5, torch.rand(2, 7, 6, 9, generator=g)
+    q, kv, aoff = rn(1, 5, 6, 8), rn(1, 2, 5, 6, 16), rn(1, 2, 5, 6, 36) * 1.5
+    img, fir = rn(2, 7, 9, 3), rn(4, 4)
+    cases = {"deform_conv2d v2": lambda d: deform_conv2d(x.to(d), off.to(d), w.to(d), b.to(d),
+                                                         mask.to(d)),
+             "deform_conv2d v1": lambda d: deform_conv2d(x.to(d), off.to(d), w.to(d), b.to(d)),
+             "deform_attn": lambda d: deform_attn(q.to(d), kv.to(d), aoff.to(d),
+                                                  attention_heads=2, deformable_groups=2),
+             "upfirdn2d": lambda d: upfirdn2d(img.to(d), fir.to(d), up=2, down=1, pad=(2, 1))}
+    errs = {}
+    with exact_mode():
+        for name, fn in cases.items():
+            errs[name] = float((fn("cuda").cpu() - fn("cpu")).abs().max())
+    ok = all(e <= 1e-5 for e in errs.values())
+    log(f"  library ops, card vs CPU max abs: "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (bar 1e-5) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        failures.append(f"library ops on the card against the CPU: {errs}")
+    return errs
+
+
+def run_family_steps(failures: list, card: str) -> dict:
+    """Each family at its defaults through ``make_train_step`` (L1, Adam 2e-5,
+    betas (0.9, 0.99)), float32, batch 2, LR 64 -> HR 256: 2 warm + 5 timed
+    steps (median and min ms, LR MP/s, peak memory after collecting the
+    earlier phases' garbage, with what stays allocated before the steps),
+    every launch counter checked per step (Dense: fusion_pools and
+    fused_fusion once; UNet: none), then one step split by CUDA events and
+    one profiled
+    (``profile_step``: device busy, idle share); Dense's plain path too, as
+    a yardstick."""
+    import gc
+    import statistics
+
+    import torch
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_train_step
+
+    summary = {}
+    mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
+    for family, reference in (("dense", False), ("dense", True), ("unet", False)):
+        label = f"{family}{' plain' if reference else ''}"
+        model = family_model(family)
+        opt = adam(model)
+        step = make_train_step(model, l1_loss, opt, reference=reference)
+        batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
+        for lr_img, hr_img in batches[:TRAIN_WARM]:
+            step(lr_img, hr_img)
+        torch.cuda.synchronize()
+        # the peak counts every live tensor: collect the earlier phases' garbage
+        # first, and record what stays allocated besides this family's steps
+        gc.collect()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        want = {k: 0 for k in build.launches} if reference else family_want(family)
+        ms, losses = [], []
+        for lr_img, hr_img in batches[TRAIN_WARM:]:
+            before = dict(build.launches)
+            t0 = time.perf_counter()
+            loss = step(lr_img, hr_img)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want or not math.isfinite(losses[-1]):
+                failures.append(f"{label} step: loss {losses[-1]}, launches {got}, want {want}")
+        med = statistics.median(ms)
+        summary[label] = dict(params=sum(p.numel() for p in model.parameters()), median_ms=med,
+                              min_ms=min(ms), runs_ms=ms, lr_mp_per_s=mp / (med / 1e3),
+                              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              allocated_before_gib=base, losses=losses)
+        log(f"  {label:11s} {summary[label]['params']:,} params, {TRAIN_STEPS} steps (batch "
+            f"{TRAIN_BATCH}, LR {TRAIN_LR} -> HR {4 * TRAIN_LR}, float32): median {med:.1f} ms, "
+            f"min {min(ms):.1f} ms, {summary[label]['lr_mp_per_s']:.4f} LR MP/s, peak "
+            f"{summary[label]['peak_gib']:.2f} GiB ({base:.2f} allocated before the steps), "
+            f"L1 {', '.join(f'{v:.5f}' for v in losses)} [{card}]")
+        if not reference:
+            split = summary[label]["split"] = profile_step(model, opt, *batches[-1])
+            split["idle_share_of_median"] = 1 - split["busy_ms"] / med
+            log(f"  {label}: device busy {split['busy_ms']:.1f} ms against the {med:.1f} ms "
+                f"median step: {100 * split['idle_share_of_median']:.1f}% idle")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return summary
+
+
+def run_family_runners(failures: list, card: str) -> dict:
+    """``main("dense", ...)`` and ``main("unet", ...)`` of the port (the
+    families' experiments at their defaults: float32, batch 2, crop 64,
+    two spawned loader workers) on folders synthesized under
+    build/smoke/families: 1 epoch, then test mode.  Every step and every
+    eval and test image launches what a forward of the family does; the
+    eval SR (whole image, LR 96x120) within 1e-3 of the plain model; the
+    logs and checkpoints parsed back."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.__main__ import main as port_main
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    root = Path(__file__).resolve().parent / "build" / "smoke" / "families"
+    shutil.rmtree(root, ignore_errors=True)
+    runner_folders(root, FAMILY_TRAIN, FAMILY_EVAL)
+    summary = {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    exps = []
+    try:
+        for family in ("dense", "unet"):
+            kw = dict(epochs=1, train_data_name_list=["setA"], eval_data_name_list=["setB"],
+                      test_data_name_list=["setB"], progress=False, run=False)
+            rec = dict(train=[], steps=[], eval=[], images=[], evals=[])
+            exp = port_main(family, is_test=False, **kw)
+            exps.append(exp)
+            instrument(exp, rec)
+            t0 = time.perf_counter()
+            for loader in exp.train_loaders:
+                loader._ensure_pool()
+            loader_s = time.perf_counter() - t0
+            exp.run()
+            want = family_want(family)
+            bad = [s for s in rec["steps"] if s != want]
+            for im in rec["images"]:
+                x = torch.from_numpy(im["lr"]).to(exp.device)
+                with torch.inference_mode(), exact_mode():
+                    ref = exp.model(x, reference=True).clamp(0, 1).float().cpu().numpy()
+                im["err"] = float(np.abs(ref - im["sr"]).max())
+            ok = (not bad and rec["steps"] and all(im["launches"] == want and im["err"] <= 1e-3
+                                                  for im in rec["images"])
+                  and math.isfinite(exp.epoch_loss.avg))
+            logs = root / exp.model_config.log_folder
+            row = [r.split() for r in (logs / "psnr_ssim_lpips_log.txt").read_text().splitlines()]
+            ck = torch.load(root / exp.model_config.checkpoint_folder / "new_epoch_model.pth",
+                            map_location="cpu", weights_only=True)
+            ok = ok and set(ck["model"]) == set(exp.model.state_dict()) and len(row) == 1
+            exp.close()
+            exps.remove(exp)
+            tested = port_main(family, is_test=True, **kw)
+            exps.append(tested)
+            instrument(tested, rec)
+            rec["images"], t0 = [], time.perf_counter()
+            tested.run()
+            test_s = time.perf_counter() - t0
+            tlog = (Path(tested.result_path) / "setB" / "test_log.txt").read_text().split()
+            test = [float(c.split(":")[1]) for c in tlog[:2]]
+            ok = ok and all(im["launches"] == want for im in rec["images"]) and all(
+                math.isfinite(v) for v in test) and len(rec["images"]) == len(FAMILY_EVAL)
+            tr, ev = rec["train"][0], rec["eval"][0]
+            summary[family] = dict(loader_start_s=loader_s, train_s=tr["s"], steps=tr["steps"],
+                                   step_s=tr["step_s"], loader_wait_s=tr["loader_wait_s"],
+                                   train_checkpoint_s=tr["save_s"], loss=tr["loss"],
+                                   eval_s=ev["s"], eval_infer_s=ev["infer_s"],
+                                   eval_checkpoint_s=ev["save_s"],
+                                   eval_psnr_ssim=[float(v) for v in row[0][1:3]],
+                                   eval_sr_vs_plain=max(im.get("err", 0.0)
+                                                        for im in rec["evals"][0]),
+                                   test_s=test_s, test_psnr_ssim=test)
+            log(f"  main({family!r}): train {tr['s']:.3f} s ({tr['steps']} steps, {tr['step_s']:.3f}"
+                f" s in steps, {tr['loader_wait_s']:.3f} s waiting on the loader, checkpoint "
+                f"{tr['save_s']:.3f} s), eval {ev['s']:.3f} s (inference {ev['infer_s']:.3f} s, "
+                f"SR vs plain {summary[family]['eval_sr_vs_plain']:.2e}), test {test_s:.2f} s "
+                f"(Y-PSNR {test[0]:.4f} dB, SSIM {test[1]:.5f}); L1 {tr['loss']:.5f}; loader "
+                f"start {loader_s:.2f} s {'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                failures.append(f"main({family!r}): steps {bad[:1]}, images "
+                                f"{[(im['launches'], im.get('err')) for im in rec['evals'][0]]}")
+            tested.close()
+            exps.remove(tested)
+    finally:
+        for e in exps:
+            e.close()
+        os.chdir(cwd)
+    return summary
+
+
+def run_options(failures: list, card: str) -> dict:
+    """HiTSIR's options on the flagship (default init, seed 0), one float32
+    training step each through ``make_train_step``: finite, and launching
+    PER_STEP with ``OPTIONS``' changes (the routing rule: in training,
+    drop-path runs a tail plain, 3conv its convs plain)."""
+    import torch
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.train.losses import l1_loss
+    from sisr_tpu_torch.train.train_state import make_train_step
+
+    lr_img, hr_img = train_batches(1, seed=8)[0]
+    summary = {}
+    for label, over, change in OPTIONS:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = HiTSIR(**flagship_config(), **over)
+        model = model.to("cuda")
+        step = make_train_step(model, l1_loss, adam(model))
+        before = dict(build.launches)
+        t0 = time.perf_counter()
+        loss = float(step(lr_img, hr_img))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        got = {k: build.launches[k] - before[k] for k in build.launches}
+        want = {k: change.get(k, PER_STEP.get(k, 0)) for k in build.launches}
+        ok = got == want and math.isfinite(loss)
+        summary[label] = dict(loss=loss, first_step_s=s, launches={k: v for k, v in got.items()
+                                                                    if v})
+        log(f"  flagship, {label}: L1 {loss:.5f}, first step {s:.2f} s, launches "
+            f"{'as the routing rule says' if ok else f'{got}, want {want}'} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"flagship {label}: loss {loss}, launches {got}, want {want}")
+        del model, step
+        torch.cuda.empty_cache()
+    return summary
+
+
+def run_families(failures: list, card: str) -> dict:
+    """The families phase: the checks (Dense's step and tiles, the UNet on
+    the card against the CPU, the library ops), then the main path with
+    the counts at 0: the families' timed steps, their runners, HiTSIR's
+    options.  Returns the main path's launches."""
+    from sisr_tpu_torch.ops.kernels import build
+
+    summary = dict(dense_check=run_dense_check(failures, card),
+                   unet_check=run_unet_check(failures, card),
+                   library_ops=run_library_ops(failures, card))
+    build.reset_launches()
+    summary["steps"] = run_family_steps(failures, card)
+    summary["runners"] = run_family_runners(failures, card)
+    summary["options"] = run_options(failures, card)
+    counts = dict(build.launches)
+    summary["launches"] = counts
+    log(f"  launches over the families' steps, runners and the options' steps: {counts}")
+    log(json.dumps({"families": summary}))
+    return counts
+
+
 # what each path must launch: serving the tiles, the whole-image path and
 # the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
@@ -2390,12 +2899,16 @@ TRAIN_KERNELS = tuple(k for k, v in PER_STEP.items() if v)
 # the GAN steps and runner (the train steps, the eval routes)
 HEADS_KERNELS = SERVE_KERNELS + ("htb_tail_stats",)
 GAN_KERNELS = RUNNER_KERNELS
+# the Dense steps and runner (the Fusion gate) and the options' flagship steps
+FAMILIES_KERNELS = TRAIN_KERNELS
 PER = {"tile": "one 192x192 tile (sum over its shapes)",
        "frame": "one 1080p frame, LR 1088x1920 aligned (sum over its calls: 8 bands; "
                 "6 window-4 and 6 window-8 blocks with fused_htb)",
        "step": "one training step, batch 2, LR 64x64, float32 (sum over its calls; "
-               "dwconv5x5: 36 forward, 36 dx)"}
-TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32"}
+               "dwconv5x5: 36 forward, 36 dx)",
+       "dense": "one DenseSR training step at its defaults (C = 64), batch 2, LR 64x64, "
+                "float32 (one call)"}
+TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32", "dense": "float32"}
 
 
 def scope_numbers(row: dict, scope: str) -> dict:
@@ -2647,7 +3160,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases",
-                   default="build,kernels,split,serve,whole,train,runner,heads,gan,profile,check")
+                   default="build,kernels,split,serve,whole,train,runner,heads,gan,families,"
+                           "profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -2680,7 +3194,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
-    heads, ganned = None, None
+    heads, ganned, families, fusion_backward = None, None, None, None
 
     log("[build]")
     try:
@@ -2719,8 +3233,9 @@ def main(argv=None) -> int:
         rows, extra = run_kernels(failures)
         try:
             check_dx_one_launch(failures)
+            fusion_backward = check_fusion_backward(failures)
         except Exception:
-            failures.append(f"dx profile: {traceback.format_exc()}")
+            failures.append(f"dx profile or the gate's backward: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "split" in phases and not failures:
         log("[split] device time of each launch of the Fusion gate, scc_block, htb_tail "
@@ -2775,6 +3290,15 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"gan: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "families" in phases and not failures:
+        log("[families] DenseSR and UNetSR at their defaults: the Dense step and tiles against "
+            "the plain path, the UNet against the CPU, the library ops; the families' steps, "
+            "main('dense' | 'unet', ...), HiTSIR's options")
+        try:
+            families = run_families(failures, card)
+        except Exception:
+            failures.append(f"families: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "profile" in phases and served is not None:
         for dt in ("bfloat16", "float32"):
             log(f"[profile] one {dt} 192x192 tile")
@@ -2803,10 +3327,11 @@ def main(argv=None) -> int:
 
     # each path's counts, set to 0 just before it and read just after
     paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
-             "runner": ran, "heads": heads, "gan": ganned}
+             "runner": ran, "heads": heads, "gan": ganned, "families": families}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
                         ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS),
-                        ("heads", HEADS_KERNELS), ("gan", GAN_KERNELS)):
+                        ("heads", HEADS_KERNELS), ("gan", GAN_KERNELS),
+                        ("families", FAMILIES_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
     kernels = []
@@ -2827,6 +3352,8 @@ def main(argv=None) -> int:
                 entry[f"per_{scope}"] = numbers
         if name in extra:
             entry["other_cases"] = extra[name]
+        if name == "fused_fusion" and fusion_backward is not None:
+            entry["backward_dense_step"] = fusion_backward
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     if failures:
@@ -2835,7 +3362,7 @@ def main(argv=None) -> int:
             print(f"  {f}", file=sys.stderr)
         return 1
     if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "gan",
-            "check"} <= phases:
+            "families", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

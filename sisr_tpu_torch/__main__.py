@@ -6,7 +6,10 @@ plus ``--device``):
     python -m sisr_tpu_torch hitsir_pro --device cpu ...   # without a card
     python -m sisr_tpu_torch hitsir_pro_gan --epochs 10    # the GAN fine-tune
 
-Runs on the card (``--device cuda``) unless asked for the CPU.
+Runs on the card (``--device cuda``) unless asked for the CPU.  ``main``
+also takes "unet" and "dense" (the UNet and Dense families' experiments,
+their keyword arguments, a None dropped), as root ``main.py``'s does; its
+command line, like root ``main.py``'s, offers the two HiT-SIR experiments.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ def main(model_name: str, is_test: bool, **kwargs):
             hitsir_pro_gan_experiment)
 
         return hitsir_pro_gan_experiment(is_test, **kwargs)
+    if model_name == "unet":
+        from sisr_tpu_torch.experiments.unet_experiment import unet_experiment
+
+        return unet_experiment(is_test, **{k: v for k, v in kwargs.items() if v is not None})
+    if model_name == "dense":
+        from sisr_tpu_torch.experiments.dense_experiment import dense_experiment
+
+        return dense_experiment(is_test, **{k: v for k, v in kwargs.items() if v is not None})
     raise ValueError(f"unknown experiment {model_name!r}")
 
 

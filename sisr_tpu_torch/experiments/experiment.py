@@ -143,8 +143,9 @@ class Experiment:
         self.loss_function: Optional[Callable] = None
         self.lr_schedule = None
         self.start_epoch = 1
-        # stands where the JAX runner threads its step key; no layer of the
-        # port draws random numbers yet
+        # stands where the JAX runner threads its step key; HiTSIR's
+        # dropouts (off in every experiment's config) draw from torch's
+        # global generator, as the reference's do
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         # host time of the last train epoch: waiting on the loader, and in
         # the steps (each ends in a sync: the loss is read back)

@@ -27,34 +27,35 @@ Every ``forward`` takes ``reference``: False runs the CUDA kernels for CUDA
 tensors, True the plain versions (the yardstick on the card); CPU tensors
 always run plain.  ``deterministic=False`` is the training forward, as in
 JAX: no block threads the SCA statistics to the next (its tail kernel has
-no backward) and ``fused_htb`` is ignored.  There is no dropout (every
-configuration the experiments build leaves its rates at 0).
+no backward), ``fused_htb`` is ignored, and the dropout rates, when set
+(no experiment sets them), take effect (``HiTSIR``'s docstring).
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from sisr_tpu_torch.models.arch_util import conv_nhwc
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
 from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
                                                 conv3x3_shuffled_tail,
                                                 conv3x3_shuffled_tail_packed)
+from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference
 from sisr_tpu_torch.ops.kernels.ffn import htb_tail, htb_tail_stats, layer_norm
 from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
 from sisr_tpu_torch.ops.kernels.htb_block import htb_fused
 from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
-                                                      pooling_matrix)
-from sisr_tpu_torch.ops.kernels.scc_block import scc_block
+                                                      pooling_matrix, scc_reference)
+from sisr_tpu_torch.ops.kernels.scc_block import sca_reference, scc_block
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from sisr_tpu_torch.ops.windows import pad_to_multiple
 from sisr_tpu_torch.utils.constants import device_constant
-from sisr_tpu_torch.utils.precision import exact_mode
 
 
 def _linear(x, mod: nn.Linear, dt):
@@ -124,18 +125,6 @@ def _hwio(conv: nn.Conv2d, dt):
 def _conv_weights(conv: nn.Conv2d, dt, device):
     """(HWIO kernel, bias) of a 3x3 conv in dt, cached."""
     return _derived(conv, "conv", dt, device, lambda: (_hwio(conv, dt), conv.bias.to(dt)))
-
-
-def _plain_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """A same-padded conv of an NHWC map in x's dtype, ``F.conv2d``: the
-    convs that the JAX package also computes outside its kernels (its
-    ``_conv``).  A float32 forward runs with TF32 off, in full float32 as
-    the kernels around it do (its backward follows PyTorch's flags)."""
-    dt = x.dtype
-    with exact_mode() if dt == torch.float32 else nullcontext():
-        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), conv.bias.to(dt),
-                     padding=conv.padding)
-    return y.permute(0, 2, 3, 1)
 
 
 class MultipleSizeConvExtract(nn.Module):
@@ -269,8 +258,11 @@ def _rpe_mother_set(wh: int, ww: int) -> np.ndarray:
 
 
 class SpatialChannelAttention(nn.Module):
-    """SCA parameters (reference :317-359); the math is fused into the SCC
-    kernel (``scc_block``)."""
+    """SCA (reference :317-359).  Inside HiTSIR only its parameters are
+    used: the math is fused into the SCC kernel (``scc_block``).  Called on
+    its own (DenseSR's ``sa_attn``, JAX ``hit_sir_pro.py:331-359``) it
+    computes the squeeze-excite vectors and then ``sca_reference``, in
+    x's dtype."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -281,20 +273,37 @@ class SpatialChannelAttention(nn.Module):
         self.linear2_first = nn.Linear(dim, dim // 10)
         self.linear2_second = nn.Linear(dim // 10, dim)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, dt = x.shape[-1], x.dtype
+        s1 = _linear(_linear(x.mean(dim=(1, 2), keepdim=True), self.linear1_first, dt),
+                     self.linear1_second, dt)
+        s2 = _linear(_linear(x.amax(dim=(1, 2), keepdim=True), self.linear2_first, dt),
+                     self.linear2_second, dt)
+        return sca_reference(x, self.linear1.weight.reshape(c, 9).t().to(dt),
+                             self.linear1.bias.to(dt),
+                             self.linear2.weight.reshape(c, 9).t().to(dt),
+                             self.linear2.bias.to(dt), s1, s2)
+
 
 class SCC(nn.Module):
-    """Spatial-Channel Correlation (reference :362-602), evaluation path.
+    """Spatial-Channel Correlation (reference :362-602).
 
     Per window: q/v halves across heads, k synthesized as
     ``(k_gen1(q) + k_gen2(v)) / 2``; the spatial branch pools k, v to the
     base window and adds a pooled dynamic position bias; the channel branch
-    is a single-head channel gram; both are projected."""
+    is a single-head channel gram; both are projected, then dropped out
+    at ``proj_drop`` in training.  In training with ``value_drop`` it runs
+    the plain version with the value dropout, as JAX does (its
+    ``_reference_with_dropout``); else the kernel."""
 
     def __init__(self, dim: int, base_win_size: Tuple[int, int],
                  window_size: Tuple[int, int], num_heads: int,
-                 is_channel_spatial_attn: bool = True):
+                 is_channel_spatial_attn: bool = True, value_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.value_drop = value_drop
+        self.proj_drop = proj_drop
         self.base_win_size = tuple(base_win_size)
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
@@ -350,10 +359,15 @@ class SCC(nn.Module):
         return (sca_w, se_w, w1, w2, bb, pmat, pb, mask, bias.to(dt),
                 self.proj.weight.t().to(dt), self.proj.bias.to(dt))
 
-    def forward(self, x: torch.Tensor, stats=None,
-                reference: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats=None, reference: bool = False,
+                deterministic: bool = True) -> torch.Tensor:
         sca, rest = self.bundle(x, stats)
-        return scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
+        if self.value_drop > 0.0 and not deterministic:
+            out = _scc_with_value_drop(x, sca, *rest, self.num_heads, self.window_size,
+                                       self.value_drop)
+        else:
+            out = scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
+        return _dropout(out, self.proj_drop, deterministic)
 
     def bundle(self, x: torch.Tensor, stats=None):
         """(sca, the rest of scc_block's arguments up to proj_b) for x:
@@ -386,6 +400,33 @@ class SCC(nn.Module):
         return sca, rest
 
 
+def _dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: x where ``deterministic`` or the rate is 0."""
+    return x if deterministic or rate == 0.0 else F.dropout(x, rate)
+
+
+def _drop_path(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """Stochastic depth: the whole sample kept (scaled by 1 / (1 - rate))
+    or zeroed, one draw per sample broadcast over (H, W, C) (JAX
+    ``nn.Dropout(broadcast_dims=(1, 2, 3))``)."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.empty((x.shape[0], 1, 1, 1), dtype=x.dtype, device=x.device)
+    return x * keep.bernoulli_(1.0 - rate) / (1.0 - rate)
+
+
+def _scc_with_value_drop(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
+                         heads: int, window, value_drop: float) -> torch.Tensor:
+    """``scc_block``'s plain version with the value dropout."""
+    b, hp, wp, c = x.shape
+    wh, ww = window
+    dt = x.dtype
+    qkv = sca_reference(x, *sca) if sca is not None else x
+    out6 = scc_reference(qkv.reshape(b, hp // wh, wh, wp // ww, ww, c), w1, w2, bb, pmat, pb,
+                         mask, bias, heads, value_drop)
+    return out6.reshape(b, hp, wp, c).to(dt) @ proj_k.to(dt) + proj_b.to(dt)
+
+
 class DepthwiseConv(nn.Module):
     """Holds the 5x5 depthwise conv under the reference's name
     (``dwconv.depthwise_conv.0``)."""
@@ -411,12 +452,18 @@ class HierarchicalTransformerBlock(nn.Module):
 
     ``fused_htb`` (off by default, as JAX's ``SISR_FUSED_HTB``) runs the
     blocks whose window equals its base window, on maps the window divides,
-    as one ``htb_fused`` call."""
+    as one ``htb_fused`` call.  In training with ``drop`` or ``drop_path``
+    the tail runs plain, with the FFN's two dropouts and stochastic depth
+    around both residual branches (JAX ``hit_sir_pro.py:774-790``); else
+    the tail kernel."""
 
     def __init__(self, dim: int, num_heads: int, base_win_size, window_size,
                  mlp_ratio: float = 2.0, is_channel_spatial_attn: bool = True,
-                 fused_htb: bool = False):
+                 fused_htb: bool = False, drop: float = 0.0, value_drop: float = 0.0,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop = drop
+        self.drop_path = drop_path
         self.window_size = tuple(window_size)
         wh, ww = self.window_size
         # JAX's semantic conditions (hit_sir_pro.py:698-706, htb_block.py:212);
@@ -427,7 +474,7 @@ class HierarchicalTransformerBlock(nn.Module):
                           and min(ww, base_win_size[1]) == ww)
         self.norm1 = nn.LayerNorm(dim)
         self.correlation = SCC(dim, base_win_size, window_size, num_heads,
-                               is_channel_spatial_attn)
+                               is_channel_spatial_attn, value_drop, drop)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = ConvFFN(dim, int(dim * mlp_ratio))
 
@@ -458,7 +505,10 @@ class HierarchicalTransformerBlock(nn.Module):
             ssum = (ssum + xp[:, h:, :w].to(f32).sum(dim=(1, 2))
                     + xp[:, :, w:].to(f32).sum(dim=(1, 2)))
             stats = (cmean, cmax, ssum, smax)
-        attn = self.correlation(xp, stats=stats, reference=reference)
+        attn = self.correlation(xp, stats=stats, reference=reference,
+                                deterministic=deterministic)
+        if not deterministic and (self.drop > 0.0 or self.drop_path > 0.0):
+            return self._tail_with_dropout(attn[:, :h, :w], x, *tail)
 
         args = (x,) + tail
         # the (possibly window-padded) attn goes in whole: the tail reads
@@ -466,6 +516,16 @@ class HierarchicalTransformerBlock(nn.Module):
         if emit_stats:
             return htb_tail_stats(attn, *args, reference=reference)
         return htb_tail(attn, *args, reference=reference)
+
+    def _tail_with_dropout(self, attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
+                           ln2_s, ln2_b) -> torch.Tensor:
+        """The tail's plain composition (``htb_tail_reference``) with the
+        dropouts of training."""
+        x = shortcut + _drop_path(layer_norm(attn, ln1_s, ln1_b), self.drop_path, False)
+        h = F.gelu(x @ w1 + b1)
+        h = _dropout(h + F.gelu(depthwise_conv_reference(h, dw, dwb)), self.drop, False)
+        y = _dropout(h @ w2 + b2, self.drop, False)
+        return x + _drop_path(layer_norm(y, ln2_s, ln2_b), self.drop_path, False)
 
     def _tail_weights(self, dt):
         mlp = self.mlp
@@ -485,32 +545,59 @@ class ResidualGroup(nn.Module):
 
 
 class RHTB(nn.Module):
-    """depth x HTB with hierarchical windows, then 3x3 conv + residual
-    (reference :755-936).  In evaluation (``deterministic``) each block's
-    tail kernel emits the SCA pool statistics the next block needs; in
-    training every block pools its own input (JAX's ``thread``)."""
+    """depth x HTB with hierarchical windows, then 3x3 conv + residual, or
+    with ``resi_connection='3conv'`` the reference's three-conv squeeze
+    (reference :755-936, :911-918), plain convs as in JAX.  In evaluation
+    (``deterministic``) each block's tail kernel emits the SCA pool
+    statistics the next block needs; in training, and with
+    ``use_checkpoint``, every block pools its own input (JAX's ``thread``).
+    ``use_checkpoint`` recomputes each block in the backward
+    (``torch.utils.checkpoint``; JAX's ``nn.remat``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, base_win_size,
                  window_sizes, mlp_ratio: float = 2.0,
-                 is_channel_spatial_attn: bool = True, fused_htb: bool = False):
+                 is_channel_spatial_attn: bool = True, fused_htb: bool = False,
+                 drop: float = 0.0, value_drop: float = 0.0, drop_paths: Sequence[float] = (),
+                 use_checkpoint: bool = False, resi_connection: str = "1conv"):
         super().__init__()
+        if resi_connection not in ("1conv", "3conv"):
+            raise ValueError(f"resi_connection must be '1conv' or '3conv', got "
+                             f"{resi_connection!r}")
         self.is_channel_spatial_attn = is_channel_spatial_attn
+        self.use_checkpoint = use_checkpoint
         self.residual_group = ResidualGroup([
             HierarchicalTransformerBlock(dim, num_heads, base_win_size,
                                          window_sizes[i], mlp_ratio,
-                                         is_channel_spatial_attn, fused_htb)
+                                         is_channel_spatial_attn, fused_htb, drop, value_drop,
+                                         drop_paths[i] if drop_paths else 0.0)
             for i in range(depth)])
-        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+        if resi_connection == "1conv":
+            self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+        else:
+            self.conv = nn.Sequential(
+                nn.Conv2d(dim, dim // 4, 3, padding=1), nn.LeakyReLU(0.2, inplace=True),
+                nn.Conv2d(dim // 4, dim // 4, 1), nn.LeakyReLU(0.2, inplace=True),
+                nn.Conv2d(dim // 4, dim, 3, padding=1))
 
     def forward(self, x: torch.Tensor, reference: bool = False,
                 deterministic: bool = True) -> torch.Tensor:
         blocks = self.residual_group.blocks
+        thread = deterministic and not self.use_checkpoint
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         y, stats = x, None
         for i, block in enumerate(blocks):
-            want = deterministic and i + 1 < len(blocks) and self.is_channel_spatial_attn
+            want = thread and i + 1 < len(blocks) and self.is_channel_spatial_attn
+            if remat:
+                y = checkpoint(block, y, reference=reference, deterministic=deterministic,
+                               use_reentrant=False)
+                continue
             out = block(y, emit_stats=want, stats=stats, reference=reference,
                         deterministic=deterministic)
             y, stats = out if want else (out, None)
+        if isinstance(self.conv, nn.Sequential):
+            y = F.leaky_relu(conv_nhwc(y, self.conv[0]), 0.2)
+            y = F.leaky_relu(conv_nhwc(y, self.conv[2]), 0.2)
+            return x + conv_nhwc(y, self.conv[4])
         return conv3x3(y, x, *_conv_weights(self.conv, x.dtype, x.device), "none",
                        reference)
 
@@ -607,7 +694,18 @@ class HiTSIR(nn.Module):
     makes ``stage='head'`` return the packed (B, H, W/16, 16*in_chans)
     layout (JAX's attribute, set by ``BandedHeadSR``); ``fused_htb`` runs
     the degenerate-window blocks as one ``htb_fused`` call each.  Neither
-    adds parameters."""
+    adds parameters.
+
+    The reference's other options, with JAX's semantics: ``drop_rate``
+    (``pos_drop``, the FFN's dropouts, the projection's), ``value_drop_rate``
+    (SCC's values), ``drop_path_rate`` (stochastic depth, linspace over all
+    blocks), all active only in training; ``ape`` (an absolute position
+    embedding over ``img_size`` x ``img_size`` maps, trunc-normal 0.02:
+    another input size raises); ``resi_connection='3conv'``;
+    ``use_checkpoint`` (each block recomputed in the backward, no stats
+    threading).  A block in training with a dropout runs SCC (value
+    dropout) or its tail (the other two) plain, as JAX does; every other
+    call keeps its kernel."""
 
     def __init__(self, is_mult_size_conv_feat_extract: bool = True,
                  is_channel_spatial_attn: bool = True, is_fusion: bool = True,
@@ -619,7 +717,10 @@ class HiTSIR(nn.Module):
                  img_range: float = 1.0, upsampler: str = "nearest+conv",
                  hier_win_ratios: Sequence[float] = (0.5, 1, 2, 4, 6, 8, 10, 12),
                  num_feat: int = 64, dtype: torch.dtype = torch.float32,
-                 head_packed: bool = False, fused_htb: bool = False):
+                 head_packed: bool = False, fused_htb: bool = False,
+                 drop_rate: float = 0.0, value_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, ape: bool = False, img_size: int = 64,
+                 resi_connection: str = "1conv", use_checkpoint: bool = False):
         super().__init__()
         if upsampler == "nearest+conv" and upscale != 4:
             raise ValueError(f"the nearest+conv head is x4 only (got x{upscale})")
@@ -632,6 +733,8 @@ class HiTSIR(nn.Module):
         self.upsampler = upsampler
         self.dtype = dtype
         self.head_packed = head_packed
+        self.drop_rate = drop_rate
+        self.img_size = img_size
         wins = tuple((int(base_win_size[0] * r), int(base_win_size[1] * r))
                      for r in hier_win_ratios)
         self.conv_first = (MultipleSizeConvExtract(in_chans, c) if is_mult_size_conv_feat_extract
@@ -639,9 +742,17 @@ class HiTSIR(nn.Module):
         # registered here for the reference's state-dict order
         self.fusion = Fusion(c) if is_fusion else None
         self.patch_embed = PatchEmbed(c)
+        if ape:
+            self.absolute_pos_embed = nn.Parameter(torch.zeros(1, img_size * img_size, c))
+            with torch.no_grad():
+                self.absolute_pos_embed.normal_(0.0, 0.02).clamp_(-2.0, 2.0)
+        # stochastic-depth decay: linspace over all blocks (reference :1193)
+        dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
+        offs = np.cumsum((0,) + tuple(depths)).tolist()
         self.layers = nn.ModuleList([
             RHTB(c, depth, num_heads[i], tuple(base_win_size), wins, mlp_ratio,
-                 is_channel_spatial_attn, fused_htb)
+                 is_channel_spatial_attn, fused_htb, drop_rate, value_drop_rate,
+                 dpr[offs[i]:offs[i] + depth], use_checkpoint, resi_connection)
             for i, depth in enumerate(depths)])
         self.norm = nn.LayerNorm(c)
         self.conv_after_body = nn.Conv2d(c, c, 3, padding=1)
@@ -724,9 +835,15 @@ class HiTSIR(nn.Module):
         if isinstance(self.conv_first, MultipleSizeConvExtract):
             shallow = self.conv_first(x, dt)
         else:
-            shallow = _plain_conv(x, self.conv_first)
+            shallow = conv_nhwc(x, self.conv_first)
         feat = _layer_norm_slabs(shallow, self.patch_embed.norm.weight,
                                  self.patch_embed.norm.bias)
+        if hasattr(self, "absolute_pos_embed"):
+            if (h, w) != (self.img_size, self.img_size):
+                raise ValueError(f"ape: the position embedding covers {self.img_size}x"
+                                 f"{self.img_size} maps, not {h}x{w}")
+            feat = feat + self.absolute_pos_embed.reshape(1, h, w, -1).to(dt)
+        feat = _dropout(feat, self.drop_rate, deterministic)
         for layer in self.layers:
             feat = layer(feat, reference, deterministic)
         feat = _layer_norm_slabs(feat, self.norm.weight, self.norm.bias)
@@ -743,12 +860,12 @@ class HiTSIR(nn.Module):
             y = self._x4_head(y, reference)
         elif self.upsampler == "pixelshuffle":
             for conv in self.upsample[::2]:
-                y = pixel_shuffle(_plain_conv(y, conv), 2)
-            y = _plain_conv(y, self.conv_last)
+                y = pixel_shuffle(conv_nhwc(y, conv), 2)
+            y = conv_nhwc(y, self.conv_last)
         elif self.upsampler == "pixelshuffledirect":
-            y = pixel_shuffle(_plain_conv(y, self.upsample[0]), self.upscale)
+            y = pixel_shuffle(conv_nhwc(y, self.upsample[0]), self.upscale)
         else:
-            y = x + _plain_conv(y, self.conv_last)
+            y = x + conv_nhwc(y, self.conv_last)
         y = y / self.img_range + mean
         return y[:, :h * self.upscale, :w * self.upscale, :]
 

@@ -6,12 +6,17 @@ of ``sisr_tpu/models/vgg.py``'s (``convert_torchvision_vgg``,
 ``convert_lpips``), so state held by the JAX package (for example in a
 parity test) loads into ``HiTSIR``, ``UNetDiscriminatorSN``,
 ``VGGFeatures`` / ``PerceptualLoss`` and ``LPIPSVgg`` with
-``load_state_dict(strict=True)``.
+``load_state_dict(strict=True)``; and the UNet and Dense families' trees
+(the JAX package defines them: their names are its module names).
 
 Layout rules (flax -> torch):
   conv kernel   (kh, kw, I, O) -> weight (O, I, kh, kw)
+  transposed conv kernel (kh, kw, I, O), ``transpose_kernel=False``
+                               -> weight (I, O, kh, kw), flipped in space
   dense kernel  (I, O)         -> weight (O, I)
-  layernorm scale/bias         -> weight/bias
+  attention kernels (C, heads, d) / (heads, d, C) -> weight (heads*d, C) /
+                                  (C, heads*d); biases (heads, d) flattened
+  layernorm / groupnorm scale/bias -> weight/bias
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ def _torch_module_name(path: str) -> str:
     """Flax module path (dot separated) -> torch module path."""
     n = path
     n = re.sub(r"^layers_(\d+)\.blocks_(\d+)\.", r"layers.\1.residual_group.blocks.\2.", n)
-    n = re.sub(r"^layers_(\d+)\.conv$", r"layers.\1.conv", n)
+    n = re.sub(r"^layers_(\d+)\.conv(\.\d)?$", r"layers.\1.conv\2", n)
     n = re.sub(r"^patch_embed_norm$", "patch_embed.norm", n)
     n = re.sub(r"^conv_before_upsample$", "conv_before_upsample.0", n)
     n = re.sub(r"\.mlp\.dwconv$", ".mlp.dwconv.depthwise_conv.0", n)
@@ -58,6 +63,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     for parts, value in _flatten(params):
         arr = np.asarray(value, dtype=np.float32)
         module, leaf = ".".join(parts[:-1]), parts[-1]
+        if parts == ("absolute_pos_embed",):
+            out["absolute_pos_embed"] = np.ascontiguousarray(arr)
+            continue
         if leaf == "kernel":
             leaf = "weight"
             if arr.ndim == 4:
@@ -69,6 +77,44 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         elif leaf != "bias":
             raise ValueError(f"unexpected flax leaf {'/'.join(parts)}")
         out[f"{_torch_module_name(module)}.{leaf}"] = np.ascontiguousarray(arr)
+    return out
+
+
+def dense_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax params of ``sisr_tpu`` DenseSR -> the port's ``DenseSR`` state
+    dict.  Its own modules keep their flax names; ``conv_first`` (the
+    multi-size extraction), ``sa_attn`` and ``fusion`` are HiTSIR's
+    modules, so HiTSIR's rules carry them all."""
+    return state_dict_from_jax(params)
+
+
+def unet_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax params of ``sisr_tpu`` UNetSR -> the port's ``UNetSR`` state
+    dict (the module names are the same; the layouts as in the module
+    docstring)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, np.ndarray] = {}
+    for parts, value in _flatten(params):
+        arr = np.asarray(value, dtype=np.float32)
+        module, leaf = ".".join(parts[:-1]), parts[-1]
+        if leaf == "kernel":
+            leaf = "weight"
+            if re.match(r"^up_sample_\d+$", module):
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif parts[-2] == "out":                   # (heads, d, C)
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            else:                                      # (C, heads, d)
+                arr = arr.reshape(arr.shape[0], -1).T
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf == "bias":
+            arr = arr.reshape(-1)
+        else:
+            raise ValueError(f"unexpected flax leaf {'/'.join(parts)}")
+        out[f"{module}.{leaf}"] = np.ascontiguousarray(arr)
     return out
 
 

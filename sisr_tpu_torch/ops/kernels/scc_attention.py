@@ -13,11 +13,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sisr_tpu_torch.utils.constants import device_constant
 
 
-def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int):
+def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int,
+                  value_drop: float = 0.0):
     """Plain reference of the window attention.
 
     x:    (B, nWh, wh, nWw, ww, C)  [pure reshape of NHWC input]
@@ -27,6 +29,9 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int):
     pb:   (1, 1) float32 pooling bias, added to every pooled entry
     mask: (heads*l_base, C/2) 0/1 block-diagonal head mask
     bias: (L, heads*l_base) relative-position bias
+    value_drop: dropout on the pooled values of the spatial branch and on
+          the values of the channel branch (training with the reference's
+          ``value_drop_rate``, JAX ``_reference_with_dropout``)
     returns (B, nWh, wh, nWw, ww, C) float32 concat [S-SC | C-SC]: the
     float32 ``pb`` promotes the spatial branch to float32, as in JAX.
     """
@@ -42,6 +47,8 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int):
     pbs = pb.reshape(()).to(f32)
     k_pool = torch.einsum("ml,blc->bmc", pmat, k).to(f32) + pbs
     v_pool = torch.einsum("ml,blc->bmc", pmat, v).to(f32) + pbs
+    if value_drop:
+        v_pool = F.dropout(v_pool, value_drop)
 
     def big(t):  # (nwb, l_base, half) -> masked head-tiled (nwb, heads*l_base, half)
         return t.repeat(1, heads, 1) * mask.to(f32)
@@ -51,6 +58,8 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int):
     out_s = torch.einsum("blm,bmc->blc", corr, big(v_pool))
 
     gram = torch.einsum("blc,bld->bcd", q, k) / float(l_full)
+    if value_drop:
+        v = F.dropout(v, value_drop)
     out_c = torch.einsum("bld,bcd->blc", v, gram)
 
     out = torch.cat([out_s, out_c.to(f32)], dim=-1)

@@ -40,8 +40,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer, reference: bool = False) -> Callable:
     """Pixel-loss train step: ``step(lr_imgs, hr_imgs, generator) -> loss``
     on NHWC batches, updating the model's parameters in place.
-    ``generator`` stands where JAX's step takes its dropout key: no layer of
-    the port draws random numbers yet.  ``reference=True`` runs the plain
+    ``generator`` stands where JAX's step takes its dropout key: HiTSIR's
+    dropouts draw from torch's global generator, as the reference's do.
+    ``reference=True`` runs the plain
     versions instead of the kernels (the yardstick on the card)."""
 
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,

@@ -454,7 +454,8 @@ def test_head_model_shapes_take_the_redesigned_kernels_on_card(cuda_device, dtyp
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 9, 70, 180), (1, 5, 3, 300),
-                                   (1, 9, 1920, 180), (1, 37, 200, 180), (1, 16, 5, 7)])
+                                   (1, 9, 1920, 180), (1, 37, 200, 180), (1, 16, 5, 7),
+                                   (2, 64, 64, 64), (1, 96, 120, 64), (1, 192, 192, 64)])
 def test_fusion_pools_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools
 
@@ -478,10 +479,12 @@ def _ua_raws(rng, c, device):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 16, 48, 12), (1, 24, 20, 180),
                                    (1, 1, 5, 8), (1, 9, 1920, 180), (1, 37, 200, 180),
-                                   (1, 16, 5, 7), (1, 192, 192, 180), (1, 300, 400, 180)])
+                                   (1, 16, 5, 7), (1, 192, 192, 180), (1, 300, 400, 180),
+                                   (2, 64, 64, 64), (1, 96, 120, 64), (1, 192, 192, 64)])
 def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
     """Pools, maps and gate against the Fusion module's math, including a
-    one-row image (both row corrections on one row)."""
+    one-row image (both row corrections on one row), and DenseSR's width
+    (C = 64: its training step's batch, an eval image, a 192x192 tile)."""
     from sisr_tpu_torch.ops.kernels import build
     from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
 
@@ -494,6 +497,46 @@ def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
            1e-4)
     assert build.launches["fused_fusion"] == before["fused_fusion"] + 1
     assert build.launches["fusion_pools"] == before["fusion_pools"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 24, 20, 180)])
+def test_fused_fusion_backward_through_kernel_function_on_card(cuda_device, dtype, shape):
+    """The gate's gradients through ``KernelFunction`` (the kernels forward,
+    the plain version's vjp backward) against the plain path's, at DenseSR's
+    training step (2, 64, 64, 64) and a flagship-width map: a, b and every
+    raw parameter, each within 1e-6 relative norm error.  The backward
+    recomputes the same plain forward from the same saved inputs, so with
+    TF32 off and cuDNN's deterministic algorithms (its default weight
+    gradients sum in no fixed order: the small convs' kernels moved by
+    1.6e-5 relative at (1, 24, 20, 180), NVIDIA H100 80GB HBM3, 700.00 W)
+    the two agree to rounding."""
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    rng = np.random.default_rng(9)
+    a, b, dy = _on(cuda_device, dtype, _rand(rng, *shape, scale=1.0),
+                   _rand(rng, *shape, scale=1.0), _rand(rng, *shape, scale=1.0))
+    raws = _ua_raws(rng, shape[-1], cuda_device)
+    leaves = [a, b] + [t for ua in raws for kb in ua for t in kb]
+    for t in leaves:
+        t.requires_grad_(True)
+    packed = pack_params(tuple(tuple((k.detach(), bb.detach()) for k, bb in ua)
+                               for ua in raws), shape[-1], dtype)
+    grads = []
+    with exact_mode(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                  deterministic=True, allow_tf32=False):
+        for reference in (False, True):
+            before = dict(build.launches)
+            out = fused_fusion(a, b, raws, packed, reference)
+            grads.append(torch.autograd.grad(out, leaves, dy))
+            assert build.launches["fused_fusion"] == before["fused_fusion"] + (not reference)
+    for got, want in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+        assert err <= 1e-6, err
 
 
 @pytest.mark.cuda
