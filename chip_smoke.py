@@ -143,6 +143,33 @@ Phases:
            and one float32 step of the flagship with each of HiTSIR's
            options (drop_path_rate=0.1, ape, 3conv, use_checkpoint), its
            launches as the routing rule says;
+  mesh     the multi-device layer (parallel/mesh.py) through
+           ``mesh.spawn`` (the flagship's weights and the inputs saved
+           under build/smoke/mesh for every rank): (a) one rank in an
+           NCCL group of one: TiledSR.sharded_call at 480x640 in bfloat16
+           and float32 and BandedHeadSR.sharded_call at 256x320 in
+           float32 against their single-process calls, 3 float32 DP steps
+           (batch 2, LR 64, TF32 off) each against make_train_step's from
+           the same state (the loss 1e-5 relative, each gradient at the
+           train check's bar); (b) two gloo ranks sharing the card (NCCL
+           refuses two ranks on one device): the 480x640 tiles (6 a rank),
+           the 256x320 bands (2 a rank) and the bfloat16 1080p frame
+           (align 64: sharded_plan's 16 bands of 68, 8 a rank) against the
+           single-process calls (float32 1e-5 max abs; bfloat16 2^-5 of the
+           output's scale, as two single-process bfloat16 calls already
+           differ by up to 1.56e-2), the
+           ranks' outputs equal, every rank's launches as its tiles or
+           bands give; the DP step (1 image a rank) against the
+           single-process step of the batch (the loss 1e-5, each gradient
+           at its bar), its control (the gradients summed, not averaged,
+           must fail the bars), the ranks' parameters bit-identical after 3
+           Adam steps; the all_reduce of the gradients and of the frame's
+           canvas (through gloo's host copy) timed; (c)
+           ``hitsir_pro_experiment(n_devices=2)`` on the two ranks, each in
+           a directory of its own, for one epoch on folders synthesized
+           there: the loss within 1e-4 relative of the single-process
+           run's, rank 1's directory empty.  Two ranks on one card measure
+           correctness and the collectives' cost, not scaling;
   profile  one bfloat16 and one float32 tile, and a bfloat16 1080p frame
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
@@ -182,7 +209,8 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
 ...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"gan": ...}``,
-``{"families": ...}`` and ``{"kernels": [...]}`` lines and, as the
+``{"families": ...}``, ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines
+and, as the
 last line when every phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result line, when there is no CUDA card or any
@@ -999,10 +1027,10 @@ PREFIXES = {"conv3x3": "::conv3x3_", "conv3x3_shuffled": "::shuffled_conv_",
             "htb_fused": "::htb_fused_", "dwconv5x5": "::dwconv_"}
 
 
-def profile_call(fn, warm: bool = True) -> dict:
-    """Where the time of one ``fn()`` goes: device time by kernel name
-    (torch.profiler), device busy time against the call's wall time;
-    after one unprofiled call unless ``warm`` is False."""
+def _profiled(fn, warm: bool = True) -> tuple:
+    """(wall ms, [(device ms, count, kernel name), ...] largest first) of
+    one ``fn()`` under torch.profiler, after one unprofiled call unless
+    ``warm`` is False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1017,11 +1045,18 @@ def profile_call(fn, warm: bool = True) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's own row repeats its kernels' time,
     # and so does a user annotation's (the optimizer's step) on the device
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                   and not getattr(e, "is_user_annotation", False)),
-                  reverse=True)
+    return wall, sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                         and not getattr(e, "is_user_annotation", False)),
+                        reverse=True)
+
+
+def profile_call(fn, warm: bool = True) -> dict:
+    """Where the time of one ``fn()`` goes: device time by kernel name
+    (torch.profiler), device busy time against the call's wall time;
+    after one unprofiled call unless ``warm`` is False."""
+    wall, rows = _profiled(fn, warm)
     busy = sum(r[0] for r in rows)
     ours = {name: sum(ms for ms, _, key in rows if pre in key) for name, pre in PREFIXES.items()}
     log(f"  wall {wall:.1f} ms under the profiler, device busy {busy:.1f} ms "
@@ -2889,6 +2924,503 @@ def run_families(failures: list, card: str) -> dict:
     return counts
 
 
+# --- the multi-device layer: sharded tiles and bands, data parallelism -------
+
+# (a) NCCL at world size 1 in one spawned rank; (b) and (c) two gloo ranks
+# that share the card (NCCL refuses two ranks on one device): correctness
+# and the collectives' cost, not scaling
+MESH_TILES = (480, 640)           # 12 tiles of 192: 6 a rank on two ranks
+MESH_BANDS = (256, 320)           # align 4, bands of 64: 4, 2 a rank
+# the 1080p frame at align 64, band_rows 120: sharded_plan's 16 bands of
+# 68 (not plan()'s 8 of 136), 8 a rank
+MESH_FRAME_BANDS = 16
+MESH_STEPS = 3
+MESH_TRAIN = ((320, 320),) * 2    # the DP runner: 1 step of batch 2, 1 image a rank
+MESH_EVAL = ((384, 480),)         # LR 96x120: the whole forward
+MESH_KERNELS = RUNNER_KERNELS
+# a sharded call against the single-process call: float32 within 1e-5
+# (JAX's bar); bfloat16 within 2^-5 of the output's scale: two calls of
+# the single-process bfloat16 path already differ by up to 1.56e-2 on an
+# NVIDIA H100 80GB HBM3 at 700 W (htb_tail's wgmma stats sum with float
+# atomics, and a last-bit move grows through 36 blocks), so 2^-6 would fail
+# on that alone
+MESH_BARS = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+
+
+@contextlib.contextmanager
+def exact_deterministic():
+    """TF32 off (``exact_mode``) and cuDNN's deterministic algorithms: the
+    same inputs give the same bits in every process."""
+    import torch
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    with exact_mode(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                  deterministic=True, allow_tf32=False):
+        yield
+
+
+def mesh_reference(root) -> None:
+    """What every rank loads from ``root``: the flagship's float32 weights
+    (param_synth seed 0), the inputs, and the single-process training step
+    (kernel path, TF32 off, cuDNN deterministic): on the whole batch its
+    loss and each gradient, with each gradient's bar as
+    ``gradient_agreement`` sets it (max(1e-3, NOISE_MULT x the plain path's
+    largest move under ``probe_grads``' moves and under the batch split
+    the ranks make: the mean of the per-image gradients)); and the mean of
+    the kernel path's per-image gradients, which the ranks' averaged
+    gradients must equal."""
+    import torch
+
+    model = train_model()
+    g = torch.Generator().manual_seed(5)
+    batch = tuple(t.cpu() for t in train_batches(1, 7)[0])
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, root / "flagship.pt")
+    torch.save(dict(tiles=torch.rand((*MESH_TILES, 3), generator=g),
+                    bands=torch.rand((*MESH_BANDS, 3), generator=g),
+                    frame=torch.rand((*FRAME, 3), generator=g), batch=batch),
+               root / "inputs.pt")
+    lr, hr = (t.cuda() for t in batch)
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    split = lambda m, plain: [step_grads(m, lr[i:i + 1], hr[i:i + 1], plain)[1]
+                              for i in range(TRAIN_BATCH)]
+    mean = lambda gs: {k: None if gs[0][k] is None else sum(g[k] for g in gs) / len(gs)
+                       for k in gs[0]}
+    with exact_deterministic():
+        loss, grads, _ = step_grads(model, lr, hr, False)
+        split_mean = mean(split(model, False))
+        plain = train_model()
+        _, ref, _ = step_grads(plain, lr, hr, True)
+        moved = probe_grads(plain, lr, hr) + [mean(split(plain, True))]
+    noise = {k: max(rel(m[k], r) for m in moved) for k, r in ref.items() if r is not None}
+    cpu = lambda gs: {k: g.cpu() for k, g in gs.items() if g is not None}
+    torch.save(dict(loss=loss, grads=cpu(grads), split_mean=cpu(split_mean), noise=noise,
+                    bars={k: max(1e-3, NOISE_MULT * n) for k, n in noise.items()}),
+               root / "step.pt")
+
+
+def mesh_grads_over(model, grads: dict, bars: dict) -> tuple:
+    """(worst relative norm error over its bar, the parameters over their
+    bars, the three worst as (name, error, bar)) of ``model``'s gradients
+    against ``grads``."""
+    rows, over = [], []
+    for k, p in model.named_parameters():
+        if k not in bars:
+            continue
+        if p.grad is None:
+            over.append(f"{k}: no gradient")
+            continue
+        r = grads[k].to(p.grad.device)
+        err = float((p.grad - r).norm() / r.norm().clamp_min(1e-30))
+        rows.append((err / bars[k], k, err, bars[k]))
+        if not err <= bars[k]:
+            over.append(f"{k}: {err:.2e} > {bars[k]:.2e}")
+    rows.sort(reverse=True)
+    return (rows[0][0] if rows else 0.0), over, [r[1:] for r in rows[:3]]
+
+
+class MeshRank:
+    """One rank's part of the mesh phase: its driven calls (their launches
+    counted, checked against ``want``, summed into ``counts``), its
+    failures and its numbers, returned to the parent."""
+
+    def __init__(self, rank: int, root):
+        import torch
+        from sisr_tpu_torch.ops.kernels import build
+
+        self.rank, self.root = rank, root
+        self.sd = torch.load(root / "flagship.pt", map_location="cuda", weights_only=True)
+        self.inputs = torch.load(root / "inputs.pt", weights_only=True)
+        self.ref = torch.load(root / "step.pt", weights_only=False)
+        self.counts = dict.fromkeys(build.launches, 0)
+        self.out = dict(rank=rank, calls={}, bad=[])
+
+    def model(self, dt: str):
+        import torch
+        from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+
+        model = HiTSIR(**flagship_config(), dtype=getattr(torch, dt)).to("cuda")
+        model.load_state_dict(self.sd, strict=True)
+        return model
+
+    def drive(self, label: str, fn, want: dict, mesh):
+        """``fn()`` with the launch counts read around it: the main path."""
+        import torch
+        import torch.distributed as dist
+        from sisr_tpu_torch.ops.kernels import build
+
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        before, t0 = dict(build.launches), time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: build.launches[k] - before[k] for k in build.launches}
+        for k, v in got.items():
+            self.counts[k] += v
+        want = {k: want.get(k, 0) for k in got}
+        self.out["calls"].setdefault(label, {})["wall_ms"] = ms
+        if got != want:
+            self.out["bad"].append(f"rank {self.rank} {label}: launches {got}, want {want}")
+        return res
+
+    def busy(self, label: str, fn) -> None:
+        """One more ``fn()`` under torch.profiler: its wall and device busy ms."""
+        wall, rows = _profiled(fn, warm=False)
+        self.out["calls"].setdefault(label, {}).update(
+            profiled_wall_ms=wall, device_busy_ms=sum(r[0] for r in rows),
+            top_device_ms=[(key[:60], ms) for ms, _, key in rows[:3]])
+
+    def compare(self, label: str, got, ref, dt: str) -> None:
+        """Max |got - ref| within ``MESH_BARS[dt]``, times the output's
+        scale, max(1, max |ref|), in bfloat16."""
+        err = float((got.float() - ref.float()).abs().max())
+        bar = MESH_BARS[dt]
+        if dt == "bfloat16":
+            bar *= max(1.0, float(ref.float().abs().max()))
+        self.out["calls"].setdefault(label, {}).update(max_abs_err=err, bar=bar)
+        if not err <= bar:
+            self.out["bad"].append(f"rank {self.rank} {label}: max |sharded - single| "
+                                   f"{err:.3e} > {bar:.3e}")
+
+    def digest(self, label: str, t) -> None:
+        """A checksum of an output every rank holds: equal ranks, equal bytes."""
+        import hashlib
+
+        import torch
+
+        self.out["calls"].setdefault(label, {})["sha256"] = hashlib.sha256(
+            t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    def sharded(self, mesh, label: str, runner, img, want: dict, dt: str,
+                check_single: bool) -> None:
+        """A sharded call, driven and checked: against the single-process
+        call (where ``check_single``), its digest, then profiled."""
+        import torch
+
+        axis = mesh.axis_name
+        with torch.inference_mode():
+            out = self.drive(label, lambda: runner.sharded_call(img, mesh, axis), want, mesh)
+            if not (tuple(out.shape) == (4 * img.shape[0], 4 * img.shape[1], 3)
+                    and bool(torch.isfinite(out).all())):
+                self.out["bad"].append(f"rank {self.rank} {label}: shape or not finite")
+            if check_single:
+                self.compare(label, out, runner(img), dt)
+            self.digest(label, out)
+            del out
+            self.busy(label, lambda: runner.sharded_call(img, mesh, axis))
+
+    def steps(self, mesh, n: int, compare_plain_step: bool):
+        """``n`` float32 DP steps (``exact_deterministic``) on this rank's
+        slice of the batch; the first step's loss (1e-5 relative) and
+        gradients (at their bars) against the reference step's on the
+        whole batch and, on more than one rank, its gradients against the
+        mean of the per-image gradients (1e-5 relative norm: the
+        all-reduce's average); with ``compare_plain_step``, every step
+        against ``make_train_step`` (no mesh) from the same state.  Returns
+        the model."""
+        from sisr_tpu_torch.parallel.mesh import shard_batch
+        from sisr_tpu_torch.train.losses import l1_loss
+        from sisr_tpu_torch.train.train_state import make_train_step
+
+        lr, hr = (t.cuda() for t in shard_batch(mesh, self.inputs["batch"]))
+        model = self.model("float32").train()
+        opt = adam(model)
+        step = make_train_step(model, l1_loss, opt, mesh=mesh)
+        if compare_plain_step:
+            solo = self.model("float32").train()
+            solo_opt = adam(solo)
+            solo_step = make_train_step(solo, l1_loss, solo_opt)
+        rows, ref, tight = [], self.ref, dict.fromkeys(self.ref["split_mean"], 1e-5)
+        with exact_deterministic():
+            for i in range(n):
+                loss = float(self.drive(f"dp step {i + 1}", lambda: step(lr, hr), PER_STEP, mesh))
+                row = dict(loss=loss)
+                if i == 0:
+                    row["loss_rel_err"] = abs(loss - ref["loss"]) / abs(ref["loss"])
+                    row["worst_over_bar"], over, row["worst"] = mesh_grads_over(
+                        model, ref["grads"], ref["bars"])
+                    if mesh.size > 1:
+                        row["split_mean_worst"], split_over, row["split_mean_rows"] = \
+                            mesh_grads_over(model, ref["split_mean"], tight)
+                        over += split_over
+                    if row["loss_rel_err"] > 1e-5 or over:
+                        self.out["bad"].append(f"rank {self.rank} dp step: loss "
+                                               f"{row['loss_rel_err']:.2e}, over {over[:3]}")
+                if compare_plain_step:
+                    solo_loss = float(solo_step(lr, hr))
+                    grads = {k: p.grad for k, p in solo.named_parameters() if p.grad is not None}
+                    row["plain_step_loss_rel_err"] = abs(loss - solo_loss) / abs(solo_loss)
+                    row["plain_step_worst_over_bar"], over, _ = mesh_grads_over(
+                        model, grads, ref["bars"])
+                    if row["plain_step_loss_rel_err"] > 1e-5 or over:
+                        self.out["bad"].append(f"rank {self.rank} dp step {i + 1} against "
+                                               f"make_train_step: {over[:3]}")
+                    solo.load_state_dict(model.state_dict())
+                    solo_opt.load_state_dict(opt.state_dict())
+                rows.append(row)
+        self.out["steps"] = rows
+        return model
+
+    def control(self, mesh) -> None:
+        """The DP step with the division by the world size left out (the
+        gradients summed over the ranks) must fail the gradient bars."""
+        import torch.distributed as dist
+        from sisr_tpu_torch.parallel.mesh import shard_batch
+        from sisr_tpu_torch.train import train_state
+        from sisr_tpu_torch.train.losses import l1_loss
+
+        def summed(mesh, params):
+            for p in params:
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=mesh.group)
+
+        lr, hr = (t.cuda() for t in shard_batch(mesh, self.inputs["batch"]))
+        model = self.model("float32").train()
+        sound, train_state.all_reduce_grads = train_state.all_reduce_grads, summed
+        try:
+            with exact_deterministic():
+                train_state.make_train_step(model, l1_loss, adam(model), mesh=mesh)(lr, hr)
+        finally:
+            train_state.all_reduce_grads = sound
+        worst, over, _ = mesh_grads_over(model, self.ref["grads"], self.ref["bars"])
+        self.out["control"] = dict(worst_over_bar=worst, over=len(over))
+        if not over:
+            self.out["bad"].append(f"rank {self.rank}: the control (no division by the "
+                                   "world size) passed the gradient bars")
+
+
+def mesh_allreduce_ms(fn, mesh, n: int = 3) -> list:
+    """Host ms of ``n`` runs of a collective ``fn()``, each from a barrier
+    with the card idle."""
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def mesh_nccl_rank(rank: int, root) -> dict:
+    """(a) One rank in an NCCL group of one: the sharded tiles (bf16, f32)
+    and bands (f32) against their single-process calls, and 3 DP steps each
+    against ``make_train_step``'s from the same state."""
+    from sisr_tpu_torch.parallel.mesh import make_mesh
+    from sisr_tpu_torch.parallel.tiling import BandedHeadSR, TiledSR
+
+    import torch.distributed as dist
+
+    me = MeshRank(rank, root)
+    me.out["backend"] = dist.get_backend()
+    mesh = make_mesh(1)
+    tiles = me.inputs["tiles"].cuda()
+    models = {dt: me.model(dt).eval() for dt in MESH_BARS}
+    for dt, model in models.items():
+        runner = TiledSR(model, scale=4, tile=TILE, overlap=16)
+        me.sharded(make_mesh(1, "tile"), f"tiles {dt}", runner, tiles,
+                   {k: v * 12 for k, v in PER_TILE.items()}, dt, True)
+    runner = BandedHeadSR(models["float32"], band_rows=BAND_ROWS)
+    me.sharded(make_mesh(1, "band"), "bands float32", runner, me.inputs["bands"].cuda(),
+               expected_counts(*MESH_BANDS, 4, True, False), "float32", True)
+    del models, runner
+    me.steps(mesh, MESH_STEPS, True)
+    me.out["counts"] = me.counts
+    return me.out
+
+
+def mesh_gloo_rank(rank: int, root) -> dict:
+    """(b) and (c): one of two gloo ranks on the one card.  The sharded
+    tiles and bands (the 1080p frame included) against the
+    single-process calls (rank 0), the DP step against the single-process
+    step of the whole batch, its control, 3 Adam steps' parameters; the
+    all_reduce times; then ``hitsir_pro_experiment(n_devices=2)`` for one
+    epoch in this rank's own directory."""
+    import hashlib
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.__main__ import experiment_kwargs, parse_args
+    from sisr_tpu_torch.experiments.hitsir_pro_experiment import hitsir_pro_experiment
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.parallel.mesh import (all_reduce_grads, all_reduce_sum, make_mesh,
+                                              replicate)
+    from sisr_tpu_torch.parallel.tiling import BandedHeadSR, TiledSR
+
+    me = MeshRank(rank, root)
+    me.out["backend"] = dist.get_backend()
+    mesh = make_mesh(2)
+    tiles = me.inputs["tiles"].cuda()
+    models = {dt: me.model(dt).eval() for dt in MESH_BARS}
+    for dt, model in models.items():
+        runner = TiledSR(model, scale=4, tile=TILE, overlap=16)
+        me.sharded(make_mesh(2, "tile"), f"tiles {dt}", runner, tiles,
+                   {k: v * 6 for k, v in PER_TILE.items()}, dt, rank == 0)
+    bmesh = make_mesh(2, "band")
+    me.sharded(bmesh, "bands float32", BandedHeadSR(models["float32"], band_rows=BAND_ROWS),
+               me.inputs["bands"].cuda(), expected_counts(*MESH_BANDS, 2, True, False),
+               "float32", rank == 0)
+    frame = BandedHeadSR(models["bfloat16"], band_rows=BAND_ROWS, out_dtype=torch.bfloat16,
+                         align=FRAME_ALIGN)
+    me.sharded(bmesh, "frame bfloat16", frame, me.inputs["frame"].cuda(),
+               expected_counts(*FRAME_ALIGNED, MESH_FRAME_BANDS // 2, True, False), "bfloat16",
+               rank == 0)
+    # the frame's canvas through gloo's host copy, alone
+    s = 4
+    canvas = torch.zeros((s * FRAME_ALIGNED[0], s * FRAME_ALIGNED[1] // 16, 48),
+                         dtype=torch.bfloat16, device="cuda")
+    me.out["allreduce_frame_canvas_ms"] = mesh_allreduce_ms(
+        lambda: all_reduce_sum(mesh, canvas), mesh)
+    me.out["frame_canvas_bytes"] = canvas.numel() * canvas.element_size()
+    del frame, models, runner, canvas
+    torch.cuda.empty_cache()
+
+    model = me.steps(mesh, MESH_STEPS, False)
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    me.out["params_after_steps_sha256"] = h.hexdigest()
+    me.out["allreduce_grads_ms"] = mesh_allreduce_ms(
+        lambda: all_reduce_grads(mesh, model.parameters()), mesh)
+    me.out["grad_bytes"] = sum(p.grad.numel() * 4 for p in model.parameters()
+                               if p.grad is not None)
+    del model
+    me.control(mesh)
+    torch.cuda.empty_cache()
+
+    # (c) the runner, one epoch, in this rank's own directory
+    work = root / f"rank{rank}"
+    work.mkdir()
+    kw = experiment_kwargs(parse_args(
+        ["hitsir_pro", "--epochs", "1", "--train-sets", "setA", "--eval-sets", "setB",
+         "--test-sets", "setB", "--loader-workers", "0", "--data-root", str(root / "data")]))
+    kw.update(progress=False, run=False, n_devices=2)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        exp = hitsir_pro_experiment(**kw)
+        infer.synth_weights(exp.model, seed=0)
+        replicate(mesh, exp.model)
+        want = {k: PER_STEP.get(k, 0) * len(exp.train_loaders[0])
+                + expected_counts(*(d // 4 for d in MESH_EVAL[0]), 1, False, False)[k]
+                for k in build.launches}
+        try:
+            me.drive("runner 1 epoch", exp.run, want, mesh)
+        finally:
+            exp.close()
+        me.out["runner_loss"] = exp.epoch_loss.avg
+    finally:
+        os.chdir(cwd)
+    me.out["files"] = sorted(str(p.relative_to(work)) for p in work.rglob("*"))
+    me.out["counts"] = me.counts
+    return me.out
+
+
+def run_mesh(failures: list, card: str) -> dict:
+    """The mesh phase: (a) NCCL at world size 1, (b) two gloo ranks on the
+    card, (c) the runner's data parallelism on them, against the
+    single-process results.  Returns the launches the ranks' driven calls
+    made, summed."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.__main__ import experiment_kwargs, parse_args
+    from sisr_tpu_torch.experiments.hitsir_pro_experiment import hitsir_pro_experiment
+    from sisr_tpu_torch.parallel.mesh import spawn
+
+    root = Path(__file__).resolve().parent / "build" / "smoke" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mesh_reference(root)
+    runner_folders(root, MESH_TRAIN, MESH_EVAL)
+    single = root / "single"
+    single.mkdir()
+    kw = experiment_kwargs(parse_args(
+        ["hitsir_pro", "--epochs", "1", "--train-sets", "setA", "--eval-sets", "setB",
+         "--test-sets", "setB", "--loader-workers", "0", "--data-root", str(root / "data")]))
+    kw.update(progress=False, run=False)
+    cwd = os.getcwd()
+    os.chdir(single)
+    try:
+        exp = hitsir_pro_experiment(**kw)
+        infer.synth_weights(exp.model, seed=0)
+        try:
+            exp.run()
+        finally:
+            exp.close()
+        single_loss = exp.epoch_loss.avg
+        del exp
+    finally:
+        os.chdir(cwd)
+    summary = dict(card=card, note="two ranks share one card: correctness and the "
+                   "collectives' cost, not scaling", setup_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    nccl = spawn(mesh_nccl_rank, 1, root, backend="nccl", device="cuda:0", timeout=600)
+    summary["nccl_s"] = time.perf_counter() - t0
+    log(f"  (a) nccl, world size 1: {summary['nccl_s']:.1f} s, backend {nccl[0]['backend']}")
+    t0 = time.perf_counter()
+    gloo = spawn(mesh_gloo_rank, 2, root, backend="gloo", device="cuda:0", timeout=900)
+    summary["gloo_s"] = time.perf_counter() - t0
+    log(f"  (b, c) backend {gloo[0]['backend']}, 2 ranks on cuda:0: {summary['gloo_s']:.1f} s")
+
+    for res in nccl + gloo:
+        failures.extend(res["bad"])
+    for label in gloo[0]["calls"]:
+        digests = {r["calls"][label].get("sha256") for r in gloo}
+        if len(digests) != 1:
+            failures.append(f"mesh {label}: the ranks' outputs differ")
+    if gloo[0]["params_after_steps_sha256"] != gloo[1]["params_after_steps_sha256"]:
+        failures.append("mesh: the ranks' parameters differ after the DP steps")
+    rank0_loss = [r["runner_loss"] for r in gloo]
+    rel = abs(rank0_loss[0] - single_loss) / abs(single_loss)
+    if not (rel <= 1e-4 and rank0_loss[0] == rank0_loss[1]):
+        failures.append(f"mesh runner: loss {rank0_loss} against single {single_loss}")
+    if gloo[1]["files"]:
+        failures.append(f"mesh runner: rank 1 wrote {gloo[1]['files'][:5]}")
+    if "logs" not in {f.split(os.sep)[0] for f in gloo[0]["files"]}:
+        failures.append("mesh runner: rank 0 wrote no logs")
+
+    counts = {k: sum(r["counts"][k] for r in nccl + gloo) for k in nccl[0]["counts"]}
+    summary.update(
+        nccl_world1=dict(calls=nccl[0]["calls"], steps=nccl[0]["steps"]),
+        gloo_ranks=[dict(rank=r["rank"], calls=r["calls"], steps=r["steps"],
+                         control=r["control"], launches=r["counts"],
+                         allreduce_grads_ms=r["allreduce_grads_ms"],
+                         allreduce_frame_canvas_ms=r["allreduce_frame_canvas_ms"])
+                    for r in gloo],
+        grad_bytes=gloo[0]["grad_bytes"], frame_canvas_bytes=gloo[0]["frame_canvas_bytes"],
+        runner=dict(loss_ranks=rank0_loss, loss_single=single_loss, loss_rel_err=rel,
+                    rank1_files=len(gloo[1]["files"])),
+        launches=counts)
+    for tag, r in [("nccl rank 0", nccl[0])] + [(f"gloo rank {r['rank']}", r) for r in gloo]:
+        for label, c in r["calls"].items():
+            log(f"  {tag} {label}: wall {c['wall_ms']:.1f} ms"
+                + (f", profiled wall {c['profiled_wall_ms']:.1f} ms, device busy "
+                   f"{c['device_busy_ms']:.1f} ms" if "device_busy_ms" in c else "")
+                + (f", max |sharded - single| {c['max_abs_err']:.2e}"
+                   if "max_abs_err" in c else "") + f" [{card}]")
+    for r in gloo:
+        log(f"  gloo rank {r['rank']} all_reduce: gradients ({r['grad_bytes'] / 2**20:.1f} MiB) "
+            f"{r['allreduce_grads_ms']} ms, the 1080p canvas "
+            f"({r['frame_canvas_bytes'] / 2**20:.1f} MiB) {r['allreduce_frame_canvas_ms']} ms "
+            f"[{card}]")
+    log(f"  runner: loss {rank0_loss} against single-process {single_loss} "
+        f"({rel:.2e} relative); rank 1's directory holds {len(gloo[1]['files'])} files")
+    log(f"  launches over the ranks' driven calls: {counts}")
+    log(json.dumps({"mesh": summary}))
+    return counts
+
+
 # what each path must launch: serving the tiles, the whole-image path and
 # the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
@@ -3161,7 +3693,7 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases",
                    default="build,kernels,split,serve,whole,train,runner,heads,gan,families,"
-                           "profile,check")
+                           "mesh,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -3194,7 +3726,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
-    heads, ganned, families, fusion_backward = None, None, None, None
+    heads, ganned, families, fusion_backward, meshed = None, None, None, None, None
 
     log("[build]")
     try:
@@ -3299,6 +3831,14 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"families: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "mesh" in phases and not failures:
+        log("[mesh] parallel/mesh.py: NCCL at world size 1, two gloo ranks on the card "
+            "(sharded tiles and bands, the DP step), hitsir_pro_experiment(n_devices=2)")
+        try:
+            meshed = run_mesh(failures, card)
+        except Exception:
+            failures.append(f"mesh: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "profile" in phases and served is not None:
         for dt in ("bfloat16", "float32"):
             log(f"[profile] one {dt} 192x192 tile")
@@ -3327,11 +3867,12 @@ def main(argv=None) -> int:
 
     # each path's counts, set to 0 just before it and read just after
     paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
-             "runner": ran, "heads": heads, "gan": ganned, "families": families}
+             "runner": ran, "heads": heads, "gan": ganned, "families": families,
+             "mesh": meshed}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
                         ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS),
                         ("heads", HEADS_KERNELS), ("gan", GAN_KERNELS),
-                        ("families", FAMILIES_KERNELS)):
+                        ("families", FAMILIES_KERNELS), ("mesh", MESH_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
     kernels = []
@@ -3362,7 +3903,7 @@ def main(argv=None) -> int:
             print(f"  {f}", file=sys.stderr)
         return 1
     if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "gan",
-            "families", "check"} <= phases:
+            "families", "mesh", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

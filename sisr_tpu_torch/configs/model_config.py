@@ -20,6 +20,8 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from sisr_tpu_torch.parallel.mesh import process_zero
+
 optimizers = ["Adam"]
 loss_functions = ["mse", "l1", "charbonnier"]
 
@@ -115,8 +117,9 @@ class ModelConfig:
         if self.loss_function not in loss_functions:
             raise ValueError(f"loss_function must be in {loss_functions}")
 
+        # rank 0 alone makes folders under data parallelism
         for folder in (self.checkpoint_folder, self.result_folder, self.log_folder):
-            if folder is not None:
+            if folder is not None and process_zero():
                 os.makedirs(folder, exist_ok=True)
 
         for lst, label in ((train_data_name_list, "train"),

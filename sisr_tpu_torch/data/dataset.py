@@ -134,6 +134,13 @@ class DataLoader:
         input-bound).  Requires a
         seeded dataset for reproducibility (worker draws are a pure function
         of (seed, epoch, index)).
+
+    ``rank`` / ``world``: data parallelism.  Every rank draws the same
+    shuffled order of global batches of ``batch_size`` and collates only
+    its contiguous slice of each, ``batch_size // world`` items.  The items
+    of a seeded dataset are a pure function of (seed, epoch, index), so the
+    ranks' slices together are the single-device batch, bit for bit.  Only
+    a seeded dataset with ``drop_last`` is sharded.
     """
 
     def __init__(self, dataset: SRDataset, batch_size: int = 1, shuffle: bool = False,
@@ -141,7 +148,14 @@ class DataLoader:
                  seed: Optional[int] = None, name: str = "",
                  worker_type: str = "thread",
                  result_timeout: float = 600.0,
-                 bootstrap_timeout: float = 600.0):
+                 bootstrap_timeout: float = 600.0,
+                 rank: int = 0, world: int = 1):
+        if world > 1 and (dataset.seed is None or batch_size % world or not drop_last):
+            raise ValueError(f"DataLoader({name!r}): sharding over {world} ranks needs a "
+                             f"seeded dataset, drop_last and a batch size divisible by "
+                             f"{world}, got seed {dataset.seed}, drop_last {drop_last} and "
+                             f"batch size {batch_size}")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -236,6 +250,9 @@ class DataLoader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.world > 1:
+            per = self.batch_size // self.world
+            batches = [b[self.rank * per:(self.rank + 1) * per] for b in batches]
         return batches
 
     def _collate(self, idxs: Sequence[int]):

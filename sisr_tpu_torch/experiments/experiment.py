@@ -28,6 +28,14 @@ their autograd Functions backward), fed by the host loader through
 at or above ``eval_band_area`` input pixels) or overlap-blended tiles
 (``TiledSR``).  Everything runs on ``device``, the card unless the caller
 asks for the CPU.
+
+Data parallelism (``n_devices`` > 1; JAX's batch sharded on a 1-D mesh):
+one process per device, each in a process group of ``n_devices`` ranks
+(``parallel/mesh.py::initialize_distributed``).  Each rank's train loader
+collates its slice of every global batch; the step averages the gradients
+over the ranks; rank 0 reads a checkpoint and ``replicate`` hands its
+model, optimizer state and epoch to the others; eval and test run whole on
+every rank; only rank 0 writes files or makes folders.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from sisr_tpu_torch.data.dataset import DataLoader, SRDataset
 from sisr_tpu_torch.data.prefetch import device_prefetch
 from sisr_tpu_torch.data.transforms import convert_image
 from sisr_tpu_torch.ops.metrics import psnr as psnr_fn, ssim as ssim_fn
+from sisr_tpu_torch.parallel.mesh import make_mesh, process_zero, replicate
 from sisr_tpu_torch.parallel.tiling import BandedHeadSR, TiledSR
 from sisr_tpu_torch.train import checkpoint as ckpt
 from sisr_tpu_torch.train.train_state import (TrainState, create_train_state,
@@ -106,18 +115,17 @@ class Experiment:
         # LPIPS as its neutral 1.0
         lpips_weights_path: Optional[str] = None,
         progress: bool = True,
+        # data parallelism: the ranks of the initialized process group
+        # (one process per device), each with its slice of every batch
         n_devices: Optional[int] = None,
         device="cuda",
     ):
-        if n_devices and n_devices > 1:
-            raise NotImplementedError(
-                "data parallelism over several cards is not ported yet "
-                "(ROADMAP.md, Queue 1: Multi-GPU)")
         if eval_precision not in ("fast", "exact"):
             raise ValueError(f"eval_precision must be 'fast' or 'exact', got {eval_precision!r}")
         if eval_mode not in ("whole", "tiled"):
             raise ValueError(f"eval_mode must be 'whole' or 'tiled', got {eval_mode!r}")
-        self.device = resolve_device(device)
+        self.mesh = self._make_mesh(n_devices, model_config.batch_size, resolve_device(device))
+        self.device = self.mesh.device
         self.eval_precision = eval_precision
         self.eval_band_area = eval_band_area
         self.eval_tile = eval_tile
@@ -187,18 +195,36 @@ class Experiment:
 
     # ------------------------------------------------------------------ setup
 
+    @staticmethod
+    def _make_mesh(n_devices: Optional[int], batch_size: int, device: torch.device):
+        """The data-parallel mesh: the initialized group's ranks, which
+        ``n_devices`` must name (``make_mesh`` raises on another size, or
+        on n_devices > 1 with no group), else one rank on ``device``."""
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_available() and torch.distributed.is_initialized()
+                 else 1)
+        if n_devices is None and world > 1:
+            raise RuntimeError(f"a process group of {world} ranks is initialized: pass "
+                               f"n_devices={world}, or each rank trains alone on the same files")
+        if n_devices and batch_size % n_devices:
+            raise ValueError(f"batch_size {batch_size} must divide over n_devices "
+                             f"{n_devices} for data parallelism")
+        return make_mesh(n_devices, device=device)
+
     def _init_lpips(self, weights_path: Optional[str]):
         """LPIPS(vgg) as a function of two Y images, from ``LPIPSVgg``'s
         state dict in the file ``weights_path``; None (LPIPS logged as its
-        neutral 1.0) without a file, as in the JAX runner."""
-        if not (weights_path and os.path.exists(weights_path)):
+        neutral 1.0) without a file, as in the JAX runner.  Under data
+        parallelism rank 0 reads the file and hands the weights on."""
+        if not replicate(self.mesh, bool(weights_path and os.path.exists(weights_path))):
             return None
         from sisr_tpu_torch.models.vgg import LPIPSVgg
 
         model = LPIPSVgg()
-        model.load_state_dict(torch.load(weights_path, map_location="cpu", weights_only=True),
-                              strict=True)
-        model = model.to(self.device).eval()
+        if process_zero():
+            model.load_state_dict(torch.load(weights_path, map_location="cpu",
+                                             weights_only=True), strict=True)
+        model = replicate(self.mesh, model.to(self.device).eval())
 
         def compute(a_y: np.ndarray, b_y: np.ndarray) -> float:
             # reference quirks (experiment.py:469): LPIPS is fed the (h, w)
@@ -222,7 +248,8 @@ class Experiment:
                                 drop_last=True, seed=i,
                                 name=mc.train_data_name_list[i],
                                 num_workers=mc.loader_workers,
-                                worker_type=mc.loader_worker_type)
+                                worker_type=mc.loader_worker_type,
+                                rank=self.mesh.rank, world=self.mesh.size)
             self.train_loaders.append(loader)
         for i, path in enumerate(mc.eval_data_path_list):
             dataset = SRDataset(self.eval_data_config, path)
@@ -242,6 +269,13 @@ class Experiment:
     def init_model(self):
         if self.train_data_config.image_size % self.train_data_config.scaling_factor:
             raise ValueError("the HR crop must be a multiple of the scaling factor")
+        if self.mesh.size > 1 and any(getattr(self.model, k, 0.0) > 0 for k in (
+                "drop_rate", "value_drop_rate", "drop_path_rate")):
+            # JAX draws one mask over the global batch from its step key;
+            # each rank's generator would draw other masks for its slice
+            raise NotImplementedError(
+                "HiTSIR's dropout, value dropout and drop-path under data parallelism "
+                "(ROADMAP.md, Queue 3)")
         self.print_total_params_num()
         self.init_eval()
 
@@ -270,6 +304,8 @@ class Experiment:
         total = sum(p.numel() for p in self.model.parameters())
         descr = f"Total parameters: {total}"
         print(descr)
+        if not process_zero():
+            return
         with open(os.path.join(self.model_config.log_folder, "模型参数量.txt"), "w") as f:
             f.write(descr + "\n")
 
@@ -280,21 +316,30 @@ class Experiment:
         self.loss_function = get_loss_function(mc.loss_function)
         self.lr_schedule = get_scheduler(mc.learning_rate, mc.min_learning_rate, mc.epochs)
         self.state = create_train_state(self.model, tx)
-        self.train_step = make_train_step(self.model, self.loss_function, tx)
+        self.train_step = make_train_step(self.model, self.loss_function, tx, mesh=self.mesh)
 
     def load_model_weights_scheduler(self, is_gan_start: bool = False):
         """Load ``new_epoch_model.pth`` (test mode: the test model): the
         weights, and the optimizer's state unless ``is_gan_start`` (the
         first GAN epoch starts a fresh optimizer on PSNR-trained weights).
-        In GAN mode the discriminator's checkpoint sets the epoch."""
+        In GAN mode the discriminator's checkpoint sets the epoch.  Rank 0
+        reads the file; ``_replicate_state`` hands the state on."""
         path = self.model_config.test_model_path if self.is_test else self.new_model_path
-        if os.path.exists(path):
+        if process_zero() and os.path.exists(path):
             loaded = ckpt.load_any(path, self.model,
                                    None if is_gan_start else self.state.optimizer)
             if not self.gan_mode:
                 self.start_epoch = loaded["start_epoch"] + 1
             print(f"loaded weights from {path}, trained epochs: {self.start_epoch - 1}")
+        self._replicate_state()
         self._sync_epoch_lr()
+
+    def _replicate_state(self):
+        """Rank 0's model, optimizer state and epoch on every rank, after
+        the init and after every load (no collective without a group)."""
+        replicate(self.mesh, self.model)
+        replicate(self.mesh, self.state.optimizer)
+        self.start_epoch = replicate(self.mesh, self.start_epoch)
 
     def current_lr(self) -> float:
         return self.lr_schedule(self.start_epoch - 1)
@@ -305,6 +350,8 @@ class Experiment:
         set_learning_rate(self.state.optimizer, self.current_lr())
 
     def save_model_weights(self, model_path: str):
+        if not process_zero():
+            return
         ckpt.save_checkpoint(model_path, self.start_epoch, self.state.model,
                              self.state.optimizer)
 
@@ -335,6 +382,8 @@ class Experiment:
 
     @staticmethod
     def _write_rows(path: str, rows):
+        if not process_zero():
+            return
         with open(path, "w") as f:
             for row in rows:
                 f.write(" ".join(str(c) for c in row) if isinstance(row, (list, tuple))
@@ -380,6 +429,13 @@ class Experiment:
                 self.total_seconds_consume_log[0] += float(item[1].split("训练时长:")[1])
                 if item[2] != "None":
                     self.total_seconds_consume_log[0] += float(item[2].split("验证时长:")[1])
+        # rank 0's logs on every rank: they decide the interrupted-eval
+        # repair, and a rank in a directory of its own has none
+        names = ("loss_log", "psnr_ssim_lpips_log", "only_best_psnr", "only_best_ssim",
+                 "only_best_lpips", "best_epoch_psnr_ssim_lpips_log", "lr_log",
+                 "train_eval_seconds_consume_log", "total_seconds_consume_log")
+        for k, v in replicate(self.mesh, {k: getattr(self, k) for k in names}).items():
+            setattr(self, k, v)
 
     def __save_log(self):
         self._write_rows(self.train_eval_seconds_consume_log_path,
@@ -393,8 +449,9 @@ class Experiment:
     # ------------------------------------------------------------------ train
 
     def train_batch(self, lr_imgs: torch.Tensor, hr_imgs: torch.Tensor):
+        # the global batch's loss, counted at the global batch's size
         loss = self.train_step(lr_imgs, hr_imgs, self._generator)
-        self.epoch_loss.update(float(loss), len(hr_imgs))
+        self.epoch_loss.update(float(loss), len(hr_imgs) * self.mesh.size)
 
     def train(self):
         self.epoch_loss.reset()
@@ -557,6 +614,8 @@ class Experiment:
         self.test_set_ssim.update(s, 1)
         if lp is not None:
             self.test_set_lpips.update(lp, 1)
+        if not process_zero():
+            return
 
         result_path = os.path.join(self.result_path, dataloader_name)
         os.makedirs(result_path, exist_ok=True)
@@ -574,9 +633,10 @@ class Experiment:
         self._write_rows(os.path.join(self.result_path, subfolder, "test_log.txt"), rows)
 
     def _test(self):
-        os.makedirs(self.result_path, exist_ok=True)
-        for path in self.result_data_paths:
-            os.makedirs(path, exist_ok=True)
+        if process_zero():
+            os.makedirs(self.result_path, exist_ok=True)
+            for path in self.result_data_paths:
+                os.makedirs(path, exist_ok=True)
         for loader in self.test_loaders:
             self.test_set_psnr.reset()
             self.test_set_ssim.reset()
@@ -617,7 +677,7 @@ class Experiment:
     def save_epoch_mode_5(self, epoch: int):
         """Rolling epoch=N snapshot of weights/ and logs/ every 5 epochs
         (reference experiment.py:857-878)."""
-        if epoch % 5 != 0:
+        if epoch % 5 != 0 or not process_zero():
             return
         for folder, pattern in ((self.model_config.checkpoint_folder, "/*.pth"),
                                 (self.model_config.log_folder, "/*.txt")):

@@ -13,7 +13,10 @@ Parity with reference experiments/hitsir_pro_gan_experiment.py:15-279:
 
 Both optimizer updates run in one eager step
 (``train/train_state.py::make_gan_train_step``), the generator on its
-kernels.
+kernels.  Under data parallelism the discriminator, its optimizer state
+and the perceptual VGG19 are rank 0's on every rank (a random VGG19 drawn
+per rank would give each rank another perceptual loss), D's gradients are
+averaged as G's, and rank 0 alone reads and writes D's checkpoint.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from sisr_tpu_torch.configs.model_config import get_optimizer
 from sisr_tpu_torch.experiments.hitsir_pro_experiment import HITSIRPROExperiment, make_experiment
 from sisr_tpu_torch.models.discriminator import UNetDiscriminatorSN
 from sisr_tpu_torch.models.vgg import PerceptualLoss, load_perceptual_state
+from sisr_tpu_torch.parallel.mesh import process_zero, replicate
 from sisr_tpu_torch.train import checkpoint as ckpt
 from sisr_tpu_torch.train.train_state import (create_train_state, make_gan_train_step,
                                               set_learning_rate)
@@ -64,22 +68,22 @@ class HITSIRPROGANExperiment(HITSIRPROExperiment):
                              mc.optimizer_params)
         self.d_state = create_train_state(self.discriminator, d_tx)
 
-        state = load_perceptual_state(self._perceptual_weights_path)
+        state = load_perceptual_state(self._perceptual_weights_path) if process_zero() else None
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             perceptual = PerceptualLoss(state_dict=state)
-        self.f_loss_function = perceptual.to(self.device)
+        self.f_loss_function = replicate(self.mesh, perceptual.to(self.device))
         self.f_loss_function_weight = 1.0
         self.d_loss_function_weight = 0.1
         self.gan_step = make_gan_train_step(
             self.model, self.discriminator, self.loss_function, self.f_loss_function,
             self.state.optimizer, d_tx, perceptual_weight=self.f_loss_function_weight,
-            adversarial_weight=self.d_loss_function_weight)
+            adversarial_weight=self.d_loss_function_weight, mesh=self.mesh)
 
     def load_model_weights_scheduler(self, is_gan_start: bool = False):
         self.discriminator_pretrain_model_path = os.path.join(
             self.model_config.checkpoint_folder, "discriminator_new_epoch_model.pth")
-        if os.path.exists(self.discriminator_pretrain_model_path):
+        if process_zero() and os.path.exists(self.discriminator_pretrain_model_path):
             # the model (with the spectral norm's u, v) and the optimizer
             loaded = ckpt.load_checkpoint(self.discriminator_pretrain_model_path,
                                           self.discriminator, self.d_state.optimizer)
@@ -87,14 +91,20 @@ class HITSIRPROGANExperiment(HITSIRPROExperiment):
             print(f"loaded discriminator, trained epochs: {self.start_epoch - 1}")
         super().load_model_weights_scheduler(is_gan_start=self.start_epoch == 1)
 
+    def _replicate_state(self):
+        super()._replicate_state()
+        replicate(self.mesh, self.discriminator)
+        replicate(self.mesh, self.d_state.optimizer)
+
     def _sync_epoch_lr(self):
         super()._sync_epoch_lr()
         set_learning_rate(self.d_state.optimizer, self.current_lr())
 
     def train_batch(self, lr_imgs: torch.Tensor, hr_imgs: torch.Tensor):
         g_loss, d_loss = self.gan_step(lr_imgs, hr_imgs, self._generator)
-        self.epoch_loss.update(float(g_loss), len(hr_imgs))
-        self.epoch_discriminator_loss.update(float(d_loss), len(hr_imgs))
+        n = len(hr_imgs) * self.mesh.size
+        self.epoch_loss.update(float(g_loss), n)
+        self.epoch_discriminator_loss.update(float(d_loss), n)
 
     def train(self):
         self.epoch_discriminator_loss.reset()
@@ -102,8 +112,9 @@ class HITSIRPROGANExperiment(HITSIRPROExperiment):
 
     def train_dataloader_process(self):
         super().train_dataloader_process()
-        ckpt.save_checkpoint(self.discriminator_pretrain_model_path, self.start_epoch,
-                             self.discriminator, self.d_state.optimizer)
+        if process_zero():
+            ckpt.save_checkpoint(self.discriminator_pretrain_model_path, self.start_epoch,
+                                 self.discriminator, self.d_state.optimizer)
         self.loss_log[-1].append(f"d_loss:{self.epoch_discriminator_loss.avg}")
         lr = format_str(self.lr_schedule(self.start_epoch), 25)
         self.lr_log[-1] = f"epoch:{self.start_epoch + 1},lr:{lr}, discriminator_lr:{lr}"

@@ -734,6 +734,8 @@ class HiTSIR(nn.Module):
         self.dtype = dtype
         self.head_packed = head_packed
         self.drop_rate = drop_rate
+        self.value_drop_rate = value_drop_rate
+        self.drop_path_rate = drop_path_rate
         self.img_size = img_size
         wins = tuple((int(base_win_size[0] * r), int(base_win_size[1] * r))
                      for r in hier_win_ratios)

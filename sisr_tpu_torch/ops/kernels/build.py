@@ -121,6 +121,16 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``: the C entry point ``fn`` on ``device``'s
+    current stream, with ``device`` made the current device for the call.
+    A launch and ``cudaFuncSetAttribute`` apply to the current device,
+    which is not the tensors' when a rank's tensors lie on ``cuda:1`` while
+    ``cuda:0`` is current."""
+    with torch.cuda.device(device):
+        return fn(*args, stream(device))
+
+
 def as_arg(t, dtype: torch.dtype):
     """``t`` as a contiguous ``dtype`` tensor; no op is issued when it is one
     already (the model hands the kernels their cached weights as they are)."""

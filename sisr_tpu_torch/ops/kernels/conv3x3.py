@@ -162,10 +162,10 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
-    code = fn(
-        build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res), build.ptr(kernel),
-        build.ptr(packed), build.ptr(bias), build.ptr(out), b, h, w, cin, cout, npad or 0,
-        ACTS[act], int(shuffled), build.stream(y.device))
+    code = build.launch(fn, y.device,
+                        build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res),
+                        build.ptr(kernel), build.ptr(packed), build.ptr(bias), build.ptr(out),
+                        b, h, w, cin, cout, npad or 0, ACTS[act], int(shuffled))
     build.raise_on_error(name, code)
     build.launches[name] += 1
     return out
@@ -240,9 +240,10 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1), build.ptr(w1p),
-              build.ptr(b1), build.ptr(k2), build.ptr(b2), build.ptr(out), b, 2 * h2, 2 * w2,
-              cin, c1, cout, ACTS[act1], build.stream(yp.device))
+    code = build.launch(fn, yp.device,
+                        build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1),
+                        build.ptr(w1p), build.ptr(b1), build.ptr(k2), build.ptr(b2),
+                        build.ptr(out), b, 2 * h2, 2 * w2, cin, c1, cout, ACTS[act1])
     build.raise_on_error(name, code)
     build.launches[name] += 1
     return out

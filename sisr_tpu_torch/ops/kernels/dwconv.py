@@ -47,8 +47,9 @@ def _dwconv_cuda(x, w, b, flip: bool):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[x.dtype], build.ptr(x), build.ptr(w), build.ptr(b),
-              build.ptr(y), bsz, h, wd, c, int(flip), build.stream(x.device))
+    code = build.launch(fn, x.device,
+                        build.DTYPE_CODES[x.dtype], build.ptr(x), build.ptr(w), build.ptr(b),
+                        build.ptr(y), bsz, h, wd, c, int(flip))
     build.raise_on_error("dwconv5x5", code)
     build.launches["dwconv5x5"] += 1
     return y

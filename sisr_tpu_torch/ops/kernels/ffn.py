@@ -190,12 +190,13 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 21
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
-    code = fn(build.DTYPE_CODES[dt], build.ptr(attn), build.ptr(shortcut),
-              *[build.ptr(t) for t in weights], build.ptr(out),
-              build.ptr(cmean), build.ptr(cmax), build.ptr(psum),
-              build.ptr(pmax), build.ptr(hbuf), build.ptr(w1p), build.ptr(w2p),
-              build.ptr(xbuf), attn.stride(0), attn.stride(1),
-              b, h, w, c, ch, band, build.stream(dev))
+    code = build.launch(fn, dev,
+                        build.DTYPE_CODES[dt], build.ptr(attn), build.ptr(shortcut),
+                        *[build.ptr(t) for t in weights], build.ptr(out),
+                        build.ptr(cmean), build.ptr(cmax), build.ptr(psum),
+                        build.ptr(pmax), build.ptr(hbuf), build.ptr(w1p), build.ptr(w2p),
+                        build.ptr(xbuf), attn.stride(0), attn.stride(1),
+                        b, h, w, c, ch, band)
     build.raise_on_error("htb_tail", code)
     build.launches["htb_tail"] += 1
     if not stats:

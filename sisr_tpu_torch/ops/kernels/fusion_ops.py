@@ -102,8 +102,9 @@ def _fusion_pools_cuda(a, b):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
-              build.ptr(hp3), build.ptr(wp3), bsz, h, w, c, build.stream(a.device))
+    code = build.launch(fn, a.device,
+                        build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
+                        build.ptr(hp3), build.ptr(wp3), bsz, h, w, c)
     build.raise_on_error("fusion_pools", code)
     build.launches["fusion_pools"] += 1
     return cp3, hp3, wp3
@@ -201,9 +202,10 @@ def _fused_fusion_cuda(a, b, packed):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
-              build.ptr(hp3), build.ptr(wp3), *[build.ptr(t) for t in packed],
-              build.ptr(scratch), build.ptr(out), bsz, h, w, c, build.stream(a.device))
+    code = build.launch(fn, a.device,
+                        build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
+                        build.ptr(hp3), build.ptr(wp3), *[build.ptr(t) for t in packed],
+                        build.ptr(scratch), build.ptr(out), bsz, h, w, c)
     build.raise_on_error("fused_fusion", code)
     build.launches["fused_fusion"] += 1
     return out

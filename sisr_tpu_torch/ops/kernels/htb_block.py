@@ -104,12 +104,13 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
-    code = fn(build.DTYPE_CODES[dt], build.ptr(x), *[build.ptr(t) for t in sca_in],
-              *[build.ptr(t) for t in ins[:3]], build.ptr(pb32),
-              *[build.ptr(t) for t in ins[3:]], *[build.ptr(t) for t in tail],
-              build.ptr(x2), build.ptr(hbuf), build.ptr(out), *[build.ptr(t) for t in st],
-              *[build.ptr(t) for t in packs], b, h, w, c, heads, wh, ww, ch,
-              build.stream(dev))
+    code = build.launch(fn, dev,
+                        build.DTYPE_CODES[dt], build.ptr(x), *[build.ptr(t) for t in sca_in],
+                        *[build.ptr(t) for t in ins[:3]], build.ptr(pb32),
+                        *[build.ptr(t) for t in ins[3:]], *[build.ptr(t) for t in tail],
+                        build.ptr(x2), build.ptr(hbuf), build.ptr(out),
+                        *[build.ptr(t) for t in st],
+                        *[build.ptr(t) for t in packs], b, h, w, c, heads, wh, ww, ch)
     build.raise_on_error("htb_fused", code)
     build.launches["htb_fused"] += 1
     if not stats:

@@ -180,12 +180,13 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    code = fn(build.DTYPE_CODES[dt], build.ptr(x),
-              *[build.ptr(t) for t in sca_in],
-              build.ptr(ins[0]), build.ptr(ins[1]), build.ptr(ins[2]),
-              build.ptr(pb32), *[build.ptr(t) for t in ins[3:]],
-              *[build.ptr(t) for t in packs], build.ptr(out), build.ptr(scratch),
-              b, hp, wp, c, heads, wh, ww, l_base, build.stream(x.device))
+    code = build.launch(fn, x.device,
+                        build.DTYPE_CODES[dt], build.ptr(x),
+                        *[build.ptr(t) for t in sca_in],
+                        build.ptr(ins[0]), build.ptr(ins[1]), build.ptr(ins[2]),
+                        build.ptr(pb32), *[build.ptr(t) for t in ins[3:]],
+                        *[build.ptr(t) for t in packs], build.ptr(out), build.ptr(scratch),
+                        b, hp, wp, c, heads, wh, ww, l_base)
     build.raise_on_error("scc_block", code)
     build.launches["scc_block"] += 1
     return out

@@ -9,6 +9,11 @@ how many tiles cover each output pixel.  A tile of 192 is the lcm of the
 4..64 window ladder, so no attention block pads inside a tile.  Images
 smaller than the tile are padded up (reflect, or symmetric for tiny
 inputs), run, and cropped.  ``BandedHeadSR`` is described in its class.
+
+Both have a ``sharded_call`` over a ``parallel/mesh.py::Mesh`` (JAX's
+``shard_map`` forms): each rank runs its share of the tiles or head bands
+into a local canvas, one ``all_reduce`` sums the canvases, and every rank
+returns the whole image.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from sisr_tpu_torch.ops.kernels.conv3x3 import tail_pack_group
 from sisr_tpu_torch.ops.windows import pad_hw
+from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 
 def tile_positions(length: int, tile: int, overlap: int) -> List[int]:
@@ -31,6 +37,13 @@ def tile_positions(length: int, tile: int, overlap: int) -> List[int]:
     starts = list(range(0, length - tile, stride))
     starts.append(length - tile)
     return starts
+
+
+def _axis_size(mesh: Mesh, axis: str) -> int:
+    """The mesh's size along ``axis``, its one axis (JAX's ``mesh.shape[axis]``)."""
+    if axis != mesh.axis_name:
+        raise KeyError(f"the mesh's axis is {mesh.axis_name!r}, not {axis!r}")
+    return mesh.size
 
 
 def _pad_bottom_right(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -81,27 +94,60 @@ class TiledSR:
             wmap[y * s:(y + th) * s, x * s:(x + tw) * s] += 1.0
         return 1.0 / wmap
 
-    def __call__(self, img: torch.Tensor) -> torch.Tensor:
-        """img: (H, W, 3) in [0,1] -> (H*scale, W*scale, 3) in out_dtype."""
-        h, w = img.shape[:2]
-        ph = max(0, self.tile_h - h)
-        pw = max(0, self.tile_w - w)
-        img = _pad_bottom_right(img, ph, pw)
-        hh, ww = img.shape[:2]
+    def _canvas(self, img: torch.Tensor, pos: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """The tiles at ``pos`` (a chunk multiple) run and summed into a
+        zero ``dtype`` canvas of the whole output."""
         s, th, tw = self.scale, self.tile_h, self.tile_w
-        pos = self._positions(hh, ww)
-        inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
-        out = torch.zeros((hh * s, ww * s, 3), dtype=self.out_dtype,
-                          device=img.device)
+        hh, ww = img.shape[:2]
+        out = torch.zeros((hh * s, ww * s, 3), dtype=dtype, device=img.device)
         for yx in pos.reshape(-1, self.chunk, 2):
             patches = torch.stack([img[y:y + th, x:x + tw] for y, x in yx])
-            sr = self.model_apply(patches).to(self.out_dtype)
+            sr = self.model_apply(patches).to(dtype)
             for i, (y, x) in enumerate(yx):
                 out[y * s:(y + th) * s, x * s:(x + tw) * s] += sr[i]
-        out = out * inv_w
-        if ph or pw:
-            out = out[: h * s, : w * s]
         return out
+
+    def _padded(self, img: torch.Tensor):
+        h, w = img.shape[:2]
+        ph, pw = max(0, self.tile_h - h), max(0, self.tile_w - w)
+        return _pad_bottom_right(img, ph, pw), h, w
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        """img: (H, W, 3) in [0,1] -> (H*scale, W*scale, 3) in out_dtype."""
+        img, h, w = self._padded(img)
+        hh, ww = img.shape[:2]
+        pos = self._positions(hh, ww)
+        inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
+        out = self._canvas(img, pos, self.out_dtype) * inv_w
+        return out[: h * self.scale, : w * self.scale]
+
+    def sharded_positions(self, h: int, w: int, n_dev: int) -> np.ndarray:
+        """The tile positions padded to a multiple of ``n_dev * chunk`` by
+        repeating the last tile; rank r takes the r-th of ``n_dev`` equal
+        runs (JAX ``_build_sharded``)."""
+        pos = self._positions(h, w)
+        per = -(-len(pos) // (n_dev * self.chunk)) * self.chunk
+        pad = per * n_dev - len(pos)
+        if pad:
+            pos = np.concatenate([pos, np.repeat(pos[-1:], pad, axis=0)])
+        return pos
+
+    def sharded_call(self, img: torch.Tensor, mesh: Mesh, axis: str = "tile") -> torch.Tensor:
+        """Tile-sharded inference: each rank runs its run of
+        ``sharded_positions`` into a local float32 canvas, one all_reduce
+        sums them, and the sum is divided by the weight map, which counts
+        the repeated tiles.  (H, W, 3) -> (H*scale, W*scale, 3), whole on
+        every rank, in float32 as ``__call__``'s (its ``out_dtype`` canvas
+        times the float32 weight map)."""
+        n_dev = _axis_size(mesh, axis)
+        img, h, w = self._padded(img)
+        hh, ww = img.shape[:2]
+        pos = self.sharded_positions(hh, ww, n_dev)
+        per = len(pos) // n_dev
+        inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
+        out = self._canvas(img, pos[mesh.rank * per:(mesh.rank + 1) * per], torch.float32)
+        out = all_reduce_sum(mesh, out) * inv_w
+        return out[: h * self.scale, : w * self.scale]
 
 
 class BandedHeadSR:
@@ -125,7 +171,8 @@ class BandedHeadSR:
     Where 4*w is a multiple of 16 the head writes its packed layout
     (``conv3x3_shuffled_tail_packed``), reshaped to the frame at the end.
     ``align`` reflect-pads the input to multiples of itself first (the
-    output is cropped back).  JAX's ``SISR_HEAD_PACK`` and
+    output is cropped back).  ``sharded_call`` splits the bands over a
+    mesh's ranks on a plan of its own (``sharded_plan``).  JAX's ``SISR_HEAD_PACK`` and
     ``SISR_HEAD_UNROLL`` (the ``lax.scan`` unroll) have no meaning in eager
     PyTorch and are left out; the head always packs where it can.
     """
@@ -198,4 +245,52 @@ class BandedHeadSR:
                     out[s * kb:s * (kb + tbe)] = k
         # the packed rows (W/16, 16*C) are the frame's rows in the same order
         out = out.reshape(s * hh, s * ww, -1)
+        return out[:s * h, :s * w]
+
+    def sharded_plan(self, h: int, n_dev: int):
+        """(kept-region height, band rows, [(band start, kept start,
+        valid), ...]) of ``sharded_call`` for an h-row feature map (h a
+        multiple of 4) over ``n_dev`` ranks (JAX ``_build_sharded``): the
+        largest 4-multiple divisor of h no larger than ``band_rows``, so the
+        kept regions tile [0, h) with no overlap, and band 0 repeated with
+        ``valid`` 0 to fill ``n_dev`` equal runs."""
+        if h % 4:
+            raise ValueError(f"the sharded banded head needs a 4-multiple feature height, "
+                             f"got {h}")
+        halo = self.HALO
+        tbe = max(d for d in range(4, h + 1, 4) if h % d == 0 and d <= max(self.band_rows, 4))
+        rows = min(tbe + 2 * halo, h)
+        kbs = list(range(0, h, tbe))
+        per = -(-len(kbs) // n_dev)
+        pos = [(min(max(kb - halo, 0), h - rows), kb, 1) for kb in kbs]
+        pos += [(pos[0][0], pos[0][1], 0)] * (per * n_dev - len(pos))
+        return tbe, rows, pos
+
+    def sharded_call(self, img: torch.Tensor, mesh: Mesh, axis: str = "band") -> torch.Tensor:
+        """Band-sharded whole-image SR, (H, W, 3) -> (H*scale, W*scale, 3)
+        in out_dtype, whole on every rank.  The input is aligned to
+        ``max(align, 4)``; the body runs whole on every rank (its output
+        feeds every band); rank r runs the r-th run of ``sharded_plan``'s
+        bands into a local canvas, a pad slot's band times its zero
+        ``valid``; one all_reduce sums the canvases, whose kept regions are
+        disjoint, so the sum is exact."""
+        n_dev = _axis_size(mesh, axis)
+        h, w = img.shape[:2]
+        align = max(self.align, 4)
+        img = _pad_bottom_right(img, (-h) % align, (-w) % align)
+        hh, ww = img.shape[:2]
+        s = self.model.upscale
+        tbe, rows, pos = self.sharded_plan(hh, n_dev)
+        per = len(pos) // n_dev
+        hmodel = self._head_model((s * ww) % tail_pack_group() == 0)
+        feat = self.model(img[None], stage="features")
+        canvas = None
+        for st, kb, valid in pos[mesh.rank * per:(mesh.rank + 1) * per]:
+            sr = hmodel(feat[:, st:st + rows], stage="head")
+            kept = sr[0, s * (kb - st):s * (kb - st + tbe)].to(self.out_dtype) * valid
+            if canvas is None:
+                canvas = torch.zeros((s * hh,) + tuple(kept.shape[1:]), dtype=self.out_dtype,
+                                     device=feat.device)
+            canvas[s * kb:s * (kb + tbe)] += kept
+        out = all_reduce_sum(mesh, canvas).reshape(s * hh, s * ww, -1)
         return out[:s * h, :s * w]

@@ -8,6 +8,17 @@ one jitted function of (state, batch, rng); here the step is eager: the
 forward with ``deterministic=False`` (the kernels forward, their
 ``torch.autograd.Function``s backward), ``loss.backward()``, then the
 optimizer's update in place.
+
+Data parallelism (JAX: the batch sharded on the mesh's ``data`` axis, XLA's
+gradient all-reduce) is written out: with a ``mesh`` each rank runs its
+slice of the global batch, ``all_reduce_grads`` averages the gradients
+after each backward, before the optimizer's step, and the returned losses
+are the global batch's (``all_reduce_mean``).  No
+``DistributedDataParallel``: the GAN step runs two backwards into D and
+toggles its ``requires_grad``, spectral norm updates ``u``, ``v`` in place,
+the kernels' backward recomputes plain forwards, and gloo offers only
+all_reduce and broadcast for CUDA tensors.  A one-rank mesh (or none)
+runs the same code with no collective.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, all_reduce_mean
 from sisr_tpu_torch.train.losses import gan_loss
 
 
@@ -36,14 +48,22 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def _global(mesh: Optional[Mesh], loss: torch.Tensor) -> torch.Tensor:
+    """The loss of the global batch: the mean over the ranks."""
+    return loss.detach() if mesh is None else all_reduce_mean(mesh, loss)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer: torch.optim.Optimizer, reference: bool = False) -> Callable:
+                    optimizer: torch.optim.Optimizer, reference: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Pixel-loss train step: ``step(lr_imgs, hr_imgs, generator) -> loss``
     on NHWC batches, updating the model's parameters in place.
     ``generator`` stands where JAX's step takes its dropout key: HiTSIR's
     dropouts draw from torch's global generator, as the reference's do.
     ``reference=True`` runs the plain
-    versions instead of the kernels (the yardstick on the card)."""
+    versions instead of the kernels (the yardstick on the card).  With a
+    ``mesh`` the batch is this rank's slice, the gradients are averaged
+    over the ranks and the loss is the global batch's."""
 
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -51,8 +71,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         sr = model(lr_imgs, reference=reference, deterministic=False)
         loss = loss_fn(sr, hr_imgs)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(mesh, model.parameters())
         optimizer.step()
-        return loss.detach()
+        return _global(mesh, loss)
 
     return step
 
@@ -89,6 +111,7 @@ def make_gan_train_step(
     perceptual_weight: float = 1.0,
     adversarial_weight: float = 0.1,
     reference: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Real-ESRGAN-style two-optimizer step (hitsir_pro_gan_experiment.py
     :117-165, JAX ``make_gan_train_step``):
@@ -102,7 +125,10 @@ def make_gan_train_step(
 
     Returns G's loss over the sum of the loss weights and the mean of D's
     two losses, as the reference logs them.  ``reference=True`` runs the
-    generator's plain versions instead of its kernels."""
+    generator's plain versions instead of its kernels.  With a ``mesh``
+    each network's gradients are averaged over the ranks before its
+    optimizer's step (D's after both of its backwards), and the losses are
+    the global batch's."""
 
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,13 +141,17 @@ def make_gan_train_step(
             g_loss.backward()
         finally:
             d_model.requires_grad_(True)
+        if mesh is not None:
+            all_reduce_grads(mesh, g_model.parameters())
         g_optimizer.step()
 
         d_optimizer.zero_grad(set_to_none=True)
         l_real, l_fake = gan_discriminator_backward(d_model, hr_imgs, sr)
+        if mesh is not None:
+            all_reduce_grads(mesh, d_model.parameters())
         d_optimizer.step()
-        return (g_loss.detach() / (1.0 + perceptual_weight + adversarial_weight),
-                (l_real + l_fake) / 2.0)
+        return (_global(mesh, g_loss) / (1.0 + perceptual_weight + adversarial_weight),
+                _global(mesh, (l_real + l_fake) / 2.0))
 
     return step
 

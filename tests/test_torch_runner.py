@@ -1,8 +1,8 @@
 """The port's experiment runner, command line and inference helpers on the
 CPU: mirrors of ``tests/test_experiment_runner.py``'s cases (tiny model,
 tiny synthesized folders, one module-scoped run), the resume contract with
-the optimizer's state, LPIPS from a weights file, the other heads, the
-option that is not ported yet, and ``python -m sisr_tpu_torch`` (both
+the optimizer's state, LPIPS from a weights file, the other heads,
+``n_devices`` without a process group, and ``python -m sisr_tpu_torch`` (both
 experiments) / ``python -m sisr_tpu_torch.infer``.
 The run against the JAX runner on the same data is in
 ``test_torch_runner_parity.py``.
@@ -295,12 +295,15 @@ def test_test_stage_outputs(ran_experiment):
 
 
 # --------------------------------------------------------------------------
-# what is not ported yet, and the device rule
+# what needs a process group, and the device rule
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [(dict(n_devices=2), "Multi-GPU")])
 def test_not_ported_options_raise(workdir, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The ROADMAP item ``item`` is ported now (data parallelism,
+    test_torch_dp_runner.py): ``kw`` without the process group it needs
+    raises, saying how to launch one."""
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         _experiment(workdir, is_test=False, epochs=1, run=False, **kw)
 
 
