@@ -73,14 +73,23 @@ Phases:
            peak device memory; then 120x160, 256x320 and 250x330 with
            align 0 (one call; stacked with the packed tail; canvas with the
            unpacked tail); every launch counter checked per request;
-  train    training steps of the full flagship in float32 through
-           ``train_state.make_train_step`` (L1 loss, Adam 2e-5, betas (0.9,
-           0.99)) on seeded batches, LR (2, 64, 64, 3) -> HR (2, 256, 256,
-           3): 2 warm-up steps, then 5 timed (median and min ms, LR MP/s,
-           peak device memory, every launch counter checked per step); one
-           more step split into forward, backward and optimizer by CUDA
-           events and one under torch.profiler (device busy time, idle
-           share); the same 2 + 5 steps on the plain path
+  train    first the flagship's bfloat16 step (parameters and Adam's state
+           float32, no loss scaling) against the plain bfloat16 path for 3
+           Adam steps, the plain path taking the kernel path's updated
+           weights before each (a stale packed weight would show from step
+           2): each step's L1 loss and every gradient within max(floor,
+           3x the plain path's move when the LR batch moves by one
+           bfloat16 ulp; a gradient's error relative to max(its norm,
+           1e-3 of the whole gradient's)), with its control (the
+           gradients x 1.1) rejected; then
+           training steps of the full flagship in float32 and in bfloat16
+           through ``train_state.make_train_step`` (L1 loss, Adam 2e-5,
+           betas (0.9, 0.99)) on seeded batches, LR (2, 64, 64, 3) -> HR
+           (2, 256, 256, 3): 2 warm-up steps, then 5 timed (median and min
+           ms, LR MP/s, peak device memory, every launch counter checked
+           per step); one more step split into forward, backward and
+           optimizer by CUDA events and one under torch.profiler (device
+           busy time, idle share); the same 2 + 5 steps on the plain path
            (``reference=True``) as a yardstick;
   runner   the experiment runner as ``python -m sisr_tpu_torch hitsir_pro``
            builds it (the full flagship in float32, L1, Adam, batch 2, crop
@@ -123,18 +132,24 @@ Phases:
            (both models, both optimizers' state, the lr), test mode; every
            step's and image's launches, the last eval's SRs within 1e-3 of
            the plain model, d_loss, discriminator_lr, a real LPIPS column
-           and both checkpoints parsed back;
+           and both checkpoints parsed back; then ``python -m
+           sisr_tpu_torch.lpips``'s function on two synthesized 256x320
+           PNGs, the card against the CPU (float32, 1e-5 relative);
   families DenseSR at its experiment's defaults (C = 64, the multi-size
            extraction, SCA, the Fusion gate, num_blocks (4, 4); flax's init
            from seed 0): its float32 training step against the plain path
            (the L1 loss 1e-5, every gradient at the train check's bar, the
            step's SR at the whole-model bars) with a control (one packed
            tap of the gate 2^-8 relative off must fail them), a 192x192
-           tile in float32 and bfloat16 at the whole-model bars; UNetSR at
+           tile in float32 and bfloat16 at the whole-model bars; its
+           bfloat16 step against the plain bfloat16 path for 3 Adam steps
+           at the train phase's bfloat16 bars (control: the gradients x
+           1.1); UNetSR at
            its defaults, the card's float32 forward against the CPU's
            (1e-4); deform_conv2d, deform_attn and upfirdn2d against the CPU
            (1e-5).  Then, counted: 2 warm + 5 timed training steps of each
-           family (and Dense's plain path) with every launch checked per
+           family (and Dense's plain path, and Dense in bfloat16: the
+           gate's kernels under autograd) with every launch checked per
            step (Dense: the gate's two once; UNet: none), and one step of
            each split by CUDA events and one profiled (device busy);
            ``main("dense" | "unet", ...)`` on folders synthesized under
@@ -163,7 +178,15 @@ Phases:
            single-process step of the batch (the loss 1e-5, each gradient
            at its bar), its control (the gradients summed, not averaged,
            must fail the bars), the ranks' parameters bit-identical after 3
-           Adam steps; the all_reduce of the gradients and of the frame's
+           Adam steps; the same DP step with every dropout of HiTSIR on
+           (rate 0.1 each, masks from a CUDA generator seeded alike on both
+           ranks) against the single process's step on the whole batch
+           (the loss 1e-5, each gradient at its bar, and the mean of the
+           per-image gradients with their rows' masks at 1e-5), the ranks'
+           parameters and generators equal after 3 steps, its control
+           (each rank drawing its own slice's masks) failing the bars, and
+           in (a) the same steps on the one NCCL rank; the all_reduce of
+           the gradients and of the frame's
            canvas (through gloo's host copy) timed; (c)
            ``hitsir_pro_experiment(n_devices=2)`` on the two ranks, each in
            a directory of its own, for one epoch on folders synthesized
@@ -1291,12 +1314,12 @@ def run_whole_check(served: dict, failures: list) -> None:
         failures.append("whole-image check against the whole forward and the plain model")
 
 
-def train_model():
-    """The flagship in float32 on the card, weights from
-    ``utils/param_synth.py`` with seed 0."""
+def train_model(dtype: str = "float32"):
+    """The flagship computing in ``dtype`` on the card (parameters float32),
+    weights from ``utils/param_synth.py`` with seed 0."""
     from sisr_tpu_torch import infer
 
-    model = infer.create_model("float32", "cuda")
+    model = infer.create_model(dtype, "cuda")
     infer.synth_weights(model, seed=0)
     return model
 
@@ -1323,64 +1346,83 @@ def adam(model):
 
 
 def run_train(failures: list) -> dict:
-    """Training steps of the flagship through ``make_train_step``: 2 warm,
-    5 timed with every launch counter checked per step, on the kernel path
-    then the plain path; one profiled kernel-path step split by CUDA events
-    into forward, backward and optimizer.  Returns the kernel path's
-    launches over its timed steps."""
+    """The bfloat16 step's check against the plain path (``bf16_step_check``,
+    3 Adam steps), then training steps of the flagship through
+    ``make_train_step`` in float32 and in bfloat16: 2 warm, 5 timed with
+    every launch counter checked per step, on the kernel path then the
+    plain path; one profiled kernel-path step of each type split by CUDA
+    events into forward, backward and optimizer.  Returns the kernel
+    paths' launches over their timed steps."""
     import statistics
 
     import torch
-    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels import build, ffn, scc_block
     from sisr_tpu_torch.train.losses import l1_loss
     from sisr_tpu_torch.train.train_state import make_train_step
 
-    summary, counts = {}, None
+    routes = {f"scc_block window {w}": scc_block.wgmma_path(
+        torch.bfloat16, 180, 6, w * w, min(w, 8) ** 2) for w in STEP_WINDOWS}
+    routes["htb_tail"] = ffn.wgmma_path(torch.bfloat16, 180, 360)
+    log(f"  bfloat16 step shapes on wgmma: {routes}")
+    summary = {"bfloat16_check": bf16_step_check(failures, lambda: train_model("bfloat16"),
+                                                 "flagship"),
+               "bfloat16_wgmma_routes": routes}
+    counts = dict.fromkeys(build.launches, 0)
     mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
-    for label, reference in (("kernels", False), ("plain", True)):
-        model = train_model()
-        opt = adam(model)
-        step = make_train_step(model, l1_loss, opt, reference=reference)
-        batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
-        for lr_img, hr_img in batches[:TRAIN_WARM]:
-            step(lr_img, hr_img)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        ms, losses = [], []
-        want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
-        for lr_img, hr_img in batches[TRAIN_WARM:]:
-            before = dict(build.launches)
-            t0 = time.perf_counter()
-            loss = step(lr_img, hr_img)
+    for dt in ("float32", "bfloat16"):
+        for label, reference in (("kernels", False), ("plain", True)):
+            model = train_model(dt)
+            opt = adam(model)
+            step = make_train_step(model, l1_loss, opt, reference=reference)
+            batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
+            for lr_img, hr_img in batches[:TRAIN_WARM]:
+                step(lr_img, hr_img)
             torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(loss))
-            got = {k: build.launches[k] - before[k] for k in build.launches}
-            if got != want or not math.isfinite(losses[-1]):
-                failures.append(f"train {label}: loss {losses[-1]}, launches {got}, want {want}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        med = statistics.median(ms)
-        summary[label] = dict(median_ms=med, min_ms=min(ms), runs_ms=ms,
-                              lr_mp_per_s=mp / (med / 1e3), peak_gib=peak, losses=losses)
-        log(f"  {label:7s} {TRAIN_STEPS} steps (batch {TRAIN_BATCH}, LR {TRAIN_LR}x{TRAIN_LR} "
-            f"-> HR {4 * TRAIN_LR}x{4 * TRAIN_LR}, float32): median {med:.1f} ms, min "
-            f"{min(ms):.1f} ms, {summary[label]['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} "
-            f"GiB, L1 losses {', '.join(f'{v:.5f}' for v in losses)}")
-        if not reference:
-            counts = dict(build.launches)
-            log(f"  launches per step: { {k: v // TRAIN_STEPS for k, v in counts.items()} } "
-                f"(want {PER_STEP})")
-            summary[label]["launches_per_step"] = {k: v // TRAIN_STEPS for k, v in counts.items()}
-            split = summary[label]["split"] = profile_step(model, opt, *batches[-1])
-            # the profiler slows the host: the busy time against the unprofiled median
-            split["idle_share_of_median"] = 1 - split["busy_ms"] / med
-            log(f"  device busy {split['busy_ms']:.1f} ms against the {med:.1f} ms median "
-                f"step: {100 * split['idle_share_of_median']:.1f}% idle")
-        del model, opt, step
-        torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            ms, losses = [], []
+            want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
+            for lr_img, hr_img in batches[TRAIN_WARM:]:
+                before = dict(build.launches)
+                t0 = time.perf_counter()
+                loss = step(lr_img, hr_img)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                got = {k: build.launches[k] - before[k] for k in build.launches}
+                if got != want or not math.isfinite(losses[-1]):
+                    failures.append(f"train {dt} {label}: loss {losses[-1]}, launches {got}, "
+                                    f"want {want}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            med = statistics.median(ms)
+            row = dict(median_ms=med, min_ms=min(ms), runs_ms=ms, lr_mp_per_s=mp / (med / 1e3),
+                       peak_gib=peak, losses=losses)
+            # the float32 rows keep their earlier place in the line
+            (summary if dt == "float32" else summary.setdefault(dt, {}))[label] = row
+            log(f"  {label:7s} {TRAIN_STEPS} steps (batch {TRAIN_BATCH}, LR {TRAIN_LR}x{TRAIN_LR} "
+                f"-> HR {4 * TRAIN_LR}x{4 * TRAIN_LR}, {dt}): median {med:.1f} ms, min "
+                f"{min(ms):.1f} ms, {row['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} "
+                f"GiB, L1 losses {', '.join(f'{v:.5f}' for v in losses)}")
+            if not reference:
+                for k, v in build.launches.items():
+                    counts[k] += v
+                row["launches_per_step"] = {k: v // TRAIN_STEPS
+                                            for k, v in build.launches.items()}
+                log(f"  launches per step: {row['launches_per_step']} (want {PER_STEP})")
+                split = row["split"] = profile_step(model, opt, *batches[-1])
+                # the profiler slows the host: the busy time against the unprofiled median
+                split["idle_share_of_median"] = 1 - split["busy_ms"] / med
+                log(f"  device busy {split['busy_ms']:.1f} ms against the {med:.1f} ms median "
+                    f"{dt} step: {100 * split['idle_share_of_median']:.1f}% idle")
+            del model, opt, step
+            torch.cuda.empty_cache()
     summary["plain_over_kernels"] = summary["plain"]["median_ms"] / summary["kernels"]["median_ms"]
-    log(f"  plain path / kernel path step time: {summary['plain_over_kernels']:.2f}x")
+    bf = summary["bfloat16"]
+    bf["plain_over_kernels"] = bf["plain"]["median_ms"] / bf["kernels"]["median_ms"]
+    bf["float32_over_bfloat16"] = summary["kernels"]["median_ms"] / bf["kernels"]["median_ms"]
+    log(f"  plain path / kernel path step time: float32 {summary['plain_over_kernels']:.2f}x, "
+        f"bfloat16 {bf['plain_over_kernels']:.2f}x; float32 / bfloat16 kernel path "
+        f"{bf['float32_over_bfloat16']:.2f}x")
     log(json.dumps({"train": summary}))
     return counts
 
@@ -1410,7 +1452,8 @@ def profile_step(model, opt, lr_img, hr_img) -> dict:
                  optimizer_ms=ev[2].elapsed_time(ev[3]))
     log(f"  one more step: forward {split['forward_ms']:.1f} ms, backward "
         f"{split['backward_ms']:.1f} ms, optimizer {split['optimizer_ms']:.1f} ms (CUDA events)")
-    log(f"[profile] one float32 training step of {type(model).__name__}")
+    log(f"[profile] one {str(model.dtype).split('.')[-1]} training step of "
+        f"{type(model).__name__}")
     prof = profile_call(one, warm=False)
     split.update(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
                  idle_share=1 - prof["busy_ms"] / prof["wall_ms"], kernels_ms=prof["kernels_ms"])
@@ -1491,11 +1534,12 @@ def planted_fault(kind: str):
         fn.vjp = sound
 
 
-def _over_bars(grads: dict, ref: dict, bars: dict) -> tuple:
-    """(rows, failures) of ``grads`` against the plain path's ``ref``."""
+def _over_bars(grads: dict, ref: dict, bars: dict, floor: float = 0.0) -> tuple:
+    """(rows, failures) of ``grads`` against the plain path's ``ref``: each
+    error relative to max(|ref|, ``floor``)."""
     import torch
 
-    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(max(floor, 1e-30)))
     rows, bad = [], []
     for k, g in grads.items():
         r = ref[k]
@@ -1605,6 +1649,98 @@ def run_train_check(failures: list) -> None:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("training step check against the plain path")
+
+
+# a bfloat16 gradient's error is relative to max(|g|, BF16_REL_FLOOR x |the
+# whole gradient|) (tests/test_torch_bf16_train.py's normalisation: a
+# gradient a thousandth of the whole is a sum that cancels, its relative
+# error rounding noise) and its bar max(BF16_FLOOR, NOISE_MULT x its noise),
+# the noise the plain bfloat16 path's largest move when the LR batch moves
+# by one bfloat16 ulp (BF16_PROBES seeds); the loss's bar max(BF16_LOSS_FLOOR,
+# NOISE_MULT x the loss's move).  Probes that also moved every weight by a
+# bfloat16 ulp gave bars no 10% fault reaches, and a fault planted in
+# dwconv5x5's backward (dx 10% too large) stays under these bars: its share
+# of a gradient is below bfloat16's noise (NVIDIA H100 80GB HBM3, 700.00 W)
+BF16_FLOOR, BF16_LOSS_FLOOR, BF16_REL_FLOOR, BF16_PROBES, BF16_STEPS = 1e-2, 1e-4, 1e-3, 4, 3
+
+
+def _bf16_move(t, seed: int):
+    """``t`` with every element x (1 +- 2^-8) at random: one bfloat16 ulp
+    (a float32 ulp rarely moves the input's bfloat16 rounding)."""
+    import torch
+
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    up = torch.rand(t.shape, generator=g, device=t.device) < 0.5
+    return t * torch.where(up, 1 + 2.0 ** -8, 1 - 2.0 ** -8)
+
+
+def bf16_step_check(failures: list, make, label: str, steps: int = BF16_STEPS,
+                    card: str = "") -> dict:
+    """``steps`` Adam steps (L1, 2e-5) of ``make()``'s bfloat16 model on the
+    kernel path, the plain path (``reference=True``) taking the kernel
+    path's weights and optimizer state before each step (the parameters
+    change in place: a stale packed weight would pass step 1 and fail
+    after it), cuDNN deterministic.  Each step: the L1 loss and every
+    gradient against the plain path's at their bars (``BF16_*``, probed on
+    that step).  At the first step the control, which the bars must
+    reject: the kernel path's gradients x 1.1."""
+    import torch
+
+    kernel, plain = make(), make()
+    opt_k, opt_p = adam(kernel), adam(plain)
+    out, ok = dict(steps=[]), True
+    for i, (lr_img, hr_img) in enumerate(train_batches(steps, seed=9)):
+        with exact_deterministic():
+            plain.load_state_dict(kernel.state_dict())
+            opt_p.load_state_dict(opt_k.state_dict())
+            loss_p, ref, _ = step_grads(plain, lr_img, hr_img, True)
+            moved = [step_grads(plain, _bf16_move(lr_img, 100 * i + j), hr_img, True)
+                     for j in range(BF16_PROBES)]
+            loss_k, got, _ = step_grads(kernel, lr_img, hr_img, False)
+        floor = BF16_REL_FLOOR * float(torch.sqrt(sum(r.square().sum() for r in ref.values()
+                                                      if r is not None)))
+        rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(floor))
+        bars = {}
+        for k, r in ref.items():
+            if r is not None and all(m[1][k] is not None for m in moved):
+                noise = max(rel(m[1][k], r) for m in moved)
+                bars[k] = (noise, max(BF16_FLOOR, NOISE_MULT * noise))
+        rows, bad = _over_bars(got, ref, bars, floor)
+        loss_noise = max(abs(m[0] - loss_p) / abs(loss_p) for m in moved)
+        loss_bar = max(BF16_LOSS_FLOOR, NOISE_MULT * loss_noise)
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        worst = max(rows, key=lambda r: r["err"] / r["bar"])
+        # over the gradients past the floor (under it the noise may be 0)
+        ratio = max((r["err"] / r["noise"] for r in rows if r["err"] > BF16_FLOOR),
+                    default=0.0)
+        row = dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
+                   loss_bar=loss_bar, grads=len(rows), grads_over=len(bad),
+                   worst_over_bar=worst, max_err_over_noise=ratio)
+        ok = ok and loss_err <= loss_bar and not bad
+        log(f"  {label} bf16 step {i + 1}: L1 loss {loss_k:.6f} vs plain {loss_p:.6f} (rel "
+            f"{loss_err:.2e}, bar {loss_bar:.2e}); {len(rows)} gradients, nearest its bar "
+            f"{worst['err']:.2e} of {worst['bar']:.2e} ({worst['name']}), error / noise at "
+            f"most {ratio:.2f}; {len(bad)} over "
+            f"{'ok' if loss_err <= loss_bar and not bad else 'FAIL'} {card}")
+        for line in bad[:5]:
+            log(f"    {line}")
+        if i == 0:
+            c_rows, c_bad = _over_bars({k: None if g is None else 1.1 * g
+                                        for k, g in got.items()}, ref, bars, floor)
+            row["control_over"] = len(c_bad)
+            ok = ok and bool(c_bad)
+            top = sorted(c_rows, key=lambda r: r["err"] / r["bar"])[-3:]
+            log(f"  control, the gradients x 1.1: {len(c_bad)} of {len(c_rows)} gradients over "
+                f"their bar {'rejected' if c_bad else 'FAIL: the check passes it'}; nearest: "
+                + ", ".join(f"{r['name']} {r['err']:.2e} / {r['bar']:.2e}" for r in top))
+        out["steps"].append(row)
+        opt_k.step()
+    if not ok:
+        failures.append(f"{label} bfloat16 training step against the plain path, or a control")
+    out["ok"] = ok
+    del kernel, plain, opt_k, opt_p
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- the runner: the command line's experiment, train, eval, resume, test ----
@@ -2483,6 +2619,46 @@ def run_gan_runner(failures: list, card: str) -> dict:
     return summary
 
 
+LPIPS_IMAGE = (256, 320)
+
+
+def run_lpips(failures: list, card: str) -> dict:
+    """``python -m sisr_tpu_torch.lpips``'s function (``calculate_lpips``)
+    on two synthesized PNGs with the random LPIPS weights of ``lpips_file``:
+    on the card against the CPU (float32, TF32 off, 1e-5 relative); the
+    self-LPIPS 0; the card's call timed."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+    from sisr_tpu_torch import lpips
+
+    root = Path(__file__).resolve().parent / "build" / "smoke" / "lpips"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    paths = [str(root / f"im{i}.png") for i in range(2)]
+    for path in paths:
+        Image.fromarray((rng.random((*LPIPS_IMAGE, 3)) * 255).astype(np.uint8)).save(path)
+    weights = str(root / "lpips.pth")
+    lpips_file(weights)
+    got = lpips.calculate_lpips(*paths, weights, device="cuda")
+    cpu = lpips.calculate_lpips(*paths, weights, device="cpu")
+    self_lpips = lpips.calculate_lpips(paths[0], None, weights, device="cuda")
+    model = lpips.lpips_model(weights, "cuda")
+    a, b = (lpips.load_image(p) for p in paths)
+    ms = time_ms(lambda: lpips.lpips_of(model, a, b))
+    rel = abs(got - cpu) / abs(cpu)
+    ok = rel <= 1e-5 and self_lpips == 0.0
+    log(f"  lpips {LPIPS_IMAGE[0]}x{LPIPS_IMAGE[1]}: card {got:.8f}, CPU {cpu:.8f} (rel {rel:.2e}, "
+        f"bar 1e-5), self {self_lpips}; {ms:.2f} ms a pair on the card (float32, TF32 off) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        failures.append(f"lpips on the card {got} against the CPU {cpu}, self {self_lpips}")
+    return dict(card_value=got, cpu_value=cpu, rel_err=rel, self_lpips=self_lpips, ms=ms)
+
+
 def run_gan(failures: list, card: str) -> dict:
     """The GAN phase: the step's check against the plain path, its times,
     then the runner.  Returns the launches of the timed steps and the
@@ -2495,6 +2671,7 @@ def run_gan(failures: list, card: str) -> dict:
     summary["step"] = run_gan_steps(failures, card)
     summary["runner"] = run_gan_runner(failures, card)
     counts = dict(build.launches)
+    summary["lpips"] = run_lpips(failures, card)
     summary["launches"] = counts
     log(f"  launches over the GAN steps and the runner: {counts}")
     log(json.dumps({"gan": summary}))
@@ -2715,7 +2892,8 @@ def run_family_steps(failures: list, card: str) -> dict:
     fused_fusion once; UNet: none), then one step split by CUDA events and
     one profiled
     (``profile_step``: device busy, idle share); Dense's plain path too, as
-    a yardstick."""
+    a yardstick, and Dense in bfloat16 (the gate's kernels under autograd
+    in bfloat16)."""
     import gc
     import statistics
 
@@ -2726,9 +2904,10 @@ def run_family_steps(failures: list, card: str) -> dict:
 
     summary = {}
     mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
-    for family, reference in (("dense", False), ("dense", True), ("unet", False)):
-        label = f"{family}{' plain' if reference else ''}"
-        model = family_model(family)
+    for family, reference, dt in (("dense", False, "float32"), ("dense", True, "float32"),
+                                  ("unet", False, "float32"), ("dense", False, "bfloat16")):
+        label = f"{family}{' plain' if reference else ''}{' bf16' if dt != 'float32' else ''}"
+        model = family_model(family, dt)
         opt = adam(model)
         step = make_train_step(model, l1_loss, opt, reference=reference)
         batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
@@ -2758,7 +2937,7 @@ def run_family_steps(failures: list, card: str) -> dict:
                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                               allocated_before_gib=base, losses=losses)
         log(f"  {label:11s} {summary[label]['params']:,} params, {TRAIN_STEPS} steps (batch "
-            f"{TRAIN_BATCH}, LR {TRAIN_LR} -> HR {4 * TRAIN_LR}, float32): median {med:.1f} ms, "
+            f"{TRAIN_BATCH}, LR {TRAIN_LR} -> HR {4 * TRAIN_LR}, {dt}): median {med:.1f} ms, "
             f"min {min(ms):.1f} ms, {summary[label]['lr_mp_per_s']:.4f} LR MP/s, peak "
             f"{summary[label]['peak_gib']:.2f} GiB ({base:.2f} allocated before the steps), "
             f"L1 {', '.join(f'{v:.5f}' for v in losses)} [{card}]")
@@ -2911,6 +3090,8 @@ def run_families(failures: list, card: str) -> dict:
     from sisr_tpu_torch.ops.kernels import build
 
     summary = dict(dense_check=run_dense_check(failures, card),
+                   dense_bf16_check=bf16_step_check(
+                       failures, lambda: family_model("dense", "bfloat16"), "Dense", card=card),
                    unet_check=run_unet_check(failures, card),
                    library_ops=run_library_ops(failures, card))
     build.reset_launches()
@@ -2945,6 +3126,14 @@ MESH_KERNELS = RUNNER_KERNELS
 # atomics, and a last-bit move grows through 36 blocks), so 2^-6 would fail
 # on that alone
 MESH_BARS = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+# the DP step with every dropout of HiTSIR on (drop, value drop, drop-path),
+# its masks from a CUDA generator seeded alike on every rank: in training the
+# value dropout runs every SCC plain, the dropouts every tail plain (JAX's
+# routing), so the step launches the convs, the head and the Fusion gate
+MESH_RATES = dict(drop_rate=0.1, value_drop_rate=0.1, drop_path_rate=0.1)
+MESH_DROP_SEED = 17
+MESH_DROP_WANT = {"conv3x3": 9, "conv3x3_shuffled": 1, "conv3x3_shuffled_tail": 1,
+                  "fusion_pools": 1, "fused_fusion": 1}
 
 
 @contextlib.contextmanager
@@ -2959,6 +3148,19 @@ def exact_deterministic():
         yield
 
 
+def drop_grads(model, lr_img, hr_img, rng, reference: bool = False) -> tuple:
+    """The L1 loss and every gradient of one training forward of ``model``
+    whose dropout masks come from ``rng`` (``make_train_step``'s forward)."""
+    from sisr_tpu_torch.train.losses import l1_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = l1_loss(model(lr_img, reference=reference, deterministic=False, generator=rng),
+                   hr_img)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.clone() for k, p in model.named_parameters()
+                                  if p.grad is not None}
+
+
 def mesh_reference(root) -> None:
     """What every rank loads from ``root``: the flagship's float32 weights
     (param_synth seed 0), the inputs, and the single-process training step
@@ -2968,8 +3170,14 @@ def mesh_reference(root) -> None:
     largest move under ``probe_grads``' moves and under the batch split
     the ranks make: the mean of the per-image gradients)); and the mean of
     the kernel path's per-image gradients, which the ranks' averaged
-    gradients must equal."""
+    gradients must equal.  The same two for the step with ``MESH_RATES``'
+    dropouts from a generator seeded ``MESH_DROP_SEED``: on the whole batch
+    (one process draws every mask), and per image with the masks of that
+    image's rows of the batch's draw (``DropoutRng(g, i, 2)``), with its
+    bars set as the step's: the plain path's largest move, with the same
+    masks, under ``probe_grads``' moves and that batch split."""
     import torch
+    from sisr_tpu_torch.ops.dropout import DropoutRng
 
     model = train_model()
     g = torch.Generator().manual_seed(5)
@@ -2993,8 +3201,30 @@ def mesh_reference(root) -> None:
         moved = probe_grads(plain, lr, hr) + [mean(split(plain, True))]
     noise = {k: max(rel(m[k], r) for m in moved) for k, r in ref.items() if r is not None}
     cpu = lambda gs: {k: g.cpu() for k, g in gs.items() if g is not None}
+    drop = mesh_model(model.state_dict(), "float32", **MESH_RATES).train()
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(MESH_DROP_SEED)
+    with exact_deterministic():
+        drop_loss, drop_all = drop_grads(drop, lr, hr, seeded())
+        halves = {}
+        for plain in (False, True):
+            halves[plain] = mean([drop_grads(drop, lr[i:i + 1], hr[i:i + 1],
+                                             DropoutRng(seeded(), i, 2), plain)[1]
+                                  for i in range(TRAIN_BATCH)])
+        whole_plain = drop_grads(drop, lr, hr, seeded(), True)[1]
+        drop_moved = [halves[True]] + [drop_grads(drop, x, hr, seeded(), True)[1] for x in (
+            _ulp_move(lr, 11), _ulp_move(lr, 12), lr * (1 + 1e-6))]
+        shifted = mesh_model(model.state_dict(), "float32", **MESH_RATES).train()
+        for seed in (13, 14):
+            with torch.no_grad():
+                for i, (p, q) in enumerate(zip(shifted.parameters(), drop.parameters())):
+                    p.copy_(_ulp_move(q, seed * 1000 + i))
+            drop_moved.append(drop_grads(shifted, lr, hr, seeded(), True)[1])
+    drop_noise = {k: max(rel(m[k], r) for m in drop_moved) for k, r in whole_plain.items()}
     torch.save(dict(loss=loss, grads=cpu(grads), split_mean=cpu(split_mean), noise=noise,
-                    bars={k: max(1e-3, NOISE_MULT * n) for k, n in noise.items()}),
+                    bars={k: max(1e-3, NOISE_MULT * n) for k, n in noise.items()},
+                    drop_loss=drop_loss, drop_grads=cpu(drop_all),
+                    drop_split_mean=cpu(halves[False]),
+                    drop_bars={k: max(1e-3, NOISE_MULT * n) for k, n in drop_noise.items()}),
                root / "step.pt")
 
 
@@ -3018,6 +3248,17 @@ def mesh_grads_over(model, grads: dict, bars: dict) -> tuple:
     return (rows[0][0] if rows else 0.0), over, [r[1:] for r in rows[:3]]
 
 
+def mesh_model(sd, dt: str, **options):
+    """The flagship with ``options`` on the card, computing in ``dt``, its
+    weights the state dict ``sd``."""
+    import torch
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
+
+    model = HiTSIR(**flagship_config(), **options, dtype=getattr(torch, dt)).to("cuda")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 class MeshRank:
     """One rank's part of the mesh phase: its driven calls (their launches
     counted, checked against ``want``, summed into ``counts``), its
@@ -3034,13 +3275,8 @@ class MeshRank:
         self.counts = dict.fromkeys(build.launches, 0)
         self.out = dict(rank=rank, calls={}, bad=[])
 
-    def model(self, dt: str):
-        import torch
-        from sisr_tpu_torch.models.hit_sir_pro import HiTSIR, flagship_config
-
-        model = HiTSIR(**flagship_config(), dtype=getattr(torch, dt)).to("cuda")
-        model.load_state_dict(self.sd, strict=True)
-        return model
+    def model(self, dt: str, **options):
+        return mesh_model(self.sd, dt, **options)
 
     def drive(self, label: str, fn, want: dict, mesh):
         """``fn()`` with the launch counts read around it: the main path."""
@@ -3161,6 +3397,67 @@ class MeshRank:
         self.out["steps"] = rows
         return model
 
+    def dropout_steps(self, mesh, n: int) -> None:
+        """``n`` float32 DP steps with ``MESH_RATES``' dropouts, the masks
+        from a CUDA generator seeded ``MESH_DROP_SEED`` on every rank
+        (``exact_deterministic``): the first step's loss (1e-5 relative)
+        and gradients (at ``drop_bars``) against the single process's on
+        the whole batch and, on more than one rank, the gradients against the
+        mean of the per-image gradients with their rows' masks (1e-5);
+        the parameters' and the generator's digests after the steps."""
+        import hashlib
+
+        import torch
+        from sisr_tpu_torch.parallel.mesh import shard_batch
+        from sisr_tpu_torch.train.losses import l1_loss
+        from sisr_tpu_torch.train.train_state import make_train_step
+
+        lr, hr = (t.cuda() for t in shard_batch(mesh, self.inputs["batch"]))
+        model = self.model("float32", **MESH_RATES).train()
+        step = make_train_step(model, l1_loss, adam(model), mesh=mesh)
+        g = torch.Generator(device="cuda").manual_seed(MESH_DROP_SEED)
+        ref, row = self.ref, {}
+        with exact_deterministic():
+            for i in range(n):
+                loss = float(self.drive(f"dp dropout step {i + 1}", lambda: step(lr, hr, g),
+                                        MESH_DROP_WANT, mesh))
+                if i:
+                    continue
+                row["loss_rel_err"] = abs(loss - ref["drop_loss"]) / abs(ref["drop_loss"])
+                row["worst_over_bar"], over, row["worst"] = mesh_grads_over(
+                    model, ref["drop_grads"], ref["drop_bars"])
+                if mesh.size > 1:
+                    row["split_mean_worst"], split_over, _ = mesh_grads_over(
+                        model, ref["drop_split_mean"], dict.fromkeys(ref["drop_split_mean"], 1e-5))
+                    over += split_over
+                if row["loss_rel_err"] > 1e-5 or over:
+                    self.out["bad"].append(f"rank {self.rank} dp dropout step: loss "
+                                           f"{row['loss_rel_err']:.2e}, over {over[:3]}")
+        h = hashlib.sha256()
+        for v in model.state_dict().values():
+            h.update(v.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+        row["params_sha256"] = h.hexdigest()
+        row["generator_sha256"] = hashlib.sha256(g.get_state().numpy().tobytes()).hexdigest()
+        self.out["dropout_steps"] = row
+
+    def dropout_control(self, mesh) -> None:
+        """The dropout step with each rank drawing its masks at its own
+        slice's shape (a bare generator: no rank slice) must fail the
+        gradient bars."""
+        import torch
+        from sisr_tpu_torch.parallel.mesh import all_reduce_grads, shard_batch
+
+        lr, hr = (t.cuda() for t in shard_batch(mesh, self.inputs["batch"]))
+        model = self.model("float32", **MESH_RATES).train()
+        with exact_deterministic():
+            drop_grads(model, lr, hr, torch.Generator(device="cuda").manual_seed(MESH_DROP_SEED))
+            all_reduce_grads(mesh, model.parameters())
+        worst, over, _ = mesh_grads_over(model, self.ref["drop_grads"], self.ref["drop_bars"])
+        self.out["dropout_control"] = dict(worst_over_bar=worst, over=len(over))
+        if not over:
+            self.out["bad"].append(f"rank {self.rank}: the dropout control (each rank's own "
+                                   "masks) passed the gradient bars")
+
     def control(self, mesh) -> None:
         """The DP step with the division by the world size left out (the
         gradients summed over the ranks) must fail the gradient bars."""
@@ -3229,6 +3526,7 @@ def mesh_nccl_rank(rank: int, root) -> dict:
                expected_counts(*MESH_BANDS, 4, True, False), "float32", True)
     del models, runner
     me.steps(mesh, MESH_STEPS, True)
+    me.dropout_steps(mesh, MESH_STEPS)
     me.out["counts"] = me.counts
     return me.out
 
@@ -3292,6 +3590,8 @@ def mesh_gloo_rank(rank: int, root) -> dict:
                                if p.grad is not None)
     del model
     me.control(mesh)
+    me.dropout_steps(mesh, MESH_STEPS)
+    me.dropout_control(mesh)
     torch.cuda.empty_cache()
 
     # (c) the runner, one epoch, in this rank's own directory
@@ -3381,6 +3681,9 @@ def run_mesh(failures: list, card: str) -> dict:
             failures.append(f"mesh {label}: the ranks' outputs differ")
     if gloo[0]["params_after_steps_sha256"] != gloo[1]["params_after_steps_sha256"]:
         failures.append("mesh: the ranks' parameters differ after the DP steps")
+    for key in ("params_sha256", "generator_sha256"):
+        if gloo[0]["dropout_steps"][key] != gloo[1]["dropout_steps"][key]:
+            failures.append(f"mesh: the ranks' {key[:-7]} differ after the dropout DP steps")
     rank0_loss = [r["runner_loss"] for r in gloo]
     rel = abs(rank0_loss[0] - single_loss) / abs(single_loss)
     if not (rel <= 1e-4 and rank0_loss[0] == rank0_loss[1]):
@@ -3392,9 +3695,11 @@ def run_mesh(failures: list, card: str) -> dict:
 
     counts = {k: sum(r["counts"][k] for r in nccl + gloo) for k in nccl[0]["counts"]}
     summary.update(
-        nccl_world1=dict(calls=nccl[0]["calls"], steps=nccl[0]["steps"]),
+        nccl_world1=dict(calls=nccl[0]["calls"], steps=nccl[0]["steps"],
+                         dropout_steps=nccl[0]["dropout_steps"]),
         gloo_ranks=[dict(rank=r["rank"], calls=r["calls"], steps=r["steps"],
-                         control=r["control"], launches=r["counts"],
+                         control=r["control"], dropout_steps=r["dropout_steps"],
+                         dropout_control=r["dropout_control"], launches=r["counts"],
                          allreduce_grads_ms=r["allreduce_grads_ms"],
                          allreduce_frame_canvas_ms=r["allreduce_frame_canvas_ms"])
                     for r in gloo],
@@ -3414,6 +3719,14 @@ def run_mesh(failures: list, card: str) -> dict:
             f"{r['allreduce_grads_ms']} ms, the 1080p canvas "
             f"({r['frame_canvas_bytes'] / 2**20:.1f} MiB) {r['allreduce_frame_canvas_ms']} ms "
             f"[{card}]")
+    for tag, r in [("nccl rank 0", nccl[0])] + [(f"gloo rank {r['rank']}", r) for r in gloo]:
+        d = r["dropout_steps"]
+        log(f"  {tag} dropout DP step: loss {d['loss_rel_err']:.2e} relative, worst gradient "
+            f"{d['worst_over_bar']:.3f} of its bar"
+            + (f", against the per-image mean {d['split_mean_worst']:.3f} of 1e-5"
+               if "split_mean_worst" in d else "")
+            + (f"; control (own masks) {r['dropout_control']['over']} gradients over their bar"
+               if "dropout_control" in r else ""))
     log(f"  runner: loss {rank0_loss} against single-process {single_loss} "
         f"({rel:.2e} relative); rank 1's directory holds {len(gloo[1]['files'])} files")
     log(f"  launches over the ranks' driven calls: {counts}")
@@ -3792,7 +4105,8 @@ def main(argv=None) -> int:
             failures.append(f"whole: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "train" in phases and not failures:
-        log("[train] make_train_step over HiTSIR(**flagship_config()), float32")
+        log("[train] make_train_step over HiTSIR(**flagship_config()), bfloat16 check, then "
+            "float32 and bfloat16 steps")
         try:
             trained = run_train(failures)
         except Exception:

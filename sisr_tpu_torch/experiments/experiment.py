@@ -35,7 +35,14 @@ one process per device, each in a process group of ``n_devices`` ranks
 collates its slice of every global batch; the step averages the gradients
 over the ranks; rank 0 reads a checkpoint and ``replicate`` hands its
 model, optimizer state and epoch to the others; eval and test run whole on
-every rank; only rank 0 writes files or makes folders.
+every rank; only rank 0 writes files or makes folders.  The dropout masks
+come from one generator seeded alike on every rank and drawn at the global
+batch's shape (``ops/dropout.py``), so the ranks drop what one process
+drops over the whole batch.
+
+Subclasses override the reference's batch hooks: ``preprocess_train``
+before each train epoch, ``process_{lr,hr,sr}_imgs(stage, x)`` on every
+batch of the stages "train", "eval" and "test" (identity by default).
 """
 
 from __future__ import annotations
@@ -151,9 +158,9 @@ class Experiment:
         self.loss_function: Optional[Callable] = None
         self.lr_schedule = None
         self.start_epoch = 1
-        # stands where the JAX runner threads its step key; HiTSIR's
-        # dropouts (off in every experiment's config) draw from torch's
-        # global generator, as the reference's do
+        # stands where the JAX runner threads its step key: every dropout
+        # mask of a train step (the rates are 0 in every experiment's
+        # config) is drawn from it, seeded alike on every rank
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         # host time of the last train epoch: waiting on the loader, and in
         # the steps (each ends in a sync: the loss is read back)
@@ -269,13 +276,6 @@ class Experiment:
     def init_model(self):
         if self.train_data_config.image_size % self.train_data_config.scaling_factor:
             raise ValueError("the HR crop must be a multiple of the scaling factor")
-        if self.mesh.size > 1 and any(getattr(self.model, k, 0.0) > 0 for k in (
-                "drop_rate", "value_drop_rate", "drop_path_rate")):
-            # JAX draws one mask over the global batch from its step key;
-            # each rank's generator would draw other masks for its slice
-            raise NotImplementedError(
-                "HiTSIR's dropout, value dropout and drop-path under data parallelism "
-                "(ROADMAP.md, Queue 3)")
         self.print_total_params_num()
         self.init_eval()
 
@@ -448,6 +448,22 @@ class Experiment:
 
     # ------------------------------------------------------------------ train
 
+    def preprocess_train(self):
+        """Runs before each train epoch (the reference's hook)."""
+
+    def process_lr_imgs(self, stage: str, lr_imgs):
+        """The LR batch of ``stage`` ("train", "eval", "test") as the step
+        or the inference takes it."""
+        return lr_imgs
+
+    def process_hr_imgs(self, stage: str, hr_imgs):
+        """The HR batch of ``stage`` as the loss or the metrics take it."""
+        return hr_imgs
+
+    def process_sr_imgs(self, stage: str, sr_imgs):
+        """The SR of ``stage`` ("eval", "test") as the metrics take it."""
+        return sr_imgs
+
     def train_batch(self, lr_imgs: torch.Tensor, hr_imgs: torch.Tensor):
         # the global batch's loss, counted at the global batch's size
         loss = self.train_step(lr_imgs, hr_imgs, self._generator)
@@ -468,7 +484,8 @@ class Experiment:
             for lr_imgs, hr_imgs, _ in it:
                 t_step = time.perf_counter()
                 self.train_wait_s += t_step - t_wait
-                self.train_batch(lr_imgs, hr_imgs)
+                self.train_batch(self.process_lr_imgs("train", lr_imgs),
+                                 self.process_hr_imgs("train", hr_imgs))
                 t_wait = time.perf_counter()
                 self.train_step_s += t_wait - t_step
             if self.progress:
@@ -557,7 +574,9 @@ class Experiment:
                           desc=f"eval_epoch {start_epoch or self.start_epoch}/"
                                f"{self.model_config.epochs}, data: {loader.name}")
             for lr_imgs, hr_imgs, _ in it:
-                self.eval_batch(hr_imgs, self._infer_one(lr_imgs))
+                lr_imgs = self.process_lr_imgs("eval", lr_imgs)
+                hr_imgs = self.process_hr_imgs("eval", hr_imgs)
+                self.eval_batch(hr_imgs, self.process_sr_imgs("eval", self._infer_one(lr_imgs)))
             if i == len(self.eval_loaders) - 1:
                 self.__eval_dataloader_process(loader.name, start_epoch)
 
@@ -648,7 +667,9 @@ class Experiment:
                 it = tqdm(loader, total=len(loader),
                           desc=f"start test, current test data: {loader.name}")
             for lr_imgs, hr_imgs, (filenames, suffixes) in it:
-                sr_imgs = self._infer_one(lr_imgs)
+                lr_imgs = self.process_lr_imgs("test", lr_imgs)
+                hr_imgs = self.process_hr_imgs("test", hr_imgs)
+                sr_imgs = self.process_sr_imgs("test", self._infer_one(lr_imgs))
                 self.test_batch(hr_imgs, sr_imgs, filenames[0], suffixes[0], loader.name)
             self.__save_test_log(loader.name)
 
@@ -667,6 +688,7 @@ class Experiment:
             for epoch in range(self.start_epoch, self.model_config.epochs + 1):
                 self.start_epoch = epoch
                 self._sync_epoch_lr()
+                self.preprocess_train()
                 self.train()
                 self.eval()
                 self.save_epoch_mode_5(epoch)

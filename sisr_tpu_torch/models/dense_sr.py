@@ -48,8 +48,8 @@ class DenseBlock(nn.Module):
 
 class DenseSR(nn.Module):
     """RDN-style x``scale`` SR; NHWC input in [0, 1].  ``forward`` takes the
-    port's ``reference`` (the Fusion gate's plain version on a card) and
-    ``deterministic`` (no layer draws random numbers)."""
+    port's ``reference`` (the Fusion gate's plain version on a card),
+    ``deterministic`` and ``generator`` (no layer draws random numbers)."""
 
     def __init__(self, is_sa_attn: bool = False, is_fusion: bool = False,
                  is_mult_size_conv_feat_extract: bool = False,
@@ -75,7 +75,7 @@ class DenseSR(nn.Module):
         flax_init_(self)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, generator=None) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         if isinstance(self.conv_first, MultipleSizeConvExtract):

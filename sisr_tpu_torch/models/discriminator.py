@@ -51,7 +51,8 @@ class UNetDiscriminatorSN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = lambda t: F.leaky_relu(t, 0.2)
-        x0 = act(self.conv0(x.permute(0, 3, 1, 2)))
+        # in the weights' dtype, as JAX casts a bfloat16 SR
+        x0 = act(self.conv0(x.permute(0, 3, 1, 2).to(self.conv0.weight.dtype)))
         x1 = act(self.conv1(x0))
         x2 = act(self.conv2(x1))
         x3 = act(self.conv3(x2))

@@ -28,7 +28,8 @@ tensors, True the plain versions (the yardstick on the card); CPU tensors
 always run plain.  ``deterministic=False`` is the training forward, as in
 JAX: no block threads the SCA statistics to the next (its tail kernel has
 no backward), ``fused_htb`` is ignored, and the dropout rates, when set
-(no experiment sets them), take effect (``HiTSIR``'s docstring).
+(no experiment sets them), take effect (``HiTSIR``'s docstring), each
+mask drawn from the forward's ``generator`` (``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sisr_tpu_torch.models.arch_util import conv_nhwc
+from sisr_tpu_torch.ops import dropout as drop
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
 from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
                                                 conv3x3_shuffled_tail,
@@ -360,14 +362,14 @@ class SCC(nn.Module):
                 self.proj.weight.t().to(dt), self.proj.bias.to(dt))
 
     def forward(self, x: torch.Tensor, stats=None, reference: bool = False,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, generator: drop.Rng = None) -> torch.Tensor:
         sca, rest = self.bundle(x, stats)
         if self.value_drop > 0.0 and not deterministic:
             out = _scc_with_value_drop(x, sca, *rest, self.num_heads, self.window_size,
-                                       self.value_drop)
+                                       self.value_drop, generator)
         else:
             out = scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
-        return _dropout(out, self.proj_drop, deterministic)
+        return out if deterministic else drop.dropout(out, self.proj_drop, generator)
 
     def bundle(self, x: torch.Tensor, stats=None):
         """(sca, the rest of scc_block's arguments up to proj_b) for x:
@@ -400,30 +402,16 @@ class SCC(nn.Module):
         return sca, rest
 
 
-def _dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
-    """flax ``nn.Dropout``: x where ``deterministic`` or the rate is 0."""
-    return x if deterministic or rate == 0.0 else F.dropout(x, rate)
-
-
-def _drop_path(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
-    """Stochastic depth: the whole sample kept (scaled by 1 / (1 - rate))
-    or zeroed, one draw per sample broadcast over (H, W, C) (JAX
-    ``nn.Dropout(broadcast_dims=(1, 2, 3))``)."""
-    if deterministic or rate == 0.0:
-        return x
-    keep = torch.empty((x.shape[0], 1, 1, 1), dtype=x.dtype, device=x.device)
-    return x * keep.bernoulli_(1.0 - rate) / (1.0 - rate)
-
-
 def _scc_with_value_drop(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
-                         heads: int, window, value_drop: float) -> torch.Tensor:
+                         heads: int, window, value_drop: float,
+                         rng: drop.Rng) -> torch.Tensor:
     """``scc_block``'s plain version with the value dropout."""
     b, hp, wp, c = x.shape
     wh, ww = window
     dt = x.dtype
     qkv = sca_reference(x, *sca) if sca is not None else x
     out6 = scc_reference(qkv.reshape(b, hp // wh, wh, wp // ww, ww, c), w1, w2, bb, pmat, pb,
-                         mask, bias, heads, value_drop)
+                         mask, bias, heads, value_drop, rng)
     return out6.reshape(b, hp, wp, c).to(dt) @ proj_k.to(dt) + proj_b.to(dt)
 
 
@@ -479,9 +467,11 @@ class HierarchicalTransformerBlock(nn.Module):
         self.mlp = ConvFFN(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, emit_stats: bool = False, stats=None,
-                reference: bool = False, deterministic: bool = True):
+                reference: bool = False, deterministic: bool = True,
+                generator: drop.Rng = None):
         """``deterministic=False`` (training, JAX's flag) drops ``stats``
-        and runs no ``htb_fused``; ``emit_stats`` is for evaluation."""
+        and runs no ``htb_fused``; its dropouts draw from ``generator``;
+        ``emit_stats`` is for evaluation."""
         _, h, w, _ = x.shape
         dt = x.dtype
         if not deterministic:
@@ -506,9 +496,9 @@ class HierarchicalTransformerBlock(nn.Module):
                     + xp[:, :, w:].to(f32).sum(dim=(1, 2)))
             stats = (cmean, cmax, ssum, smax)
         attn = self.correlation(xp, stats=stats, reference=reference,
-                                deterministic=deterministic)
+                                deterministic=deterministic, generator=generator)
         if not deterministic and (self.drop > 0.0 or self.drop_path > 0.0):
-            return self._tail_with_dropout(attn[:, :h, :w], x, *tail)
+            return self._tail_with_dropout(attn[:, :h, :w], x, *tail, generator)
 
         args = (x,) + tail
         # the (possibly window-padded) attn goes in whole: the tail reads
@@ -518,14 +508,14 @@ class HierarchicalTransformerBlock(nn.Module):
         return htb_tail(attn, *args, reference=reference)
 
     def _tail_with_dropout(self, attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
-                           ln2_s, ln2_b) -> torch.Tensor:
+                           ln2_s, ln2_b, rng: drop.Rng) -> torch.Tensor:
         """The tail's plain composition (``htb_tail_reference``) with the
         dropouts of training."""
-        x = shortcut + _drop_path(layer_norm(attn, ln1_s, ln1_b), self.drop_path, False)
+        x = shortcut + drop.drop_path(layer_norm(attn, ln1_s, ln1_b), self.drop_path, rng)
         h = F.gelu(x @ w1 + b1)
-        h = _dropout(h + F.gelu(depthwise_conv_reference(h, dw, dwb)), self.drop, False)
-        y = _dropout(h @ w2 + b2, self.drop, False)
-        return x + _drop_path(layer_norm(y, ln2_s, ln2_b), self.drop_path, False)
+        h = drop.dropout(h + F.gelu(depthwise_conv_reference(h, dw, dwb)), self.drop, rng)
+        y = drop.dropout(h @ w2 + b2, self.drop, rng)
+        return x + drop.drop_path(layer_norm(y, ln2_s, ln2_b), self.drop_path, rng)
 
     def _tail_weights(self, dt):
         mlp = self.mlp
@@ -552,7 +542,8 @@ class RHTB(nn.Module):
     statistics the next block needs; in training, and with
     ``use_checkpoint``, every block pools its own input (JAX's ``thread``).
     ``use_checkpoint`` recomputes each block in the backward
-    (``torch.utils.checkpoint``; JAX's ``nn.remat``)."""
+    (``torch.utils.checkpoint``; JAX's ``nn.remat``), replaying the
+    block's dropout draws (``_checkpointed``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, base_win_size,
                  window_sizes, mlp_ratio: float = 2.0,
@@ -580,7 +571,7 @@ class RHTB(nn.Module):
                 nn.Conv2d(dim // 4, dim, 3, padding=1))
 
     def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, generator: drop.Rng = None) -> torch.Tensor:
         blocks = self.residual_group.blocks
         thread = deterministic and not self.use_checkpoint
         remat = self.use_checkpoint and torch.is_grad_enabled()
@@ -588,11 +579,10 @@ class RHTB(nn.Module):
         for i, block in enumerate(blocks):
             want = thread and i + 1 < len(blocks) and self.is_channel_spatial_attn
             if remat:
-                y = checkpoint(block, y, reference=reference, deterministic=deterministic,
-                               use_reentrant=False)
+                y = _checkpointed(block, y, reference, deterministic, generator)
                 continue
             out = block(y, emit_stats=want, stats=stats, reference=reference,
-                        deterministic=deterministic)
+                        deterministic=deterministic, generator=generator)
             y, stats = out if want else (out, None)
         if isinstance(self.conv, nn.Sequential):
             y = F.leaky_relu(conv_nhwc(y, self.conv[0]), 0.2)
@@ -600,6 +590,30 @@ class RHTB(nn.Module):
             return x + conv_nhwc(y, self.conv[4])
         return conv3x3(y, x, *_conv_weights(self.conv, x.dtype, x.device), "none",
                        reference)
+
+
+def _checkpointed(block: nn.Module, y: torch.Tensor, reference: bool, deterministic: bool,
+                  rng: drop.Rng) -> torch.Tensor:
+    """``block(y)`` under ``torch.utils.checkpoint``, whose recompute in
+    the backward draws the forward's dropout masks again: checkpoint
+    restores torch's default generators only, so the recompute draws from
+    a copy of the caller's generator as it stood before the forward (the
+    caller's generator advances once, as without checkpointing)."""
+    rng = drop.as_rng(rng)
+    g = rng.generator
+    state = None if g is None or deterministic else g.get_state()
+    calls = []
+
+    def run(y):
+        r = rng
+        if calls and state is not None:          # the recompute
+            replay = torch.Generator(device=g.device)
+            replay.set_state(state)
+            r = rng._replace(generator=replay)
+        calls.append(1)
+        return block(y, reference=reference, deterministic=deterministic, generator=r)
+
+    return checkpoint(run, y, use_reentrant=False)
 
 
 def _folded_up2(conv: nn.Conv2d, dt):
@@ -811,13 +825,17 @@ class HiTSIR(nn.Module):
                     *_conv_weights(self.conv_last, dt, dev), reference)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
-                stage: str = "full", deterministic: bool = True) -> torch.Tensor:
+                stage: str = "full", deterministic: bool = True,
+                generator: drop.Rng = None) -> torch.Tensor:
         """``stage``: 'full' the whole network; 'features' stops at the
         pre-upsample feature map (B, H, W, num_feat), without the mean
         added back; 'head' takes that map and returns the x4 head's output
         plus the mean, uncropped (packed with ``head_packed``, the mean
         then tiled to match).  ``deterministic=False``: the training
-        forward (see the module docstring)."""
+        forward (see the module docstring), its dropout masks drawn from
+        ``generator``: a ``torch.Generator`` on the input's device (None:
+        torch's default one), or an ``ops.dropout.DropoutRng`` that also
+        names this rank's slice of the global batch."""
         if stage not in ("full", "features", "head"):
             raise ValueError(f"unknown stage {stage!r}")
         if stage != "full" and self.upsampler != "nearest+conv":
@@ -845,9 +863,10 @@ class HiTSIR(nn.Module):
                 raise ValueError(f"ape: the position embedding covers {self.img_size}x"
                                  f"{self.img_size} maps, not {h}x{w}")
             feat = feat + self.absolute_pos_embed.reshape(1, h, w, -1).to(dt)
-        feat = _dropout(feat, self.drop_rate, deterministic)
+        if not deterministic:
+            feat = drop.dropout(feat, self.drop_rate, generator)
         for layer in self.layers:
-            feat = layer(feat, reference, deterministic)
+            feat = layer(feat, reference, deterministic, generator)
         feat = _layer_norm_slabs(feat, self.norm.weight, self.norm.bias)
         deep = conv3x3(feat, None, *_conv_weights(self.conv_after_body, dt, x.device),
                        "none", reference)

@@ -102,8 +102,8 @@ class SelfAttention2D(nn.Module):
 class UNetSR(nn.Module):
     """x``upscale`` SR UNet; NHWC input in [0, 1] whose sides are multiples
     of 2^(len(ch_mults) - 1) (the skip concats need them; JAX fails there
-    too).  ``forward`` takes the port's ``reference`` and ``deterministic``,
-    which change nothing here (no kernel, no random draw)."""
+    too).  ``forward`` takes the port's ``reference``, ``deterministic`` and
+    ``generator``, which change nothing here (no kernel, no random draw)."""
 
     def __init__(self, image_in_channels: int = 3, n_channels: int = 64,
                  ch_mults: Sequence[int] = (1, 2, 1, 1),
@@ -150,7 +150,7 @@ class UNetSR(nn.Module):
         flax_init_(self)
 
     def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, generator=None) -> torch.Tensor:
         _, h, w, _ = x.shape
         step = 2 ** (len(self.ch_mults) - 1)
         if h % step or w % step:

@@ -75,9 +75,12 @@ class VGGFeatures(nn.Module):
         self.features = make_features(cfg)
 
     def taps_nchw(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """The taps of an NCHW batch, NCHW."""
+        """The taps of an NCHW batch, NCHW: the input norm in the batch's
+        dtype, the tower in its weights' (JAX's casts, so that a bfloat16
+        SR is normed in bfloat16 and then runs the float32 tower)."""
         if self.use_input_norm:
             x = (x - _channels(x, IMAGENET_MEAN)) / _channels(x, IMAGENET_STD)
+        x = x.to(self.features[0].weight.dtype)
         out = []
         for i, layer in enumerate(self.features[:max(self.taps) + 1]):
             x = layer(x)

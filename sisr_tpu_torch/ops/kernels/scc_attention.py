@@ -13,13 +13,13 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from sisr_tpu_torch.ops import dropout as drop
 from sisr_tpu_torch.utils.constants import device_constant
 
 
 def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int,
-                  value_drop: float = 0.0):
+                  value_drop: float = 0.0, rng: drop.Rng = None):
     """Plain reference of the window attention.
 
     x:    (B, nWh, wh, nWw, ww, C)  [pure reshape of NHWC input]
@@ -31,7 +31,9 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int,
     bias: (L, heads*l_base) relative-position bias
     value_drop: dropout on the pooled values of the spatial branch and on
           the values of the channel branch (training with the reference's
-          ``value_drop_rate``, JAX ``_reference_with_dropout``)
+          ``value_drop_rate``, JAX ``_reference_with_dropout``), its
+          masks drawn from ``rng`` (``ops/dropout.py``) with the batch
+          leading, as a rank's slice of the global batch's masks
     returns (B, nWh, wh, nWw, ww, C) float32 concat [S-SC | C-SC]: the
     float32 ``pb`` promotes the spatial branch to float32, as in JAX.
     """
@@ -48,7 +50,8 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int,
     k_pool = torch.einsum("ml,blc->bmc", pmat, k).to(f32) + pbs
     v_pool = torch.einsum("ml,blc->bmc", pmat, v).to(f32) + pbs
     if value_drop:
-        v_pool = F.dropout(v_pool, value_drop)
+        v_pool = drop.dropout(v_pool.reshape(b, -1, *v_pool.shape[1:]), value_drop,
+                              rng).reshape(v_pool.shape)
 
     def big(t):  # (nwb, l_base, half) -> masked head-tiled (nwb, heads*l_base, half)
         return t.repeat(1, heads, 1) * mask.to(f32)
@@ -59,7 +62,7 @@ def scc_reference(x, w1, w2, bb, pmat, pb, mask, bias, heads: int,
 
     gram = torch.einsum("blc,bld->bcd", q, k) / float(l_full)
     if value_drop:
-        v = F.dropout(v, value_drop)
+        v = drop.dropout(v.reshape(b, -1, *v.shape[1:]), value_drop, rng).reshape(v.shape)
     out_c = torch.einsum("bld,bcd->blc", v, gram)
 
     out = torch.cat([out_s, out_c.to(f32)], dim=-1)

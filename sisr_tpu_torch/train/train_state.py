@@ -13,7 +13,10 @@ Data parallelism (JAX: the batch sharded on the mesh's ``data`` axis, XLA's
 gradient all-reduce) is written out: with a ``mesh`` each rank runs its
 slice of the global batch, ``all_reduce_grads`` averages the gradients
 after each backward, before the optimizer's step, and the returned losses
-are the global batch's (``all_reduce_mean``).  No
+are the global batch's (``all_reduce_mean``); the dropout masks are drawn
+at the global batch's shape from the step's generator, and each rank keeps
+its rows (``ops/dropout.py``), so N ranks seeded alike drop what one
+process drops over the whole batch.  No
 ``DistributedDataParallel``: the GAN step runs two backwards into D and
 toggles its ``requires_grad``, spectral norm updates ``u``, ``v`` in place,
 the kernels' backward recomputes plain forwards, and gloo offers only
@@ -28,6 +31,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from sisr_tpu_torch.ops.dropout import DropoutRng
 from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, all_reduce_mean
 from sisr_tpu_torch.train.losses import gan_loss
 
@@ -53,14 +57,24 @@ def _global(mesh: Optional[Mesh], loss: torch.Tensor) -> torch.Tensor:
     return loss.detach() if mesh is None else all_reduce_mean(mesh, loss)
 
 
+def _dropout_rng(mesh: Optional[Mesh], generator: Optional[torch.Generator]) -> DropoutRng:
+    """The step's generator with this rank's slice of the global batch."""
+    return DropoutRng(generator) if mesh is None else DropoutRng(generator, mesh.rank,
+                                                                 mesh.size)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer, reference: bool = False,
                     mesh: Optional[Mesh] = None) -> Callable:
     """Pixel-loss train step: ``step(lr_imgs, hr_imgs, generator) -> loss``
     on NHWC batches, updating the model's parameters in place.
-    ``generator`` stands where JAX's step takes its dropout key: HiTSIR's
-    dropouts draw from torch's global generator, as the reference's do.
-    ``reference=True`` runs the plain
+    ``generator`` stands where JAX's step takes its dropout key: every
+    dropout mask of the forward is drawn from it (None: torch's default
+    generator, as the reference's ``nn.Dropout``), and with a generator the
+    default generators are left as they were.  A bfloat16 model returns a
+    bfloat16 SR, and the loss against the float32 HR promotes it to
+    float32, as JAX's does; parameters and the optimizer's state stay
+    float32, with no loss scaling (JAX has none).  ``reference=True`` runs the plain
     versions instead of the kernels (the yardstick on the card).  With a
     ``mesh`` the batch is this rank's slice, the gradients are averaged
     over the ranks and the loss is the global batch's."""
@@ -68,7 +82,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        sr = model(lr_imgs, reference=reference, deterministic=False)
+        sr = model(lr_imgs, reference=reference, deterministic=False,
+                   generator=_dropout_rng(mesh, generator))
         loss = loss_fn(sr, hr_imgs)
         loss.backward()
         if mesh is not None:
@@ -124,7 +139,10 @@ def make_gan_train_step(
          both forwards; then D's optimizer step.
 
     Returns G's loss over the sum of the loss weights and the mean of D's
-    two losses, as the reference logs them.  ``reference=True`` runs the
+    two losses, as the reference logs them.  ``generator`` as
+    ``make_train_step``'s.  A bfloat16 generator's SR goes to the float32
+    discriminator and VGG19 as it is: each casts its input to its
+    parameters' float32 where JAX's does (the VGG after its input norm).  ``reference=True`` runs the
     generator's plain versions instead of its kernels.  With a ``mesh``
     each network's gradients are averaged over the ranks before its
     optimizer's step (D's after both of its backwards), and the losses are
@@ -135,7 +153,8 @@ def make_gan_train_step(
         g_optimizer.zero_grad(set_to_none=True)
         d_model.requires_grad_(False)
         try:
-            sr = g_model(lr_imgs, reference=reference, deterministic=False)
+            sr = g_model(lr_imgs, reference=reference, deterministic=False,
+                         generator=_dropout_rng(mesh, generator))
             g_loss = gan_generator_loss(sr, hr_imgs, d_model, pixel_loss, perceptual_loss,
                                         perceptual_weight, adversarial_weight)
             g_loss.backward()

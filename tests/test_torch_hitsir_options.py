@@ -115,8 +115,7 @@ def test_plain_routes_with_dropouts_keeping_everything_equal_the_kernel_routes(m
     """With the rates above 0 in training, SCC (value dropout) and the tails
     (dropout, drop-path) run their plain compositions; with every dropout
     patched to keep all, those equal the kernel routes' plain versions."""
-    from sisr_tpu_torch.models import hit_sir_pro as hsp
-    from sisr_tpu_torch.ops.kernels import scc_attention
+    from sisr_tpu_torch.ops import dropout
 
     model = _model(**SMALL, **RATES)
     plain = _model(**SMALL)
@@ -124,9 +123,8 @@ def test_plain_routes_with_dropouts_keeping_everything_equal_the_kernel_routes(m
     x = _x((2, 16, 16, 3))
     with torch.no_grad():
         want = plain(x, deterministic=False)
-        monkeypatch.setattr(hsp, "_dropout", lambda t, rate, det: t)
-        monkeypatch.setattr(hsp, "_drop_path", lambda t, rate, det: t)
-        monkeypatch.setattr(scc_attention.F, "dropout", lambda t, p: t)
+        monkeypatch.setattr(dropout, "dropout", lambda t, rate, rng: t)
+        monkeypatch.setattr(dropout, "drop_path", lambda t, rate, rng: t)
         got = model(x, deterministic=False)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
