@@ -58,6 +58,7 @@ from sisr_tpu_torch.ops.kernels.scc_block import sca_reference, scc_block
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from sisr_tpu_torch.ops.windows import pad_to_multiple
 from sisr_tpu_torch.utils.constants import device_constant
+from sisr_tpu_torch.utils.profiling import span
 
 
 def _linear(x, mod: nn.Linear, dt):
@@ -99,13 +100,15 @@ def _derived(module: nn.Module, kind: str, dt, device, make, sources=None):
     storage alone).  The parameter list is taken once: a Parameter object
     assigned later is not followed.  When grad mode is on and one of those
     parameters requires grad, ``make()`` runs anew under autograd and
-    nothing is kept, so that the gradient reaches the parameters."""
+    nothing is kept, so that the gradient reaches the parameters.  Each
+    ``make()`` runs inside a ``sisr.derive.<kind>`` span."""
     lists = module.__dict__.setdefault("_derived_params", {})
     params = lists.get(kind)
     if params is None:
         params = lists[kind] = [p for m in (sources or (module,)) for p in m.parameters()]
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return make()
+        with span("derive." + kind):
+            return make()
     stamp = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
                   for p in params)
     cache = module.__dict__.setdefault("_derived", {})
@@ -113,7 +116,7 @@ def _derived(module: nn.Module, kind: str, dt, device, make, sources=None):
     hit = cache.get(key)
     if hit is None or hit[0] != stamp:
         # plain tensors outside autograd, whatever mode the caller is in
-        with torch.inference_mode(False), torch.no_grad():
+        with torch.inference_mode(False), torch.no_grad(), span("derive." + kind):
             hit = (stamp, make())
         cache[key] = hit
     return hit[1]

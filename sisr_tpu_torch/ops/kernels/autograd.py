@@ -1,12 +1,14 @@
 """Gradients through the hand-written kernels, as the JAX package's
 ``jax.custom_vjp``s give them.
 
-``KernelFunction(kernel, plain)`` is a callable with ``plain``'s signature.
-Its forward runs ``kernel`` and saves the *inputs* (no activations); its
-backward recomputes ``plain`` from them under autograd and returns
-``torch.autograd.grad`` of it for the inputs that need one: the vjp of the
-plain version, as each JAX backward is ``jax.vjp`` of its reference.  A
-kernel with a backward kernel of its own (``dwconv.py``) passes ``vjp``.
+``KernelFunction(name, kernel, plain)`` is a callable with ``plain``'s
+signature.  Its forward runs ``kernel`` and saves the *inputs* (no
+activations); its backward recomputes ``plain`` from them under autograd and
+returns ``torch.autograd.grad`` of it for the inputs that need one: the vjp
+of the plain version, as each JAX backward is ``jax.vjp`` of its reference.
+A kernel with a backward kernel of its own (``dwconv.py``) passes ``vjp``.
+The backward runs inside a ``sisr.vjp.<name>`` span (on the autograd
+engine's thread).
 
 Arguments may nest tensors in tuples (``scc_block``'s ``sca``,
 ``fused_fusion``'s ``raws``): they are flattened into the Function's inputs
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from sisr_tpu_torch.utils.profiling import span
 
 
 class _Leaf:
@@ -90,23 +94,25 @@ class _Apply(torch.autograd.Function):
     def backward(ctx, *grads):
         fn, leaves = ctx.fn, ctx.saved_tensors
         need = ctx.needs_input_grad[2:]
-        if fn.vjp is not None:
-            got = fn.vjp(fn.kernel, leaves, need, grads)
-        else:
-            got = _plain_vjp(fn.plain, ctx.spec, leaves, need, grads)
+        with span("vjp." + fn.name):
+            if fn.vjp is not None:
+                got = fn.vjp(fn.kernel, leaves, need, grads)
+            else:
+                got = _plain_vjp(fn.plain, ctx.spec, leaves, need, grads)
         return (None, None) + tuple(got)
 
 
 class KernelFunction:
-    """``kernel`` forward, ``plain``'s vjp (or ``vjp``) backward; see the
-    module docstring.  ``vjp(kernel, leaves, need, grads)`` returns one
-    gradient (or None) per flattened input."""
+    """``kernel`` forward, ``plain``'s vjp (or ``vjp``) backward, traced as
+    ``sisr.vjp.<name>``; see the module docstring.  ``vjp(kernel, leaves,
+    need, grads)`` returns one gradient (or None) per flattened input."""
 
-    def __init__(self, kernel: Callable, plain: Callable, vjp: Optional[Callable] = None):
-        self.kernel, self.plain, self.vjp = kernel, plain, vjp
+    def __init__(self, name: str, kernel: Callable, plain: Callable,
+                 vjp: Optional[Callable] = None):
+        self.name, self.kernel, self.plain, self.vjp = name, kernel, plain, vjp
 
     def with_kernel(self, kernel: Callable) -> "KernelFunction":
-        return KernelFunction(kernel, self.plain, self.vjp)
+        return KernelFunction(self.name, kernel, self.plain, self.vjp)
 
     def __call__(self, *args):
         if not needs_grad(*args):

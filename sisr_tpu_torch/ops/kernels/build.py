@@ -8,12 +8,15 @@ is of the source, so an edited source rebuilds).  ``build_all`` starts one
 first use.  Nothing here runs when the module is imported.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (one
-per call, however many launches the call issues).
+per call, however many launches the call issues); ``launched(name)``
+decorates each wrapper, counting it and tracing it as
+``sisr.kernel.<name>`` on the same boundary.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,6 +27,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from sisr_tpu_torch.utils.profiling import span
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -51,6 +56,25 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def launched(name: str):
+    """Decorator of kernel ``name``'s Python wrapper: the call runs inside
+    a ``sisr.kernel.<name>`` span and counts one in ``launches[name]`` once
+    it returns."""
+    label = "kernel." + name
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(label):
+                out = fn(*args, **kwargs)
+            launches[name] += 1
+            return out
+
+        return call
+
+    return wrap
 
 
 def _nvcc() -> str:
@@ -149,7 +173,7 @@ def cached(owner: torch.Tensor, name: str, deps, make):
     hit = getattr(owner, name, None)
     if key is not None and hit is not None and hit[0] == key:
         return hit[1]
-    with torch.no_grad():
+    with torch.no_grad(), span("derive." + name.lstrip("_")):
         value = make()
     if key is not None:
         setattr(owner, name, (key, value))

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from sisr_tpu_torch.ops.kernels import build
 from sisr_tpu_torch.ops.kernels.autograd import KernelFunction
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
+from sisr_tpu_torch.utils.profiling import span
 
 ACTS = {"none": 0, "leaky": 1, "leaky2": 2}
 # conv_hr's channels the tail kernel keeps on chip (csrc/shuffled_tail.cu)
@@ -95,7 +96,7 @@ def _packed(kernel: torch.Tensor, npad: int) -> torch.Tensor:
     hit = getattr(kernel, "_wgmma_pack", None)
     if version is not None and hit is not None and hit[0] == (version, npad):
         return hit[1]
-    with torch.no_grad():
+    with torch.no_grad(), span("derive.wgmma_pack"):
         pack = pack_weights(kernel, npad)
     if version is not None:
         kernel._wgmma_pack = ((version, npad), pack)
@@ -167,19 +168,20 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
                         build.ptr(kernel), build.ptr(packed), build.ptr(bias), build.ptr(out),
                         b, h, w, cin, cout, npad or 0, ACTS[act], int(shuffled))
     build.raise_on_error(name, code)
-    build.launches[name] += 1
     return out
 
 
 CONV3X3 = KernelFunction(
-    lambda y, res, kernel, bias, act: _conv3x3_cuda(
+    "conv3x3",
+    build.launched("conv3x3")(lambda y, res, kernel, bias, act: _conv3x3_cuda(
         y, res, build.as_arg(kernel, y.dtype), build.as_arg(bias, y.dtype), act,
-        shuffled=False),
+        shuffled=False)),
     conv3x3_reference)
 CONV3X3_SHUFFLED = KernelFunction(
-    lambda yp, kernel, bias, act: _conv3x3_cuda(
+    "conv3x3_shuffled",
+    build.launched("conv3x3_shuffled")(lambda yp, kernel, bias, act: _conv3x3_cuda(
         yp, None, build.as_arg(kernel, yp.dtype), build.as_arg(bias, yp.dtype), act,
-        shuffled=True),
+        shuffled=True)),
     conv3x3_shuffled_reference)
 
 
@@ -245,20 +247,20 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
                         build.ptr(w1p), build.ptr(b1), build.ptr(k2), build.ptr(b2),
                         build.ptr(out), b, 2 * h2, 2 * w2, cin, c1, cout, ACTS[act1])
     build.raise_on_error(name, code)
-    build.launches[name] += 1
     return out
 
 
-def _shuffled_tail_kernel(packed: bool):
+def _shuffled_tail_kernel(name: str, packed: bool):
+    @build.launched(name)
     def kernel(yp, k1, b1, act1, k2, b2):
         cast = lambda t: build.as_arg(t, yp.dtype)
         return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2), packed)
-    return kernel
+    return KernelFunction(name, kernel, (conv3x3_shuffled_tail_packed_reference if packed
+                                         else conv3x3_shuffled_tail_reference))
 
 
-SHUFFLED_TAIL = KernelFunction(_shuffled_tail_kernel(False), conv3x3_shuffled_tail_reference)
-SHUFFLED_TAIL_PACKED = KernelFunction(_shuffled_tail_kernel(True),
-                                      conv3x3_shuffled_tail_packed_reference)
+SHUFFLED_TAIL = _shuffled_tail_kernel("conv3x3_shuffled_tail", False)
+SHUFFLED_TAIL_PACKED = _shuffled_tail_kernel("conv3x3_shuffled_tail_packed", True)
 
 
 def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):

@@ -51,10 +51,10 @@ def _dwconv_cuda(x, w, b, flip: bool):
                         build.DTYPE_CODES[x.dtype], build.ptr(x), build.ptr(w), build.ptr(b),
                         build.ptr(y), bsz, h, wd, c, int(flip))
     build.raise_on_error("dwconv5x5", code)
-    build.launches["dwconv5x5"] += 1
     return y
 
 
+@build.launched("dwconv5x5")
 def _kernel(x, w, b=None, flip: bool = False):
     """The kernel with the plain version's signature."""
     dt = x.dtype
@@ -84,7 +84,7 @@ def dwconv_vjp(kernel, leaves, need, grads):
     return dx, dw, db
 
 
-DWCONV5X5 = KernelFunction(_kernel, depthwise_conv_reference, vjp=dwconv_vjp)
+DWCONV5X5 = KernelFunction("dwconv5x5", _kernel, depthwise_conv_reference, vjp=dwconv_vjp)
 
 
 def dwconv5x5(x, w, b, reference: bool = False):

@@ -151,6 +151,7 @@ def _wgmma_buffers(b, h, w, c, ch, dt, dev, stats: bool, band: int):
                         torch.empty((b, c), dtype=f32, device=dev))
 
 
+@build.launched("htb_tail")
 def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     b, h, w, c = shortcut.shape
     ch = weights[2].shape[1]
@@ -198,7 +199,6 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
                         build.ptr(xbuf), attn.stride(0), attn.stride(1),
                         b, h, w, c, ch, band)
     build.raise_on_error("htb_tail", code)
-    build.launches["htb_tail"] += 1
     if not stats:
         return out
     build.launches["htb_tail_stats"] += 1
@@ -215,6 +215,7 @@ def _tail_plain(attn, shortcut, *weights, dwconv=depthwise_conv_reference):
 
 
 HTB_TAIL = KernelFunction(
+    "htb_tail",
     lambda attn, shortcut, *weights: _htb_tail_cuda(attn, shortcut, weights, stats=False),
     lambda *args: _tail_plain(*args, dwconv=dwconv5x5))
 

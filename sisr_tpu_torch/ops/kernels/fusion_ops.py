@@ -85,6 +85,7 @@ def pools_layout(bsz: int, w: int, c: int, itemsize: int, aligned: bool = True):
     return PoolsLayout(v, s, pl, pl * g, p)
 
 
+@build.launched("fusion_pools")
 def _fusion_pools_cuda(a, b):
     bsz, h, w, c = a.shape
     if tuple(b.shape) != tuple(a.shape):
@@ -106,11 +107,10 @@ def _fusion_pools_cuda(a, b):
                         build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
                         build.ptr(hp3), build.ptr(wp3), bsz, h, w, c)
     build.raise_on_error("fusion_pools", code)
-    build.launches["fusion_pools"] += 1
     return cp3, hp3, wp3
 
 
-FUSION_POOLS = KernelFunction(_fusion_pools_cuda, fusion_pools_reference)
+FUSION_POOLS = KernelFunction("fusion_pools", _fusion_pools_cuda, fusion_pools_reference)
 
 
 def fusion_pools(a, b, reference: bool = False):
@@ -184,6 +184,7 @@ def pack_params(raws, c: int, dt):
             torch.stack(clb).to(f32), k1blk.to(dt))
 
 
+@build.launched("fused_fusion")
 def _fused_fusion_cuda(a, b, packed):
     bsz, h, w, c = a.shape
     dt = a.dtype
@@ -207,11 +208,11 @@ def _fused_fusion_cuda(a, b, packed):
                         build.ptr(hp3), build.ptr(wp3), *[build.ptr(t) for t in packed],
                         build.ptr(scratch), build.ptr(out), bsz, h, w, c)
     build.raise_on_error("fused_fusion", code)
-    build.launches["fused_fusion"] += 1
     return out
 
 
-FUSED_FUSION = KernelFunction(lambda a, b, raws, packed: _fused_fusion_cuda(a, b, packed),
+FUSED_FUSION = KernelFunction("fused_fusion",
+                              lambda a, b, raws, packed: _fused_fusion_cuda(a, b, packed),
                               lambda a, b, raws, packed: fused_fusion_reference(a, b, raws))
 
 

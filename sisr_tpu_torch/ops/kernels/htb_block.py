@@ -48,6 +48,7 @@ def htb_fused_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k,
                               dw_b, fc2_k, fc2_b, ln2_s, ln2_b)
 
 
+@build.launched("htb_fused")
 def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                     heads: int, window, tail, stats: bool):
     b, h, w, c = x.shape
@@ -112,7 +113,6 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                         *[build.ptr(t) for t in st],
                         *[build.ptr(t) for t in packs], b, h, w, c, heads, wh, ww, ch)
     build.raise_on_error("htb_fused", code)
-    build.launches["htb_fused"] += 1
     if not stats:
         return out
     if packed:          # the kernel's totals

@@ -128,6 +128,7 @@ def pack_proj(proj_k: torch.Tensor, heads: int) -> torch.Tensor:
     return out
 
 
+@build.launched("scc_block")
 def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                     heads: int, window):
     b, hp, wp, c = x.shape
@@ -188,12 +189,12 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                         *[build.ptr(t) for t in packs], build.ptr(out), build.ptr(scratch),
                         b, hp, wp, c, heads, wh, ww, l_base)
     build.raise_on_error("scc_block", code)
-    build.launches["scc_block"] += 1
     return out
 
 
 # the kernel derives the head mask from ``heads``
 SCC_BLOCK = KernelFunction(
+    "scc_block",
     lambda x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads, window:
     _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads, window),
     scc_block_reference)

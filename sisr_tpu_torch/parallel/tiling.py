@@ -27,6 +27,7 @@ import torch
 from sisr_tpu_torch.ops.kernels.conv3x3 import tail_pack_group
 from sisr_tpu_torch.ops.windows import pad_hw
 from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from sisr_tpu_torch.utils.profiling import span
 
 
 def tile_positions(length: int, tile: int, overlap: int) -> List[int]:
@@ -60,7 +61,9 @@ class TiledSR:
     """Callable running ``model_apply`` over overlapping tiles of one image.
 
     model_apply: (k, th, tw, 3) NHWC tensor -> (k, th*s, tw*s, 3).
-    ``tile`` is an int (square tiles) or an (th, tw) pair.
+    ``tile`` is an int (square tiles) or an (th, tw) pair.  A request runs
+    inside a ``sisr.tiler`` span, each ``model_apply`` call inside a
+    ``sisr.tiler.model`` span.
     """
 
     def __init__(self, model_apply: Callable, scale: int,
@@ -102,7 +105,9 @@ class TiledSR:
         out = torch.zeros((hh * s, ww * s, 3), dtype=dtype, device=img.device)
         for yx in pos.reshape(-1, self.chunk, 2):
             patches = torch.stack([img[y:y + th, x:x + tw] for y, x in yx])
-            sr = self.model_apply(patches).to(dtype)
+            with span("tiler.model"):
+                sr = self.model_apply(patches)
+            sr = sr.to(dtype)
             for i, (y, x) in enumerate(yx):
                 out[y * s:(y + th) * s, x * s:(x + tw) * s] += sr[i]
         return out
@@ -114,12 +119,13 @@ class TiledSR:
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         """img: (H, W, 3) in [0,1] -> (H*scale, W*scale, 3) in out_dtype."""
-        img, h, w = self._padded(img)
-        hh, ww = img.shape[:2]
-        pos = self._positions(hh, ww)
-        inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
-        out = self._canvas(img, pos, self.out_dtype) * inv_w
-        return out[: h * self.scale, : w * self.scale]
+        with span("tiler"):
+            img, h, w = self._padded(img)
+            hh, ww = img.shape[:2]
+            pos = self._positions(hh, ww)
+            inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
+            out = self._canvas(img, pos, self.out_dtype) * inv_w
+            return out[: h * self.scale, : w * self.scale]
 
     def sharded_positions(self, h: int, w: int, n_dev: int) -> np.ndarray:
         """The tile positions padded to a multiple of ``n_dev * chunk`` by
@@ -140,14 +146,15 @@ class TiledSR:
         every rank, in float32 as ``__call__``'s (its ``out_dtype`` canvas
         times the float32 weight map)."""
         n_dev = _axis_size(mesh, axis)
-        img, h, w = self._padded(img)
-        hh, ww = img.shape[:2]
-        pos = self.sharded_positions(hh, ww, n_dev)
-        per = len(pos) // n_dev
-        inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
-        out = self._canvas(img, pos[mesh.rank * per:(mesh.rank + 1) * per], torch.float32)
-        out = all_reduce_sum(mesh, out) * inv_w
-        return out[: h * self.scale, : w * self.scale]
+        with span("tiler"):
+            img, h, w = self._padded(img)
+            hh, ww = img.shape[:2]
+            pos = self.sharded_positions(hh, ww, n_dev)
+            per = len(pos) // n_dev
+            inv_w = torch.as_tensor(self._weight_map(hh, ww, pos), device=img.device)
+            out = self._canvas(img, pos[mesh.rank * per:(mesh.rank + 1) * per], torch.float32)
+            out = all_reduce_sum(mesh, out) * inv_w
+            return out[: h * self.scale, : w * self.scale]
 
 
 class BandedHeadSR:

@@ -34,6 +34,7 @@ from torch import nn
 from sisr_tpu_torch.ops.dropout import DropoutRng
 from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, all_reduce_mean
 from sisr_tpu_torch.train.losses import gan_loss
+from sisr_tpu_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -82,10 +83,12 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        sr = model(lr_imgs, reference=reference, deterministic=False,
-                   generator=_dropout_rng(mesh, generator))
-        loss = loss_fn(sr, hr_imgs)
-        loss.backward()
+        with span("step.forward"):
+            sr = model(lr_imgs, reference=reference, deterministic=False,
+                       generator=_dropout_rng(mesh, generator))
+            loss = loss_fn(sr, hr_imgs)
+        with span("step.backward"):
+            loss.backward()
         if mesh is not None:
             all_reduce_grads(mesh, model.parameters())
         optimizer.step()
@@ -153,11 +156,14 @@ def make_gan_train_step(
         g_optimizer.zero_grad(set_to_none=True)
         d_model.requires_grad_(False)
         try:
-            sr = g_model(lr_imgs, reference=reference, deterministic=False,
-                         generator=_dropout_rng(mesh, generator))
-            g_loss = gan_generator_loss(sr, hr_imgs, d_model, pixel_loss, perceptual_loss,
-                                        perceptual_weight, adversarial_weight)
-            g_loss.backward()
+            with span("step.forward"):
+                sr = g_model(lr_imgs, reference=reference, deterministic=False,
+                             generator=_dropout_rng(mesh, generator))
+                g_loss = gan_generator_loss(sr, hr_imgs, d_model, pixel_loss,
+                                            perceptual_loss, perceptual_weight,
+                                            adversarial_weight)
+            with span("step.backward"):
+                g_loss.backward()
         finally:
             d_model.requires_grad_(True)
         if mesh is not None:

@@ -1,25 +1,56 @@
-"""Profiling and timing utilities (port of ``sisr_tpu/utils/profiling.py``).
+"""Tracing (port of ``sisr_tpu/utils/profiling.py``).
 
 The reference's only observability is wall-clock bookkeeping in text logs
 (experiments/experiment.py:398-402,540-547).  Here:
 
-* ``trace(logdir)``         context manager around ``torch.profiler`` (CPU
-  and, where a card is present, CUDA activity); writes a Chrome trace to
+* ``trace(logdir)``  context manager around ``torch.profiler`` (CPU and,
+  where a card is present, CUDA activity); writes a Chrome trace to
   ``logdir/trace.json`` and returns the profiler for ``key_averages()``.
-* ``device_time(fn, *args)`` per-call device seconds of ``fn(*args)`` on
-  the card: a warmed run of ``n`` calls between two CUDA events, best of
-  ``tries``.  It needs a card; there is no host-clock fallback.
-* ``StepTimer``             rolling per-step wall times for the train loop.
+  Wrap any run in it: the program's ``sisr.*`` spans lie on the host
+  timeline beside the kernels they launch, on one clock.
+* ``span(name)``     a ``record_function`` range named ``sisr.<name>``
+  while a profiler is on, else a shared no-op context: with tracing off a
+  span costs one check of the profiler's state (under a microsecond) and
+  builds no ``record_function``.
+
+The spans and what each bounds:
+
+* ``sisr.tiler``: one ``TiledSR`` request (pad, tile plan, weight map and
+  its copy to the device, canvas, blend, crop);
+  ``sisr.tiler.model``: one chunk of tiles through the model.
+* ``sisr.kernel.<name>``: a hand-written kernel's Python wrapper (checks,
+  casts, buffers, the launch), with ``build.launches[name]`` counted on the
+  same boundary (``ops/kernels/build.py::launched``).
+* ``sisr.step.forward``: a training step's generator forward and its
+  losses (in GAN mode with the VGG19 and discriminator forwards of the
+  generator's loss); ``sisr.step.backward``: its ``loss.backward()``.
+* ``sisr.vjp.<name>``: one kernel's backward through ``KernelFunction``
+  (the plain forward recomputed and differentiated, or the kernel's own
+  vjp), on the autograd engine's thread.
+* ``sisr.derive.<kind>``: derived weights or weight packs made anew
+  (``_derived`` under grad or on a miss, ``build.cached`` and conv3x3's
+  pack on a miss).
+
+The ``bench.`` prefix is the benchmark's own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable, List
 
 import torch
+from torch._C._autograd import _profiler_enabled
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function("sisr." + name)`` while a profiler is on, else a
+    shared no-op context."""
+    if _profiler_enabled():
+        return torch.autograd.profiler.record_function("sisr." + name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -33,45 +64,3 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def device_time(fn: Callable, *args, n: int = 20, tries: int = 3) -> float:
-    """Per-call device seconds of ``fn(*args)`` (CUDA events, warmed)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_time needs a CUDA card")
-    fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(tries):
-        start.record()
-        for _ in range(n):
-            fn(*args)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3 / n)
-    return best
-
-
-class StepTimer:
-    """Rolling mean/last of step durations."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times: List[float] = []
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self._times.append(dt)
-        if len(self._times) > self.window:
-            self._times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self._times) / len(self._times) if self._times else 0.0

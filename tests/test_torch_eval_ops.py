@@ -247,16 +247,19 @@ def test_average_meter_matches_jax():
 
 
 def test_step_timer_and_trace(tmp_path):
-    from sisr_tpu_torch.utils.profiling import StepTimer, device_time, trace
+    """``trace`` writes a Chrome trace holding the program's ``sisr.*``
+    spans beside the operators they enclose."""
+    import json
 
-    timer = StepTimer(window=2)
-    for _ in range(3):
-        timer.start()
-        assert timer.stop() >= 0
-    assert len(timer._times) == 2 and timer.mean >= 0
+    from sisr_tpu_torch.utils.profiling import span, trace
+
     with trace(str(tmp_path)) as prof:
-        torch.ones(4).sum()
+        with span("probe"):
+            torch.ones(4).sum()
     assert (tmp_path / "trace.json").exists()
-    assert len(prof.key_averages()) > 0
-    with pytest.raises(RuntimeError):   # device timing needs a card
-        device_time(lambda: None)
+    assert {"sisr.probe", "aten::sum"} <= {e.key for e in prof.key_averages()}
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    probe = [e for e in events if e.get("name") == "sisr.probe"]
+    total = [e for e in events if e.get("name") == "aten::sum"]
+    assert len(probe) == 1 and total
+    assert probe[0]["ts"] <= total[0]["ts"] <= probe[0]["ts"] + probe[0]["dur"]
