@@ -1513,11 +1513,15 @@ def planted_fault(kind: str):
     """The check's control: the training step with a fault planted in
     dwconv5x5's backward (which no forward output shows), for as long as
     the context lasts.  "unflipped": dx from the filter unflipped;
-    "half-ulp": dx 2^-8 relative too large (half a bfloat16 ulp)."""
+    "half-ulp": dx 2^-8 relative too large (half a bfloat16 ulp).  The
+    HTB tails' recompute runs it inside their CUDA graphs, which replay the
+    code they captured: they are dropped on entry and on exit."""
     from sisr_tpu_torch.ops.kernels import dwconv
+    from sisr_tpu_torch.ops.kernels.autograd import drop_graphs
 
     fn = dwconv.DWCONV5X5
     sound = fn.vjp
+    drop_graphs()
 
     def unflipped(kernel, leaves, need, grads):
         x, w, b = leaves
@@ -1532,6 +1536,7 @@ def planted_fault(kind: str):
         yield
     finally:
         fn.vjp = sound
+        drop_graphs()
 
 
 def _over_bars(grads: dict, ref: dict, bars: dict, floor: float = 0.0) -> tuple:

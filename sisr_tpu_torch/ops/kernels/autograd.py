@@ -10,6 +10,32 @@ A kernel with a backward kernel of its own (``dwconv.py``) passes ``vjp``.
 The backward runs inside a ``sisr.vjp.<name>`` span (on the autograd
 engine's thread).
 
+On a card the plain recompute is replayed as a CUDA graph, one per input
+signature (the kernel, each leaf's shape, stride, dtype and device, which
+inputs need a gradient, the non-tensor arguments, each cotangent's shape,
+stride and dtype, the TF32 and determinism settings): the host then launches one graph in place of walking
+hundreds of small ops under autograd.  The first sighting of a signature
+runs eager (it makes the library handles, workspaces and device constants
+that a capture must not create).  The second copies its tensors into
+static buffers, runs eager on them on the capture stream (torch's warm-up
+before a capture; its gradients are this call's) and captures
+``_plain_vjp`` on them.  Later ones copy in, replay and copy the gradients
+out: a replay overwrites its outputs, and one signature runs many times in
+one backward.  The same ops run in the same order, so the gradients are
+the eager ones.  ``build.launches`` credits a replay with the wrapper
+calls its capture recorded (the HTB tail's recompute runs ``dwconv5x5``),
+so that it keeps counting the kernels that ran.  A signature whose capture
+raises stays eager, with one warning.  At most ``MAX_SIGNATURES``
+signatures are remembered, least recently used dropped first; a graph
+holds static copies of its call's inputs, cotangents and gradients, and
+the graphs of a device share one memory pool, as large as the largest
+recompute's working set (the flagship's float32 step at batch 2, LR 64x64:
+15 graphs, 0.48 GiB more allocated and 0.87 GiB more reserved on an H100,
+0.6-0.85 s of captures).  CPU tensors and a kernel's own ``vjp`` run as they are.  Inside
+``sisr.vjp.<name>`` a replay is traced as ``sisr.replay.<name>``, an eager
+recompute (first sighting, capture or fallback) as
+``sisr.recompute.<name>``.
+
 Arguments may nest tensors in tuples (``scc_block``'s ``sca``,
 ``fused_fusion``'s ``raws``): they are flattened into the Function's inputs
 and rebuilt for each call.  Non-tensor arguments (an activation name, heads,
@@ -22,10 +48,14 @@ with the plain version standing in.
 
 from __future__ import annotations
 
+import threading
+import warnings
+from collections import OrderedDict
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from sisr_tpu_torch.ops.kernels import build
 from sisr_tpu_torch.utils.profiling import span
 
 
@@ -83,6 +113,183 @@ def _plain_vjp(plain: Callable, spec, leaves: Sequence[torch.Tensor],
     return tuple(next(got) if n else None for n in need)
 
 
+# signatures remembered (seen once, or with a graph), each graph's static
+# buffers live until its signature is dropped
+MAX_SIGNATURES = 64
+_SEEN = object()
+_lock = threading.Lock()
+_signatures: "OrderedDict[tuple, object]" = OrderedDict()   # least recent first
+_failed: set = set()
+_capture_on: dict = {}  # device -> (the capture stream, the graphs' shared memory pool)
+
+
+def _frozen(spec):
+    """``spec`` as a hashable value: tensors by place, other leaves as they are."""
+    if isinstance(spec, _Leaf):
+        return _Leaf
+    if isinstance(spec, (tuple, list)):
+        return type(spec), tuple(_frozen(s) for s in spec)
+    return spec
+
+
+def _modes() -> tuple:
+    """The process-wide settings by which cuBLAS and cuDNN pick their
+    kernels: a graph keeps the ones it was captured under (``exact_mode``'s
+    TF32 off among them)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (torch.get_float32_matmul_precision(), cudnn.enabled, cudnn.allow_tf32,
+            cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+            matmul.allow_fp16_reduced_precision_reduction,
+            matmul.allow_bf16_reduced_precision_reduction)
+
+
+def _key(fn, spec, leaves, need, grads) -> Optional[tuple]:
+    """The call's signature, or None where an argument cannot be hashed."""
+    key = (fn.name, fn.plain, _frozen(spec), tuple(need),
+           tuple((t.shape, t.stride(), t.dtype, t.device) for t in leaves),
+           tuple(None if g is None else (g.shape, g.stride(), g.dtype) for g in grads),
+           _modes())
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _signature(fn, spec, leaves, need, grads) -> Optional[tuple]:
+    """The key of a plain recompute that may replay as a CUDA graph, or None
+    where it runs eager: a leaf off the card or on another card than the
+    first, an argument that cannot be hashed."""
+    if not leaves or not leaves[0].is_cuda:
+        return None
+    dev = leaves[0].device
+    if any(t.device != dev for t in leaves) or any(
+            g is not None and g.device != dev for g in grads):
+        return None
+    return _key(fn, spec, leaves, need, grads)
+
+
+def _sighting(key):
+    """None (run eager: a first sighting, or a capture that failed), ``_SEEN``
+    (capture) or the signature's graph (replay)."""
+    with _lock:
+        if key in _failed:
+            return None
+        entry = _signatures.get(key)
+        if entry is None:
+            _signatures[key] = _SEEN
+            while len(_signatures) > MAX_SIGNATURES:
+                _, old = _signatures.popitem(last=False)
+                if isinstance(old, _VjpGraph):
+                    # no replay of it may still be queued when it is freed
+                    torch.cuda.synchronize(old.device)
+            return None
+        _signatures.move_to_end(key)
+        return entry
+
+
+def drop_graphs() -> None:
+    """Forget every signature, so that the next calls run eager and capture
+    anew: a graph replays the code it captured, so code that swaps what a
+    recompute runs (a planted fault) drops them before and after."""
+    with _lock:
+        for entry in _signatures.values():
+            if isinstance(entry, _VjpGraph):
+                torch.cuda.synchronize(entry.device)
+        _signatures.clear()
+        _failed.clear()
+
+
+class _VjpGraph:
+    """``_plain_vjp`` of one signature captured on static buffers; ``first``
+    holds the gradients of the call that captured it until taken."""
+
+    def __init__(self, plain, spec, leaves, need, grads):
+        dev = self.device = leaves[0].device
+        self.ins = [torch.empty_like(t) for t in leaves]
+        self.cots = [None if g is None else torch.empty_like(g) for g in grads]
+        self._load(leaves, grads)
+        if dev not in _capture_on:
+            _capture_on[dev] = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+        (stream, pool), current = _capture_on[dev], torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.first = _plain_vjp(plain, spec, self.ins, need, self.cots)
+        current.wait_stream(stream)
+        for g in self.first:
+            if g is not None:
+                g.record_stream(current)
+        counted = dict(build.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.outs = _plain_vjp(plain, spec, self.ins, need, self.cots)
+        except BaseException:
+            torch.cuda.set_stream(current)  # an end of capture that raises leaves it unset
+            raise
+        finally:
+            # a capture launches nothing: its wrapper calls count at each replay
+            self.launches = {k: v - counted[k] for k, v in build.launches.items()
+                             if v != counted[k]}
+            build.launches.update(counted)
+
+    @torch.no_grad()
+    def _load(self, leaves, grads):
+        dst = self.ins + [c for c in self.cots if c is not None]
+        torch._foreach_copy_(dst, list(leaves) + [g for g in grads if g is not None])
+
+    @torch.no_grad()
+    def replay(self, leaves, grads):
+        """This call's gradients, in tensors of their own."""
+        self._load(leaves, grads)
+        self.graph.replay()
+        for k, v in self.launches.items():
+            build.launches[k] += v
+        outs = [g for g in self.outs if g is not None]
+        fresh = [torch.empty_like(g) for g in outs]
+        if outs:
+            torch._foreach_copy_(fresh, outs)
+        got = iter(fresh)
+        return tuple(None if g is None else next(got) for g in self.outs)
+
+
+def _capture(fn, spec, leaves, need, grads, key):
+    """The call's gradients, its signature's graph kept for the later
+    sightings; None, and eager for good, where the capture raises."""
+    try:
+        graph = _VjpGraph(fn.plain, spec, leaves, need, grads)
+    except Exception as err:        # noqa: BLE001 - any failure leaves the call eager
+        with _lock:
+            _failed.add(key)
+            _signatures.pop(key, None)
+        warnings.warn(f"{fn.name}: the recomputed backward could not be captured as a "
+                      f"CUDA graph ({type(err).__name__}: {err}); this signature runs "
+                      f"eager")
+        return None
+    with _lock:
+        if key in _signatures:
+            _signatures[key] = graph
+    got, graph.first = graph.first, None
+    return got
+
+
+def _recompute(fn, spec, leaves, need, grads):
+    """``fn``'s plain vjp: replayed where its signature has a graph, else
+    eager (and captured on the signature's second sighting)."""
+    key = _signature(fn, spec, leaves, need, grads)
+    entry = None if key is None else _sighting(key)
+    if isinstance(entry, _VjpGraph):
+        with span("replay." + fn.name):
+            return entry.replay(leaves, grads)
+    with span("recompute." + fn.name):
+        if entry is _SEEN:
+            got = _capture(fn, spec, leaves, need, grads, key)
+            if got is not None:
+                return got
+        return _plain_vjp(fn.plain, spec, leaves, need, grads)
+
+
 class _Apply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, spec, *leaves):
@@ -98,7 +305,7 @@ class _Apply(torch.autograd.Function):
             if fn.vjp is not None:
                 got = fn.vjp(fn.kernel, leaves, need, grads)
             else:
-                got = _plain_vjp(fn.plain, ctx.spec, leaves, need, grads)
+                got = _recompute(fn, ctx.spec, leaves, need, grads)
         return (None, None) + tuple(got)
 
 

@@ -27,6 +27,11 @@ The spans and what each bounds:
 * ``sisr.vjp.<name>``: one kernel's backward through ``KernelFunction``
   (the plain forward recomputed and differentiated, or the kernel's own
   vjp), on the autograd engine's thread.
+* ``sisr.replay.<name>``: inside ``sisr.vjp.<name>``, the plain recompute
+  replayed as its signature's CUDA graph (the copies in, the replay, the
+  copies out); ``sisr.recompute.<name>``: inside it, the plain recompute
+  run eager (a signature's first sighting, its capture, a fallback, or
+  CPU tensors).  ``ops/kernels/autograd.py`` says which runs when.
 * ``sisr.derive.<kind>``: derived weights or weight packs made anew
   (``_derived`` under grad or on a miss, ``build.cached`` and conv3x3's
   pack on a miss).

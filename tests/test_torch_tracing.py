@@ -5,7 +5,9 @@
   wrappers' decorator, the derived weights and packs.
 - Under ``profiling.trace`` a tiny HiTSIR PSNR step records its forward,
   backward, each kernel's recomputed vjp under the kernel's name, and the
-  derived weights made anew; ``TiledSR`` records one ``sisr.tiler`` per
+  derived weights made anew; each plain recompute (CPU tensors: eager) as
+  ``sisr.recompute.<name>`` inside its ``sisr.vjp.<name>`` on the same
+  thread; ``TiledSR`` records one ``sisr.tiler`` per
   request and one ``sisr.tiler.model`` per chunk of tiles.
 - ``build.launched`` counts ``build.launches`` as the hand-written counters
   did: one per returning call, none for a call that raises.
@@ -121,7 +123,7 @@ def test_span_off_builds_no_record_function(monkeypatch):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         _every_path(monkeypatch)
     families = {n.split(".")[1] for n in built if n.startswith("sisr.")}
-    assert families == {"step", "vjp", "derive", "tiler", "kernel"}
+    assert families == {"step", "vjp", "recompute", "derive", "tiler", "kernel"}
 
 
 def test_psnr_step_records_forward_backward_recompute_and_derive(monkeypatch, tmp_path):
@@ -146,6 +148,27 @@ def test_psnr_step_records_forward_backward_recompute_and_derive(monkeypatch, tm
             assert within(ranges, spans["sisr.step.backward"]), name
         if name.startswith("sisr.derive."):
             assert within(ranges, spans["sisr.step.forward"]), name
+
+
+def test_recompute_opens_inside_its_vjp_on_the_same_thread(monkeypatch):
+    _route_kernels(monkeypatch)
+    step = _psnr_step()
+    step()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step()
+    vjps, recomputes = [], []
+    for e in prof.events():
+        for prefix, into in (("sisr.vjp.", vjps), ("sisr.recompute.", recomputes)):
+            if e.name.startswith(prefix):
+                into.append((e.name[len(prefix):], e.thread, e.time_range.start,
+                             e.time_range.end))
+    # dwconv5x5 has a vjp of its own; CPU tensors never replay
+    assert {r[0] for r in recomputes} == KERNEL_NAMES - {"dwconv5x5"}
+    assert not [e for e in prof.events() if e.name.startswith("sisr.replay.")]
+    for name, thread, s, e in recomputes:
+        assert any(n == name and t == thread and vs <= s and e <= ve
+                   for n, t, vs, ve in vjps), name
+    assert len(recomputes) == len([v for v in vjps if v[0] != "dwconv5x5"])
 
 
 @pytest.mark.parametrize("chunk", [1, 2, 3])
