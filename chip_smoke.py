@@ -14,7 +14,7 @@ Phases:
            shuffled conv's own kernels (shuffled_conv_wgmma_*) in conv3x3's
            and of the Fusion gate's maps (fusion_maps) in fusion's (their
            bfloat16 paths run on the tensor cores: none fails the run);
-  kernels  each of the eleven kernel functions against its plain PyTorch
+  kernels  each of the twelve kernel functions against its plain PyTorch
            version on the same inputs, first at the shapes one 192x192 tile
            of the flagship gives it, then at the 1080p frame's: the packed
            tail at a head band, htb_fused at window 4 and 8 on 1088x1920,
@@ -31,7 +31,10 @@ Phases:
            a step, and dwconv5x5 at a tile's (1, 192, 192, 360); then the
            Fusion gate at DenseSR's width (C = 64): its training step's
            (2, 64, 64, 64), an eval image's (1, 96, 120, 64) and a 192x192
-           tile's.  In
+           tile's; then HAT's window attention (win_attn: window 16,
+           unshifted, shifted by 8, and the overlapping 24 square) on a
+           1088x1920 map with its calls a HAT frame, and on a 192x192
+           tile.  In
            float32 (TF32 off)
            within 2e-4 x max(1, max|plain|), and in bfloat16, where the
            kernel must stay within twice the plain bfloat16 version's
@@ -48,7 +51,8 @@ Phases:
            activation); each case's line adds its TFLOP/s and share of its
            bound in both types.
            Then one dwconv5x5 dx through ``dwconv_vjp`` under
-           torch.profiler, which must launch one device kernel, and the
+           torch.profiler, which must launch one device kernel (the
+           device-side copy of its span is no kernel), and the
            Fusion gate's gradients through ``KernelFunction`` at DenseSR's
            step against the plain path's (1e-6, deterministic cuDNN);
   split    device time of each kernel launch of one fusion_pools and one
@@ -113,6 +117,14 @@ Phases:
            and the kernel path against the plain model at the whole-model
            bars (float32 within 1e-3 max abs and 5e-5 rms, TF32 off;
            bfloat16 >= min(44, plain bfloat16 - 3) dB);
+  hat      HAT x4 at its published widths (weights from param_synth) in
+           bfloat16 on the 1080p frame (LR 1080x1920, reflect-padded to
+           1088x1920 inside the model): every forward's launches exactly 42
+           win_attn and 80 conv3x3 (``HAT_FORWARD``), the wall ms (median
+           of 3), peak device memory, and the kernel path against the plain
+           model (float32, TF32 off) at the heads phase's bfloat16 bar;
+           then ``infer.upscale`` (TiledSR, tile 192) on a 200x260 image,
+           42 win_attn launches a tile;
   gan      the GAN fine-tune: ``train_state.make_gan_train_step`` over the
            flagship in float32, UNetDiscriminatorSN(64) and a random
            full-width VGG19 (L1 + 1.0 perceptual + 0.1 adversarial, Adam
@@ -231,7 +243,7 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
-...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"gan": ...}``,
+...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"hat": ...}``, ``{"gan": ...}``,
 ``{"families": ...}``, ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines
 and, as the
 last line when every phase passed,
@@ -282,7 +294,13 @@ SOURCES = {
                                      "sisr_tpu/ops/pallas/conv3x3.py:705"),
     "htb_fused": ("sisr_tpu_torch/csrc/htb_fused.cu", "sisr_tpu/ops/pallas/htb_block.py:217"),
     "dwconv5x5": ("sisr_tpu_torch/csrc/dwconv.cu", "sisr_tpu/ops/pallas/dwconv.py:74"),
+    "win_attn": ("sisr_tpu_torch/csrc/win_attn.cu",
+                 "none: HAT's window attention (models/hat.py), which the JAX package lacks"),
 }
+# kernels of models/hat.py alone, which none of the HiT-SIR paths below runs
+HAT_ONLY = ("win_attn",)
+# HAT x4's attention calls on a 1080p frame: (shift, key window, calls)
+HAT_ATTN = ((0, 16, 18), (8, 16, 18), (0, 24, 6))
 # the training step: the flagship in float32 at the reference's crop (LR 64,
 # x4) and the command line's batch 2; launches of each kernel per step (the
 # forward runs 36 blocks of scc_block + htb_tail, no stats tail; the tails'
@@ -809,6 +827,34 @@ def step_cases():
             + dwconv_cases([(b, n, n, 360, 36), (1, TILE, TILE, 360, 0)], scope="step"))
 
 
+def win_attn_cases():
+    """HAT's window attention (C = 180, 6 heads of 30, window 16) at a
+    1080p frame's map (1088 x 1920) with its calls a frame (``HAT_ATTN``),
+    and at a 192 x 192 tile (calls 0).  Work: q, k and v read once and the
+    output written once; QK^T and the product with v on the tensor cores
+    (2 x 2 x keys x C a pixel)."""
+    from sisr_tpu_torch.ops.kernels.win_attn import win_attn
+
+    c, heads = 180, 6
+    cases = []
+    for (h, w), scope, counted in ((FRAME_ALIGNED, "hat_frame", True), ((TILE, TILE), "tile",
+                                                                        False)):
+        for shift, wk, n in HAT_ATTN:
+            def make(dt, h=h, w=w, wk=wk):
+                rn = _gen(60 + wk)
+                return [rn(1, h, w, 3 * c).to(dt), 0.5 * rn(heads, 256, wk * wk)]
+
+            def call(ins, reference, shift=shift, wk=wk):
+                return win_attn(*ins, heads, 16, shift, wk, reference=reference)
+
+            kind = "overlapping" if wk > 16 else ("shifted" if shift else "unshifted")
+            cases.append(Case("win_attn", f"{h}x{w} {kind} (256 queries, {wk * wk} keys)",
+                              n if counted else 0, make, call,
+                              lambda es, h=h, w=w: es * 4 * h * w * c,
+                              4.0 * h * w * wk * wk * c, scope=scope))
+    return cases
+
+
 # DenseSR at its experiment's defaults (dense_experiment.py: C = 64, the
 # multi-size extraction, SCA and the Fusion gate, num_blocks (4, 4)): the
 # gate once a forward, at the training step's batch and at the eval images
@@ -879,9 +925,9 @@ def run_kernels(failures: list) -> tuple:
     per_step = {k: sum(c.count for c in steps if c.kernel == k) for k in PER_STEP}
     if per_step != PER_STEP:
         failures.append(f"the step's cases make {per_step} calls, a step launches {PER_STEP}")
-    for case in tile_cases() + frame_cases() + steps + dense_cases():
+    for case in tile_cases() + frame_cases() + steps + dense_cases() + win_attn_cases():
         # a frame case runs for seconds: time it over one call after the warm-up
-        few = dict(min_iters=1) if case.scope == "frame" else {}
+        few = dict(min_iters=1) if case.scope in ("frame", "hat_frame") else {}
         try:
             with exact_mode():
                 ins32 = case.make(f32)
@@ -1760,7 +1806,7 @@ RUNNER_TRAIN = ((320, 320),) * 4          # HR (h, w)
 RUNNER_EVAL = ((384, 480), (1024, 1280))
 RUNNER_BAND_AREA = 200 * 200
 RUNNER_EPOCHS = 2                         # then a resume to epoch 3, then test mode
-RUNNER_KERNELS = tuple(k for k in SOURCES if k != "htb_fused")
+RUNNER_KERNELS = tuple(k for k in SOURCES if k != "htb_fused" and k not in HAT_ONLY)
 
 
 def runner_folders(root, train=RUNNER_TRAIN, evals=RUNNER_EVAL) -> None:
@@ -2194,6 +2240,108 @@ def run_heads(failures: list, card: str) -> dict:
     counts = dict(build.launches)
     log(f"  launches over the phase: {counts}")
     log(json.dumps({"heads": summary}))
+    return counts
+
+
+# --- HAT x4: the 1080p frame through models/hat.py -----------------------------
+
+# one HAT x4 forward's launches (6 RHAGs of 6 HABs and an OCAB): each
+# attention on win_attn; each HAB's two CAB convs, each RHAG's conv,
+# conv_after_body and conv_before_upsample on conv3x3; no other kernel
+HAT_FORWARD = {"win_attn": sum(n for *_, n in HAT_ATTN), "conv3x3": 80}
+HAT_KERNELS = tuple(HAT_FORWARD)
+# an LR image that TiledSR cuts into 192 tiles (overlap 16), as
+# ``python -m sisr_tpu_torch.infer --arch hat`` serves it
+HAT_TILED_LR = (200, 260)
+
+
+def run_hat(failures: list, card: str) -> dict:
+    """HAT x4 at its published widths (weights from param_synth, seed 0)
+    in bfloat16 on the 1080p frame (LR 1080x1920, which the model
+    reflect-pads to 1088x1920): each forward's launches exactly
+    ``HAT_FORWARD``, the wall ms (median of 3) and the peak device memory;
+    the kernel path (PyTorch's defaults) against the plain model (float32,
+    TF32 off) at the heads phase's bfloat16 bar, >= min(44, plain bfloat16
+    - 3) dB; then one ``HAT_TILED_LR`` image through ``infer.upscale``
+    (TiledSR, tile 192): ``HAT_FORWARD`` launches a tile.  Returns the
+    launches over the phase."""
+    import statistics
+
+    import torch
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.models.hat import HAT
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    frame = torch.rand((1, *FRAME, 3), generator=g, device="cuda")
+    models = {}
+    for dt in ("bfloat16", "float32"):
+        model = HAT(dtype=getattr(torch, dt)).to("cuda").eval()
+        infer.synth_weights(model, seed=0)
+        models[dt] = model
+    m16 = models["bfloat16"]
+    want = dict.fromkeys(build.launches, 0)
+    want.update(HAT_FORWARD)
+    row = dict(params=sum(p.numel() for p in m16.parameters()), lr=list(FRAME))
+    build.reset_launches()
+    with torch.inference_mode():
+        m16(frame)                                # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, bad = [], []
+        for _ in range(3):
+            before = dict(build.launches)
+            t0 = time.perf_counter()
+            out = m16(frame)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want:
+                bad.append({k: v for k, v in got.items() if v})
+        row.update(median_ms=statistics.median(ms), runs_ms=ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={k: v for k, v in got.items() if v})
+        shape = (1, 4 * FRAME[0], 4 * FRAME[1], 3)
+        if bad or tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            failures.append(f"hat frame: shape {tuple(out.shape)} (want {shape}), finite, "
+                            f"launches {bad[:1]} (want {HAT_FORWARD})")
+        k16 = out.float().clamp(0, 1)
+        del out
+        with exact_mode():
+            ref = models["float32"](frame, reference=True).clamp(0, 1)
+            p16 = m16(frame, reference=True).float().clamp(0, 1)
+        row.update(db_bf16=_psnr_db(k16, ref), db_plain_bf16=_psnr_db(p16, ref),
+                   max_abs_vs_plain_bf16=float((k16 - p16).abs().max()))
+        del k16, ref, p16
+        bar16 = min(44.0, row["db_plain_bf16"] - 3.0)
+        ok = row["db_bf16"] >= bar16
+        log(f"  HAT x4 {row['params']:,} params, LR {FRAME[0]}x{FRAME[1]} bf16: "
+            f"{row['median_ms']:.1f} ms (wall median of 3), peak {row['peak_gib']:.2f} GiB; "
+            f"launches a forward {row['launches']} (want {HAT_FORWARD}); against the plain "
+            f"float32 model {row['db_bf16']:.2f} dB (bar {bar16:.2f}; plain bf16 "
+            f"{row['db_plain_bf16']:.2f}), max abs against plain bf16 "
+            f"{row['max_abs_vs_plain_bf16']:.3e} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append("hat frame: the kernel path against the plain model")
+        # the command line's route: infer.upscale over TiledSR's 192 tiles
+        lr = torch.rand((*HAT_TILED_LR, 3), generator=g, device="cuda")
+        before = build.launches["win_attn"]
+        sr = infer.upscale(m16, lr)
+        tiles = (build.launches["win_attn"] - before) / HAT_FORWARD["win_attn"]
+        row["tiled"] = dict(lr=list(HAT_TILED_LR), tiles=tiles)
+        shape = (4 * HAT_TILED_LR[0], 4 * HAT_TILED_LR[1], 3)
+        log(f"  infer.upscale over TiledSR(tile 192), LR {HAT_TILED_LR[0]}x{HAT_TILED_LR[1]}: "
+            f"{tiles} tiles of {HAT_FORWARD['win_attn']} win_attn launches, "
+            f"shape {tuple(sr.shape)}")
+        if (tiles < 1 or tiles != int(tiles) or tuple(sr.shape) != shape
+                or not bool(torch.isfinite(sr).all())):
+            failures.append(f"hat tiled: {tiles} tiles' launches, shape {tuple(sr.shape)}")
+    del models, m16
+    torch.cuda.empty_cache()
+    counts = dict(build.launches)
+    log(f"  launches over the phase: {counts}")
+    log(json.dumps({"hat": row}))
     return counts
 
 
@@ -3743,7 +3891,7 @@ def run_mesh(failures: list, card: str) -> dict:
 # the training step
 SERVE_KERNELS = ("conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tail",
                  "scc_block", "fusion_pools", "fused_fusion")
-WHOLE_KERNELS = tuple(k for k in SOURCES if k != "dwconv5x5")
+WHOLE_KERNELS = tuple(k for k in SOURCES if k != "dwconv5x5" and k not in HAT_ONLY)
 TRAIN_KERNELS = tuple(k for k, v in PER_STEP.items() if v)
 # the heads' forwards (the nearest+conv case runs the packed x4 head), and
 # the GAN steps and runner (the train steps, the eval routes)
@@ -3757,8 +3905,11 @@ PER = {"tile": "one 192x192 tile (sum over its shapes)",
        "step": "one training step, batch 2, LR 64x64, float32 (sum over its calls; "
                "dwconv5x5: 36 forward, 36 dx)",
        "dense": "one DenseSR training step at its defaults (C = 64), batch 2, LR 64x64, "
-                "float32 (one call)"}
-TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32", "dense": "float32"}
+                "float32 (one call)",
+       "hat_frame": "one HAT x4 frame, LR 1080x1920 padded to 1088x1920 (18 unshifted and "
+                    "18 shifted window attentions, 6 overlapping)"}
+TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32", "dense": "float32",
+               "hat_frame": "bfloat16"}
 
 
 def scope_numbers(row: dict, scope: str) -> dict:
@@ -3795,8 +3946,12 @@ def check_dx_one_launch(failures: list) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count]
+    # a span's device-side annotation (sisr.kernel.dwconv5x5) carries its
+    # host range's name: kernels only
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type != DeviceType.CUDA}
+    kernels = [(e.key, e.count) for e in averages
+               if e.device_type == DeviceType.CUDA and e.count and e.key not in host]
     log(f"  dwconv5x5 dx through dwconv_vjp, {'x'.join(map(str, shape))} f32, device "
         f"kernels: {kernels}")
     if len(kernels) != 1 or kernels[0][1] != 1 or "::dwconv_" not in kernels[0][0]:
@@ -4010,8 +4165,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases",
-                   default="build,kernels,split,serve,whole,train,runner,heads,gan,families,"
-                           "mesh,profile,check")
+                   default="build,kernels,split,serve,whole,train,runner,heads,hat,gan,"
+                           "families,mesh,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -4045,6 +4200,7 @@ def main(argv=None) -> int:
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
     heads, ganned, families, fusion_backward, meshed = None, None, None, None, None
+    hatted = None
 
     log("[build]")
     try:
@@ -4133,6 +4289,14 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"heads: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "hat" in phases and not failures:
+        log("[hat] HAT x4 at its published widths, bfloat16: the 1080p frame against the "
+            "plain model, then infer.upscale's tiles")
+        try:
+            hatted = run_hat(failures, card)
+        except Exception:
+            failures.append(f"hat: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "gan" in phases and not failures:
         log("[gan] make_gan_train_step over the flagship, UNetDiscriminatorSN(64) and a "
             "random VGG19, float32; python -m sisr_tpu_torch hitsir_pro_gan's experiment")
@@ -4186,11 +4350,11 @@ def main(argv=None) -> int:
 
     # each path's counts, set to 0 just before it and read just after
     paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
-             "runner": ran, "heads": heads, "gan": ganned, "families": families,
-             "mesh": meshed}
+             "runner": ran, "heads": heads, "hat": hatted, "gan": ganned,
+             "families": families, "mesh": meshed}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
                         ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS),
-                        ("heads", HEADS_KERNELS), ("gan", GAN_KERNELS),
+                        ("heads", HEADS_KERNELS), ("hat", HAT_KERNELS), ("gan", GAN_KERNELS),
                         ("families", FAMILIES_KERNELS), ("mesh", MESH_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
@@ -4221,7 +4385,7 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "gan",
+    if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "hat", "gan",
             "families", "mesh", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2

@@ -5,16 +5,25 @@ plus ``--device``):
     python -m sisr_tpu_torch hitsir_pro --test --test-model best_psnr_ssim_lpips_model.pth
     python -m sisr_tpu_torch hitsir_pro --device cpu ...   # without a card
     python -m sisr_tpu_torch hitsir_pro_gan --epochs 10    # the GAN fine-tune
+    python -m sisr_tpu_torch hat --batch-size 4            # HAT x4 (its widths)
 
 Runs on the card (``--device cuda``) unless asked for the CPU.  ``main``
 also takes "unet" and "dense" (the UNet and Dense families' experiments,
 their keyword arguments, a None dropped), as root ``main.py``'s does; its
-command line, like root ``main.py``'s, offers the two HiT-SIR experiments.
+command line offers the two HiT-SIR experiments and HAT.  For "hat" the
+HiT-SIR-only options are dropped; ``--embed-dim``, ``--depths``,
+``--num-heads`` and ``--mlp-ratio`` set HAT's widths (their defaults are
+HAT x4's; its window stays 16).
 """
 
 from __future__ import annotations
 
 import argparse
+
+
+# the command line's options that only the HiT-SIR experiments read
+HIT_ONLY = ("is_mult_size_conv_feat_extract", "is_channel_spatial_attn", "is_fusion",
+            "base_win_size", "upsampler", "hier_win_ratios")
 
 
 def main(model_name: str, is_test: bool, **kwargs):
@@ -27,6 +36,11 @@ def main(model_name: str, is_test: bool, **kwargs):
             hitsir_pro_gan_experiment)
 
         return hitsir_pro_gan_experiment(is_test, **kwargs)
+    if model_name == "hat":
+        from sisr_tpu_torch.experiments.hat_experiment import hat_experiment
+
+        return hat_experiment(is_test, **{k: v for k, v in kwargs.items()
+                                          if k not in HIT_ONLY and v is not None})
     if model_name == "unet":
         from sisr_tpu_torch.experiments.unet_experiment import unet_experiment
 
@@ -41,7 +55,7 @@ def main(model_name: str, is_test: bool, **kwargs):
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m sisr_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", choices=["hitsir_pro", "hitsir_pro_gan"])
+    p.add_argument("model", choices=["hitsir_pro", "hitsir_pro_gan", "hat"])
     p.add_argument("--test", action="store_true")
     p.add_argument("--loss", default="l1", choices=["l1", "mse", "charbonnier"])
     p.add_argument("--epochs", type=int, default=400)

@@ -2,13 +2,15 @@
 root ``test_experiment.py``).
 
 Builds the flagship HiT-SIR-Pro (``flagship_config()``, the Fusion gate on,
-10,220,014 parameters), loads a reference ``.pth`` (``{'model':
-state_dict}``, such as the reference's fusion checkpoint named by
-``DEFAULT_WEIGHTS``) strictly, runs one LR image through ``TiledSR`` (192
-tiles, overlap 16), clips to [0,1] and writes a PNG.
+10,220,014 parameters) or, with ``--arch hat``, HAT x4 at its published
+widths (``models/hat.py``, 20,772,507 parameters), loads a ``.pth``
+(``{'model': state_dict}`` such as the reference's fusion checkpoint named
+by ``DEFAULT_WEIGHTS``, or HAT's ``{'params_ema': state_dict}``) strictly,
+runs one LR image through ``TiledSR`` (192 tiles, overlap 16; 192 is a
+multiple of HAT's window), clips to [0,1] and writes a PNG.
 
     python -m sisr_tpu_torch.infer lr.png [-o out.png] [--weights ckpt.pth]
-        [--tile 192] [--dtype bfloat16] [--device cuda] [--show]
+        [--arch hat] [--tile 192] [--dtype bfloat16] [--device cuda] [--show]
     python -m sisr_tpu_torch.infer hr.png --make-lr   # writes hr_bicubic_lr.png
 """
 
@@ -23,6 +25,8 @@ import torch
 DEFAULT_WEIGHTS = ("weights/hitsir_pro_loss(l1)_mulsizeconvextract(True)_casa(True)"
                    "_fusion_embed_dim(180)_len(depths)(6)_augment/"
                    "best_psnr_ssim_lpips_model.pth")
+HAT_WEIGHTS = "weights/HAT_SRx4_ImageNet-pretrain.pth"
+ARCHS = ("hitsir", "hat")
 
 
 def create_model(dtype: str = "float32", device: str = "cuda"):
@@ -32,12 +36,19 @@ def create_model(dtype: str = "float32", device: str = "cuda"):
     return model.to(device).eval()
 
 
+def create_hat(dtype: str = "float32", device: str = "cuda"):
+    """HAT x4 at its published widths."""
+    from sisr_tpu_torch.models.hat import HAT
+
+    return HAT(dtype=getattr(torch, dtype)).to(device).eval()
+
+
 def load_model_weights(model, weights_path: str, seed: int = 0) -> None:
     """Load a reference ``.pth`` strictly; without one, synthesize seeded
     well-conditioned weights (``utils/param_synth.py``)."""
     if os.path.exists(weights_path):
         dic = torch.load(weights_path, map_location="cpu", weights_only=True)
-        state = dic["model"] if "model" in dic else dic
+        state = next((dic[k] for k in ("model", "params_ema", "params") if k in dic), dic)
         model.load_state_dict(state, strict=True)
         print(f"loaded weights from {weights_path} "
               f"(epoch {int(dic.get('start_epoch', 0))})")
@@ -47,12 +58,14 @@ def load_model_weights(model, weights_path: str, seed: int = 0) -> None:
 
 
 def synth_weights(model, seed: int = 0) -> None:
-    """Seeded well-conditioned weights from the model's own manifest."""
+    """Seeded well-conditioned weights from the model's own manifest (its
+    parameters; buffers such as HAT's position indices stay as built)."""
     from sisr_tpu_torch.utils.param_synth import synth_state_dict
 
-    manifest = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                           synth_state_dict(manifest, seed).items()})
+    manifest = [(k, tuple(v.shape)) for k, v in model.named_parameters()]
+    state = model.state_dict()
+    state.update({k: torch.from_numpy(v) for k, v in synth_state_dict(manifest, seed).items()})
+    model.load_state_dict(state)
 
 
 def parse_tile(spec: str):
@@ -74,12 +87,16 @@ def upscale(model, lr: torch.Tensor, tile="192") -> torch.Tensor:
 
 
 def main(img_path: str, out_path: str = None,
-         weights_path: str = DEFAULT_WEIGHTS, tile="192",
-         dtype: str = "float32", device: str = "cuda", show: bool = False) -> str:
+         weights_path: str = None, tile="192",
+         dtype: str = "float32", device: str = "cuda", show: bool = False,
+         arch: str = "hitsir") -> str:
     from PIL import Image
 
-    model = create_model(dtype, device)
-    load_model_weights(model, weights_path)
+    if arch not in ARCHS:
+        raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
+    model = (create_hat if arch == "hat" else create_model)(dtype, device)
+    load_model_weights(model, weights_path or (HAT_WEIGHTS if arch == "hat"
+                                               else DEFAULT_WEIGHTS))
     with Image.open(img_path) as handle:
         lr = np.asarray(handle.convert("RGB"), dtype=np.float32) / 255.0
 
@@ -118,7 +135,9 @@ if __name__ == "__main__":
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("image")
     p.add_argument("-o", "--out", default=None)
-    p.add_argument("--weights", default=DEFAULT_WEIGHTS)
+    p.add_argument("--weights", default=None,
+                   help=f"default {DEFAULT_WEIGHTS} (hitsir) or {HAT_WEIGHTS} (hat)")
+    p.add_argument("--arch", default="hitsir", choices=ARCHS)
     p.add_argument("--tile", default="192",
                    help='tile size: "192" (square) or "192x1920" (strips)')
     p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
@@ -131,4 +150,4 @@ if __name__ == "__main__":
         print(get_bicubic_lr(args.image))
     else:
         main(args.image, args.out, args.weights, args.tile, args.dtype, args.device,
-             args.show)
+             args.show, args.arch)

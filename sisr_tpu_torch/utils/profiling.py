@@ -35,6 +35,9 @@ The spans and what each bounds:
 * ``sisr.derive.<kind>``: derived weights or weight packs made anew
   (``_derived`` under grad or on a miss, ``build.cached`` and conv3x3's
   pack on a miss).
+* ``sisr.hat.cab``: a HAT block's channel-attention branch (its two convs
+  and the gate); ``sisr.hat.pad``: HAT's reflect pad of the input to
+  multiples of its window, and the crop of the output.
 
 The ``bench.`` prefix is the benchmark's own.
 """

@@ -201,10 +201,11 @@ def test_launched_counts_as_the_hand_written_counters():
 
 def test_every_kernel_function_is_named_for_its_counter():
     from sisr_tpu_torch.ops.kernels import conv3x3 as cv, dwconv, ffn
-    from sisr_tpu_torch.ops.kernels import fusion_ops as fo, scc_block as sb
+    from sisr_tpu_torch.ops.kernels import fusion_ops as fo, scc_block as sb, win_attn as wa
 
     fns = [cv.CONV3X3, cv.CONV3X3_SHUFFLED, cv.SHUFFLED_TAIL, cv.SHUFFLED_TAIL_PACKED,
-           ffn.HTB_TAIL, sb.SCC_BLOCK, fo.FUSION_POOLS, fo.FUSED_FUSION, dwconv.DWCONV5X5]
+           ffn.HTB_TAIL, sb.SCC_BLOCK, fo.FUSION_POOLS, fo.FUSED_FUSION, dwconv.DWCONV5X5,
+           wa.WIN_ATTN]
     names = [f.name for f in fns]
     assert len(set(names)) == len(names) and set(names) <= set(build.launches)
     assert all(f.with_kernel(f.plain).name == f.name for f in fns)
