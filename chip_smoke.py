@@ -50,7 +50,11 @@ Phases:
            over the shuffle materialized before the timing, no
            activation); each case's line adds its TFLOP/s and share of its
            bound in both types.
-           Then one dwconv5x5 dx through ``dwconv_vjp`` under
+           Then htb_tail's tail launch alone (htb_tail_out_wg) at a
+           192x192 tile and at a 192x1920 band of the frame, bfloat16 with
+           the statistics: its device ms beside the call's, the plain
+           version's and the tail's bound.  Then one dwconv5x5 dx through
+           ``dwconv_vjp`` under
            torch.profiler, which must launch one device kernel (the
            device-side copy of its span is no kernel), and the
            Fusion gate's gradients through ``KernelFunction`` at DenseSR's
@@ -3928,6 +3932,52 @@ def scope_numbers(row: dict, scope: str) -> dict:
                 library_ms_bf16=row["lib"] if row["has_lib"] else None)
 
 
+def htb_tail_alone(failures: list) -> list:
+    """The wgmma path's tail launch alone (htb_tail_out_wg) at a 192x192
+    tile and at one band of the 1080p frame (192x1920), bfloat16 with the
+    statistics: its device ms (torch.profiler, the mean of 5 warmed calls)
+    beside the whole call's (fc1 and the tail, CUDA events), the plain
+    version's, and the tail's bound: its bytes (h of the band read once, x
+    read, out and the statistics written, the weights) at 3.35 TB/s, fc2's
+    operations at 989 TFLOP/s or the taps' at 67 TFLOP/s on the FP32
+    pipes, whichever is largest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    c, ch = 180, 360
+    for h, w in ((TILE, TILE), (192, FRAME[1])):
+        case = htb_cases(h, w, ((True, 0),), scope="frame")[0]
+        ins = case.make(torch.bfloat16)
+        case.call(ins, False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                case.call(ins, False)
+            torch.cuda.synchronize()
+        tail_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and "htb_tail_out_wg" in e.key) / 5e3
+        ms = time_ms(lambda: case.call(ins, False))
+        plain = time_ms(lambda: case.call(ins, True), max_iters=10)
+        px = h * w
+        nbytes = 2 * (px * ch + 2 * px * c + ch * c + 26 * ch + 3 * c) + 4 * (2 * px + 2 * c)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(2.0 * px * ch * c / PEAK_BF16_FLOPS, 2.0 * px * 25 * ch / PEAK_F32_FLOPS) * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(shape=f"{h}x{w} +stats", tail_ms=tail_ms, call_ms=ms, plain_ms=plain,
+                   bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"  htb_tail_out_wg alone {h}x{w} bf16 +stats: {tail_ms:.4f} ms (call {ms:.4f}, "
+            f"plain {plain:.4f}) | bound {bound:.4f} ms ({row['bound_by']}), "
+            f"{bound / tail_ms if tail_ms else 0:.1%} of it")
+        if tail_ms == 0:
+            failures.append(f"htb_tail at {h}x{w}: no htb_tail_out_wg launch under the profiler")
+        out.append(row)
+        del ins
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_dx_one_launch(failures: list) -> None:
     """dx through ``dwconv_vjp`` at a training step's shape, under
     torch.profiler: every device kernel it launches, which must be one
@@ -4200,7 +4250,7 @@ def main(argv=None) -> int:
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
     heads, ganned, families, fusion_backward, meshed = None, None, None, None, None
-    hatted = None
+    hatted, tail_alone = None, None
 
     log("[build]")
     try:
@@ -4238,6 +4288,7 @@ def main(argv=None) -> int:
         log("[kernels] per shape of one 192x192 flagship tile, then of the 1080p frame")
         rows, extra = run_kernels(failures)
         try:
+            tail_alone = htb_tail_alone(failures)
             check_dx_one_launch(failures)
             fusion_backward = check_fusion_backward(failures)
         except Exception:
@@ -4376,6 +4427,8 @@ def main(argv=None) -> int:
                 entry[f"per_{scope}"] = numbers
         if name in extra:
             entry["other_cases"] = extra[name]
+        if name == "htb_tail" and tail_alone is not None:
+            entry["tail_alone"] = tail_alone
         if name == "fused_fusion" and fusion_backward is not None:
             entry["backward_dense_step"] = fusion_backward
         kernels.append(entry)

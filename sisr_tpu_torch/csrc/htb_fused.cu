@@ -39,9 +39,10 @@
 // block an SM and the instruction cache: the kernel's straight-line code
 // runs once a block, so its epilogue is written as loops (~130 KB of
 // SASS, against 172 KB unrolled, which slowed the attention by 17%).
-// Launch B is htb_tail's wgmma tail (htb_tail_wg.cuh::tail_out, 8x16
-// tiles, fc2 on wgmma, the statistics' totals by atomics) over the whole
-// map as one band: h and x2 stay whole, as the earlier kernels kept them.
+// Launch B is htb_tail's wgmma tail (htb_tail_wg.cuh::tail_out: persistent
+// blocks over 8x16 tiles, h by TMA, the taps beside fc2 on wgmma, the
+// statistics' totals by atomics) over the whole map as one band: h and x2
+// stay whole, as the earlier kernels kept them.
 // Values round to bfloat16 exactly where the two-kernel chain (scc_block,
 // then htb_tail) rounds them, so the two store the same bits.
 //
@@ -666,10 +667,11 @@ __global__ void __launch_bounds__(wgs::NTW, 1) htb_fused_wg(Args a, Dims D, wgt:
   }
 }
 
-// Launch B: htb_tail's wgmma tail over an 8 x 16 output tile
-__global__ void __launch_bounds__(wgt::NTW, 1) htb_fused_tail_wg(wgt::Tail t) {
+// Launch B: htb_tail's wgmma tail over the map's 8 x 16 output tiles
+__global__ void __launch_bounds__(wgt::NTT, 1)
+    htb_fused_tail_wg(const wgt::Tail t, const __grid_constant__ wgt::TailMaps m) {
   extern __shared__ unsigned char smem_raw[];
-  wgt::tail_out(t, smem_raw);
+  wgt::tail_out(t, m, smem_raw);
 }
 
 // the shapes this path takes (ops/kernels/htb_block.py::wgmma_path repeats it)
@@ -695,10 +697,7 @@ int launch(const Args& a, wgt::Tail t, int Ch, cudaStream_t s) {
   // the tail over the whole map as one band: h and x2 of every row
   t.r0 = t.hr0 = 0;
   t.r1 = t.hr1 = t.H;
-  if (set_smem(htb_fused_tail_wg, wgt::SMEM2)) return -1;
-  const dim3 grid((t.W + wgt::TW - 1) / wgt::TW, (t.H + wgt::TH - 1) / wgt::TH, t.B);
-  htb_fused_tail_wg<<<grid, wgt::NTW, wgt::SMEM2, s>>>(t);
-  return (int)cudaGetLastError();
+  return wgt::launch_tail(htb_fused_tail_wg, t, s);
 }
 
 }  // namespace fwg

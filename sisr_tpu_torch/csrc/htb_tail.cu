@@ -30,15 +30,30 @@
 //    leaves from the accumulators through shared memory, and x is kept in
 //    device memory as the tail's residual.  The tail takes 8x16 output
 //    tiles (h over a 12x20 halo: 1.875x of h's bytes, against 2.25x for
-//    8x8), walks the hidden channels in chunks of 64 whose h, W2 rows and
-//    taps arrive by 16-byte cp.async a chunk ahead (two stages), runs
-//    the 25 taps on the CUDA cores into h2 and h2 @ W2 on wgmma (each
-//    warpgroup 64 pixels x all of C); y then goes through shared memory
-//    and one warp a row adds b2, normalises (LN2), adds the residual and
-//    stores the row contiguously; the statistics' per-channel totals are
-//    summed per tile and added into the image's by atomics.  The rows go
-//    in bands that keep h of a band within 256 MiB (the 1080p frame: 6
-//    bands of 192 rows; fc1 recomputes the conv's 2-row halo of each).
+//    8x8) in persistent blocks, one an SM, each walking the band's tiles
+//    with all of the packed W2 (141 KB) resident.  Its bound is the CUDA
+//    cores, not the bytes: the 25 taps, + dwb and the erf gelu of every
+//    hidden value are ~45 FP32-pipe instructions against fc2's 360 tensor
+//    multiply-adds, ~16k cycles a tile on an SM's 128 lanes (the frame's
+//    call ~1.2 ms, against ~0.67 ms for its bytes).  So nothing else may
+//    hold the lanes: one thread of a producer warpgroup brings each chunk
+//    of 64 hidden channels (h on the halo, its taps and dwb) by TMA
+//    through a ring of two stages on mbarriers, the halo's out-of-bounds
+//    zero fill being the conv's padding and the band's edge; two consumer
+//    warpgroups each take half the tile, a thread one channel pair along
+//    a row of 16 outputs (16 independent sums), and leave h2 @ W2 on
+//    wgmma running while they compute the next chunk's taps, waiting only
+//    on the ring and their own named barrier.  The epilogue works on the
+//    accumulators (a row's columns over the lanes of a quad): b2, LN2,
+//    the residual, out (staged in shared memory for whole-row stores); the
+//    statistics' per-channel sums gather in shared memory and go into the
+//    image's totals by atomics as a block leaves the image.  On the H100 a
+//    1080p call takes ~4.0 ms (the 8-warp blocks it replaced, 5.75): the
+//    consumers issue ~3 instructions a cycle of 4 (csrc/phase_clock.py),
+//    so every instruction cut from the taps and gelu shows.
+//    The rows go in bands that keep h of a band within 256 MiB (the 1080p
+//    frame: 6 bands of 192 rows; fc1 recomputes the conv's 2-row halo of
+//    each).
 //    Values round to bfloat16 where the plain version rounds them.
 //  - float32 (f32k), and bfloat16 at other widths (tck, wmma 16x16x16):
 //    the earlier kernels, 64-pixel fc1 blocks and 8x8 tail tiles; the tail
@@ -358,10 +373,11 @@ __global__ void __launch_bounds__(NTW, 1) htb_tail_fc1_wg(Tail t) {
   }
 }
 
-// the tail of an 8 x 16 tile of the band (htb_tail_wg.cuh::tail_out)
-__global__ void __launch_bounds__(NTW, 1) htb_tail_out_wg(Tail t) {
+// the tail over the band's 8 x 16 tiles (htb_tail_wg.cuh::tail_out)
+__global__ void __launch_bounds__(NTT, 1)
+    htb_tail_out_wg(const Tail t, const __grid_constant__ TailMaps m) {
   extern __shared__ unsigned char smem_raw[];
-  tail_out(t, smem_raw);
+  tail_out(t, m, smem_raw);
 }
 
 // the shapes this path takes (ops/kernels/ffn.py::wgmma_path repeats it)
@@ -377,7 +393,7 @@ int launch(Tail t, int band_rows, cudaStream_t stream) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (band_rows <= 0 || band_rows % TH) return -1;
-  if (set_smem(htb_tail_fc1_wg, SMEM1) || set_smem(htb_tail_out_wg, SMEM2)) return -1;
+  if (set_smem(htb_tail_fc1_wg, SMEM1)) return -1;
   for (int r0 = 0; r0 < t.H; r0 += band_rows) {
     t.r0 = r0;
     t.r1 = min(t.H, r0 + band_rows);
@@ -385,10 +401,10 @@ int launch(Tail t, int band_rows, cudaStream_t stream) {
     t.hr1 = min(t.H, t.r1 + 2);
     const long long M = (long long)t.B * (t.hr1 - t.hr0) * t.W, ntiles = (M + TM - 1) / TM;
     htb_tail_fc1_wg<<<(unsigned)(ntiles < sms ? ntiles : sms), NTW, SMEM1, stream>>>(t);
-    dim3 grid((t.W + TW - 1) / TW, (t.r1 - t.r0 + TH - 1) / TH, t.B);
-    htb_tail_out_wg<<<grid, NTW, SMEM2, stream>>>(t);
+    const int err = launch_tail(htb_tail_out_wg, t, stream);
+    if (err) return err;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // namespace wgt

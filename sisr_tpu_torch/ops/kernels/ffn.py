@@ -137,6 +137,26 @@ def band_rows(b: int, h: int, w: int, ch: int) -> int:
     return max(_TILE, min(-(-h // _TILE) * _TILE, rows // _TILE * _TILE))
 
 
+def tail_tiles(b: int, rows: int, w: int) -> int:
+    """8x16 output tiles of the wgmma path's tail over ``rows`` rows of
+    ``b`` images (``csrc/htb_tail_wg.cuh`` TH x TW)."""
+    return b * -(-rows // _TILE) * -(-w // (2 * _TILE))
+
+
+def tail_plan(b: int, h: int, w: int, ch: int, sms: int) -> list:
+    """The wgmma path's tail launches over an h x w map, as ``wgt::launch``
+    walks its bands of ``band_rows`` rows: one (r0, r1, tiles, blocks) a
+    band, the blocks persistent, one an SM or one a tile where the band has
+    fewer tiles (``wgt::tail_grid``)."""
+    band = band_rows(b, h, w, ch)
+    plan = []
+    for r0 in range(0, h, band):
+        r1 = min(h, r0 + band)
+        tiles = tail_tiles(b, r1 - r0, w)
+        plan.append((r0, r1, tiles, min(tiles, sms)))
+    return plan
+
+
 def _wgmma_buffers(b, h, w, c, ch, dt, dev, stats: bool, band: int):
     """The wgmma path's buffers: h of one band and its halo, x of one band,
     and the statistics (cmean, cmax, and the image's per-channel totals)."""

@@ -435,6 +435,91 @@ def test_htb_band_rows_bound_h_of_a_band():
         assert rows == 8 or 2 * b * rows * w * 360 <= _BAND_BYTES
 
 
+def _tail_constants() -> dict:
+    """The wgmma tail's constexpr ints in ``csrc/htb_tail_wg.cuh``,
+    evaluated in order (C's integer division as Python's)."""
+    import re
+
+    src = (CSRC / "htb_tail_wg.cuh").read_text()
+    consts: dict = {}
+    for decl in re.findall(r"^constexpr int (.*?);", src, re.M):
+        for name, expr in re.findall(r"(\w+) = ([^,]+(?:\([^)]*\)[^,]*)*)", decl):
+            consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+def test_htb_tail_wg_kernels_keep_the_roofline_prefix():
+    """Every kernel of htb_tail.cu's wgmma path (namespace wgt) keeps
+    ``htb_tail_`` in its name, so the benchmark's ``htb_tail_roofline``
+    (kernels matching ``PATTERN``) reads both launches of a band."""
+    import re
+
+    src = (CSRC / "htb_tail.cu").read_text()
+    body = src[src.index("namespace wgt {"):src.index("}  // namespace wgt")]
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", body)
+    assert sorted(names) == ["htb_tail_fc1_wg", "htb_tail_out_wg"], names
+    metric = (Path(__file__).resolve().parents[1] / "benchmark" / "metrics"
+              / "htb_tail_roofline.py").read_text()
+    pattern = re.search(r'^PATTERN = "(.*)"', metric, re.M).group(1)
+    assert all(pattern in f"wgt::{name}" for name in names), (pattern, names)
+    # both launches of a band go out under these names
+    assert "htb_tail_fc1_wg<<<" in body and "launch_tail(htb_tail_out_wg" in body
+
+
+@pytest.mark.parametrize("b,h,w,bands,tiles,blocks", [
+    (2, 13, 29, 1, [8], [8]),                    # ragged, smaller than the card
+    (1, 192, 192, 1, [288], [132]),              # a photo's 192x192 tile
+    (2, 64, 64, 1, [64], [64]),                  # a training batch
+    (1, 1088, 1920, 6, [2880] * 5 + [1920], [132] * 6),   # the 1080p frame
+    (4, 1088, 1920, 23, [2880] * 22 + [1920], [132] * 23),   # four frames: 48-row bands
+])
+def test_htb_tail_grid_plan(b, h, w, bands, tiles, blocks):
+    """The tail's launches (``ffn.tail_plan``, as ``wgt::launch`` and
+    ``wgt::tail_grid`` plan them): each band's 8x16 tiles, one persistent block an SM
+    (132 on the H100) or one a tile where there are fewer; the bands cover
+    every row once, each a multiple of 8 rows but the last."""
+    from sisr_tpu_torch.ops.kernels import ffn
+
+    consts = _tail_constants()
+    assert (consts["TH"], consts["TW"]) == (8, 16)
+    plan = ffn.tail_plan(b, h, w, 360, 132)
+    assert len(plan) == bands
+    assert plan[0][0] == 0 and plan[-1][1] == h
+    for (r0, r1, n, grid), nxt in zip(plan, plan[1:] + [None]):
+        assert nxt is None or (nxt[0] == r1 and (r1 - r0) % consts["TH"] == 0)
+        assert n == b * -(-(r1 - r0) // consts["TH"]) * -(-w // consts["TW"])
+        assert grid == min(n, 132) >= 1
+    if tiles is not None:
+        assert [p[2] for p in plan] == tiles and [p[3] for p in plan] == blocks
+
+
+def test_htb_tail_shared_memory_and_ring_sizes():
+    """The tail's block (``csrc/htb_tail_wg.cuh``): two consumer
+    warpgroups and a producer warpgroup, 168 registers a thread at launch
+    rebalanced to 232 a consumer and 40 the producer's (65,536 an SM); W2 resident (184 x 384 bf16), each consumer's h2 one 64 x 64 K
+    block, two ring stages of exactly the three TMA boxes (h 64 x 20 x 12,
+    the 25 taps and dwb of 64 channels), wgmma operands on 1024 bytes, all
+    within the 227 KB a block may take."""
+    c = _tail_constants()
+    assert c["NTT"] == 3 * 128 and 2 * 128 * 232 + 128 * 40 <= 65536
+    src = (CSRC / "htb_tail_wg.cuh").read_text()
+    assert "setmaxnreg.dec.sync.aligned.u32 40;" in src
+    assert "setmaxnreg.inc.sync.aligned.u32 232;" in src
+    assert c["H2_OFF"] == c["NH"] * c["NCH"] * c["HC"] * 2 == 184 * 384 * 2
+    assert c["H2C_B"] == 64 * c["HC"] * 2
+    assert c["STAGE_B"] == 2 * c["HC"] * (c["PW"] * c["PH"] + 25 + 1)
+    assert (c["PW"], c["PH"], c["HC"], c["NCH"], c["STAGES"]) == (20, 12, 64, 6, 2)
+    assert c["RING_OFF"] == c["H2_OFF"] + 2 * c["H2C_B"]
+    assert c["PAR_OFF"] == c["RING_OFF"] + c["STAGES"] * c["STAGE_B"]
+    assert c["STAT_OFF"] - c["PAR_OFF"] >= 3 * 180 * 2
+    assert c["BAR_OFF"] - c["STAT_OFF"] == 2 * 2 * 180 * 4
+    assert c["SMEM2"] == c["BAR_OFF"] + 2 * c["STAGES"] * 8 + 1024 <= 232448
+    for key in ("W2C_B", "H2_OFF", "H2C_B"):
+        assert c[key] % 1024 == 0, key
+    for key in ("RING_OFF", "STAGE_B", "HALO_B"):
+        assert c[key] % 128 == 0, key
+
+
 def test_weight_packs_are_kept_while_their_weights_are_unchanged():
     """``build.cached`` (scc_block's and htb_tail's packed weights): the same
     pack while the weights keep their version counters; a write to one of
