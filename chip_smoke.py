@@ -98,7 +98,7 @@ Phases:
            per step); one more step split into forward, backward and
            optimizer by CUDA events and one under torch.profiler (device
            busy time, idle share); the same 2 + 5 steps on the plain path
-           (``reference=True``) as a yardstick;
+           (``plain_versions()``) as a yardstick;
   runner   the experiment runner as ``python -m sisr_tpu_torch hitsir_pro``
            builds it (the full flagship in float32, L1, Adam, batch 2, crop
            64, two spawned loader workers, weights from param_synth) on
@@ -213,7 +213,7 @@ Phases:
            without and with fused_htb, under torch.profiler: device time
            by kernel, device busy time against the wall time;
   check    a 192x192 tile of each request through the plain model on the
-           card (``reference=True``): float32 kernels within 1e-3 max abs;
+           card (``plain_versions()``): float32 kernels within 1e-3 max abs;
            bfloat16 kernels >= 44 dB PSNR (mean squared error over the
            tiles) against the float32 plain model, or, where the plain
            bfloat16 model itself stays below 47 dB (these synthesized
@@ -324,6 +324,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def on_plain(fn, plain: bool = True):
+    """``fn``, run inside ``plain_versions()`` where ``plain``: every kernel
+    function then runs its plain version (the yardstick on the card)."""
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
+
+    def call(*args, **kwargs):
+        with plain_versions():
+            return fn(*args, **kwargs)
+
+    return call if plain else fn
+
+
 def time_ms(fn, target_s: float = 0.25, max_iters: int = 50, min_iters: int = 3) -> float:
     """Mean device ms of ``fn`` over a warmed run of launches (CUDA events).
     The device first spins for as long as one call took on the host clock
@@ -395,6 +407,10 @@ class Case:
         # what the library call takes, made from the inputs before it is timed
         self.library_prep = library_prep or (lambda ins: ins)
 
+    def plain(self, ins):
+        """The call on the plain versions."""
+        return on_plain(self.call)(ins)
+
     def t_ops(self) -> float:
         """Least ms for the bfloat16 run's operations: each type at its
         peak, the two pipes side by side."""
@@ -431,9 +447,9 @@ def conv_cases(shapes, scope="tile", b=1):
                    rn(3, 3, cin, cout) / math.sqrt(9 * cin), rn(cout) * 0.1]
             return [None if t is None else t.to(dt) for t in ins]
 
-        def call(ins, reference, act=act):
+        def call(ins, act=act):
             y, r, k, b = ins
-            return conv3x3(y, r, k, b, act, reference=reference)
+            return conv3x3(y, r, k, b, act)
 
         def library(ins):
             y, r, k, b = ins
@@ -479,7 +495,7 @@ def shuffled_case(h2, w2, count, scope="tile", b=1):
 
     return Case("conv3x3_shuffled",
                 f"yp {_bx(b)}{h2}x{w2}x256 -> {2 * h2}x{2 * w2} 64->256 leaky2", count, make,
-                lambda ins, reference: conv3x3_shuffled(*ins, "leaky2", reference=reference),
+                lambda ins: conv3x3_shuffled(*ins, "leaky2"),
                 lambda es: es * (5 * b * h2 * w2 * 4 * f + 9 * f * 4 * f + 4 * f),
                 2.0 * 4 * b * h2 * w2 * 9 * f * 4 * f,
                 library=lambda ins: _nchw_conv(*ins), scope=scope,
@@ -512,8 +528,7 @@ def tail_case(h2, w2, count, packed=False, scope="tile", b=1):
     out = f"{hout}x{wout // 16}x48" if packed else f"{hout}x{wout}x3"
     return Case("conv3x3_shuffled_tail_packed" if packed else "conv3x3_shuffled_tail",
                 f"yp {_bx(b)}{h2}x{w2}x256 -> {out} 64->64->3", count, make,
-                lambda ins, reference: fn(ins[0], ins[1], ins[2], "leaky2", ins[3], ins[4],
-                                          reference=reference),
+                lambda ins: fn(ins[0], ins[1], ins[2], "leaky2", ins[3], ins[4]),
                 lambda es: es * (b * h2 * w2 * 4 * f + 9 * f * f + f + 9 * f * 3 + 3
                                  + b * hout * wout * 3),
                 2.0 * b * hout * wout * 9 * f * (f + 3), library=library, scope=scope,
@@ -559,13 +574,13 @@ def fusion_cases(h, w, scope="tile", nb=1, c=180, count=1):
     conv_ops = nb * 2.0 * 18 * 3 * (h * w + (h + w) * c)
     fused = Case("fused_fusion", f"a, b {_bx(nb)}{h}x{w}x{c}, pools + maps + gate", count,
                  make_fused,
-                 lambda ins, reference: fused_fusion(ins[0], ins[1], ins[2], ins[3], reference),
+                 lambda ins: fused_fusion(*ins),
                  lambda es: (es * (3 * nb * h * w * c + 3 * 18 * c * c + 27 * 3 * c)
                              + 4 * (3 * 3 * 18 + 9 + 3 * c)),
                  2.0 * 9 * 3 * nb * h * w * c + fold_ops,
                  flops32=pool_ops + conv_ops + 20.0 * nb * h * w * c, scope=scope)
     return [Case("fusion_pools", f"a, b {_bx(nb)}{h}x{w}x{c}", count, make_ab,
-                 lambda ins, reference: fusion_pools(*ins, reference=reference), pool_bytes,
+                 lambda ins: fusion_pools(*ins), pool_bytes,
                  0.0, flops32=pool_ops, scope=scope), fused]
 
 
@@ -591,8 +606,8 @@ def htb_cases(h, w, variants, pad=(0, 0), scope="tile", b=1):
 
         fn = htb_tail_stats if stats else htb_tail
 
-        def call(ins, reference, fn=fn):
-            return fn(*ins, reference=reference)
+        def call(ins, fn=fn):
+            return fn(*ins)
 
         def nbytes(es, stats=stats):
             weights = 2 * c * ch + 25 * ch + 2 * ch + 6 * c
@@ -654,8 +669,8 @@ def scc_cases(shapes, scope="tile", b=1):
         def make(dt, h=h, w=w, win=win):
             return _scc_inputs(_gen(win), dt, h, w, win, b=b)
 
-        def call(ins, reference, win=win):
-            return scc_block(*ins, heads, (win, win), reference=reference)
+        def call(ins, win=win):
+            return scc_block(*ins, heads, (win, win))
 
         nb, flops = _scc_work(b * h, w, win)
         cases.append(Case("scc_block", f"{_bx(b)}{h}x{w} window {win} "
@@ -675,6 +690,7 @@ def dwconv_cases(shapes, scope):
     ``F.conv_transpose2d`` of dy with the same filter."""
     import torch
     import torch.nn.functional as F
+    from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions
     from sisr_tpu_torch.ops.kernels.dwconv import (_kernel, depthwise_conv_reference,
                                                    dwconv5x5, dwconv_vjp)
 
@@ -683,8 +699,8 @@ def dwconv_cases(shapes, scope):
             xg = x.detach().requires_grad_()
             return torch.autograd.grad(depthwise_conv_reference(xg, w, b), xg, dy)[0]
 
-    def call_dx(ins, reference):
-        if reference:
+    def call_dx(ins):
+        if in_plain_versions():
             return plain_dx(*ins)
         return dwconv_vjp(_kernel, ins[:3], (True, False, False), (ins[3],))[0]
 
@@ -707,7 +723,7 @@ def dwconv_cases(shapes, scope):
         nbytes = lambda es, b=b, h=h, w=w, c=c: es * (2 * b * h * w * c + 26 * c)
         ops = 2.0 * 25 * b * h * w * c
         cases.append(Case("dwconv5x5", f"{b}x{h}x{w}x{c} forward", n, make,
-                          lambda ins, reference: dwconv5x5(*ins, reference=reference),
+                          lambda ins: dwconv5x5(*ins),
                           nbytes, 0.0, library, flops32=ops, scope=scope))
         cases.append(Case("dwconv5x5", f"{b}x{h}x{w}x{c} dx (dwconv_vjp)", n,
                           lambda dt, make=make: make(dt, dx=True), call_dx,
@@ -746,13 +762,12 @@ def htb_fused_cases(h, w, shapes, scope="frame", pair=False):
                 ins[1] = ins[1] + (xf.mean(-1), xf.amax(-1))
             return ins + [t.to(dt) for t in _tail_inputs(rn, c, ch)]
 
-        def call(ins, reference, win=win):
-            return htb_fused(*ins[:11], heads, (win, win), *ins[11:], emit_stats=True,
-                             reference=reference)
+        def call(ins, win=win):
+            return htb_fused(*ins[:11], heads, (win, win), *ins[11:], emit_stats=True)
 
-        def chain(ins, reference, win=win):
-            attn = scc_block(*ins[:11], heads, (win, win), reference=reference)
-            return htb_tail_stats(attn, ins[0], *ins[11:], reference=reference)
+        def chain(ins, win=win):
+            attn = scc_block(*ins[:11], heads, (win, win))
+            return htb_tail_stats(attn, ins[0], *ins[11:])
 
         nb, _ = _scc_work(h, w, win)
         weights = 2 * c * ch + 25 * ch + 2 * ch + 6 * c
@@ -848,8 +863,8 @@ def win_attn_cases():
                 rn = _gen(60 + wk)
                 return [rn(1, h, w, 3 * c).to(dt), 0.5 * rn(heads, 256, wk * wk)]
 
-            def call(ins, reference, shift=shift, wk=wk):
-                return win_attn(*ins, heads, 16, shift, wk, reference=reference)
+            def call(ins, shift=shift, wk=wk):
+                return win_attn(*ins, heads, 16, shift, wk)
 
             kind = "overlapping" if wk > 16 else ("shifted" if shift else "unshifted")
             cases.append(Case("win_attn", f"{h}x{w} {kind} (256 queries, {wk * wk} keys)",
@@ -899,9 +914,9 @@ def check_fusion_backward(failures: list) -> dict:
     grads, launched = [], []
     with exact_mode(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                                   deterministic=True, allow_tf32=False):
-        for reference in (False, True):
+        for call in (case.call, case.plain):
             before = build.launches["fused_fusion"]
-            out = case.call([a, bb, raws, packed], reference)
+            out = call([a, bb, raws, packed])
             grads.append(torch.autograd.grad(out, leaves, dy))
             launched.append(build.launches["fused_fusion"] - before)
     rel = [float((g - r).norm() / r.norm().clamp_min(1e-30)) for g, r in zip(*grads)]
@@ -935,16 +950,16 @@ def run_kernels(failures: list) -> tuple:
         try:
             with exact_mode():
                 ins32 = case.make(f32)
-                got = case.call(ins32, False)
-                ref = case.call(ins32, True)
+                got = case.call(ins32)
+                ref = case.plain(ins32)
                 torch.cuda.synchronize()
                 e32 = _errs(got, ref)
                 finite = all(bool(torch.isfinite(t).all()) for t in _flat(got))
                 del got, ref
                 ins16 = case.make(b16)
-                got16 = case.call(ins16, False)
-                ref16 = case.call(ins16, True)
-                truth = case.call(_upcast(ins16), True)
+                got16 = case.call(ins16)
+                ref16 = case.plain(ins16)
+                truth = case.plain(_upcast(ins16))
                 torch.cuda.synchronize()
             # every output tensor on its own scale (the stats sums are large)
             err32 = max(e for e, _ in e32)
@@ -958,8 +973,8 @@ def run_kernels(failures: list) -> tuple:
             for t in _flat(got16):
                 ok = ok and bool(torch.isfinite(t).all())
             del got16, ref16, truth
-            ms = time_ms(lambda: case.call(ins16, False), **few)
-            plain_ms = time_ms(lambda: case.call(ins16, True), max_iters=10, **few)
+            ms = time_ms(lambda: case.call(ins16), **few)
+            plain_ms = time_ms(lambda: case.plain(ins16), max_iters=10, **few)
             lib_ms = lib32 = None
             if case.library:
                 lib16 = case.library_prep(ins16)
@@ -967,8 +982,8 @@ def run_kernels(failures: list) -> tuple:
                 del lib16
             del ins16
             with exact_mode():
-                ms32 = time_ms(lambda: case.call(ins32, False), **few)
-                plain32 = time_ms(lambda: case.call(ins32, True), max_iters=10, **few)
+                ms32 = time_ms(lambda: case.call(ins32), **few)
+                plain32 = time_ms(lambda: case.plain(ins32), max_iters=10, **few)
                 if case.library:
                     lib32_ins = case.library_prep(ins32)
                     lib32 = time_ms(lambda: case.library(lib32_ins), **few)
@@ -1282,16 +1297,16 @@ def run_check(served: dict, failures: list) -> None:
     err, sq = 0.0, {"k16": 0.0, "p16": 0.0, "in": 0.0, "w": 0.0}
     with torch.inference_mode(), exact_mode():
         for tile in tiles:
-            ref = m32(tile, reference=True).clamp(0, 1)
+            ref = on_plain(m32)(tile).clamp(0, 1)
             err = max(err, float((m32(tile).clamp(0, 1) - ref).abs().max()))
             outs = {
                 "k16": m16(tile).float(),
-                "p16": m16(tile, reference=True).float(),
+                "p16": on_plain(m16)(tile).float(),
                 # how far these weights let any bfloat16 forward come: the
                 # float32 plain model fed the bf16-rounded input, and with
                 # bf16-rounded weights
-                "in": m32(tile.to(torch.bfloat16).float(), reference=True),
-                "w": rounded(tile, reference=True),
+                "in": on_plain(m32)(tile.to(torch.bfloat16).float()),
+                "w": on_plain(rounded)(tile),
             }
             for k, y in outs.items():
                 sq[k] += float(((y.clamp(0, 1) - ref) ** 2).mean()) / len(tiles)
@@ -1336,14 +1351,14 @@ def run_whole_check(served: dict, failures: list) -> None:
         for img in imgs:
             banded = BandedHeadSR(m32, BAND_ROWS)(img)
             whole = m32(img[None])[0]
-            plain = m32(img[None], reference=True)[0].clamp(0, 1)
+            plain = on_plain(m32)(img[None])[0].clamp(0, 1)
             err["whole"] = max(err["whole"], float((banded - whole).abs().max()))
             err["plain"] = max(err["plain"], float((banded.clamp(0, 1) - plain).abs().max()))
             fused = BandedHeadSR(m32f, BAND_ROWS)(img)
             err["fused"] = max(err["fused"], float((fused - banded).abs().max()))
             outs = {"k16": BandedHeadSR(m16, BAND_ROWS, out_dtype=torch.float32)(img),
                     "f16": BandedHeadSR(m16f, BAND_ROWS, out_dtype=torch.float32)(img),
-                    "p16": m16(img[None], reference=True)[0].float()}
+                    "p16": on_plain(m16)(img[None])[0].float()}
             for k, y in outs.items():
                 sq[k] += float(((y.clamp(0, 1) - plain) ** 2).mean()) / len(imgs)
     db = {k: 10 * math.log10(1.0 / max(v, 1e-20)) for k, v in sq.items()}
@@ -1420,10 +1435,10 @@ def run_train(failures: list) -> dict:
     counts = dict.fromkeys(build.launches, 0)
     mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
     for dt in ("float32", "bfloat16"):
-        for label, reference in (("kernels", False), ("plain", True)):
+        for label, plain in (("kernels", False), ("plain", True)):
             model = train_model(dt)
             opt = adam(model)
-            step = make_train_step(model, l1_loss, opt, reference=reference)
+            step = on_plain(make_train_step(model, l1_loss, opt), plain)
             batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
             for lr_img, hr_img in batches[:TRAIN_WARM]:
                 step(lr_img, hr_img)
@@ -1431,7 +1446,7 @@ def run_train(failures: list) -> dict:
             torch.cuda.reset_peak_memory_stats()
             build.reset_launches()
             ms, losses = [], []
-            want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
+            want = {k: 0 if plain else PER_STEP.get(k, 0) for k in build.launches}
             for lr_img, hr_img in batches[TRAIN_WARM:]:
                 before = dict(build.launches)
                 t0 = time.perf_counter()
@@ -1453,7 +1468,7 @@ def run_train(failures: list) -> dict:
                 f"-> HR {4 * TRAIN_LR}x{4 * TRAIN_LR}, {dt}): median {med:.1f} ms, min "
                 f"{min(ms):.1f} ms, {row['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} "
                 f"GiB, L1 losses {', '.join(f'{v:.5f}' for v in losses)}")
-            if not reference:
+            if not plain:
                 for k, v in build.launches.items():
                     counts[k] += v
                 row["launches_per_step"] = {k: v // TRAIN_STEPS
@@ -1510,13 +1525,14 @@ def profile_step(model, opt, lr_img, hr_img) -> dict:
     return split
 
 
-def step_grads(model, lr_img, hr_img, reference: bool):
-    """The L1 loss of one training forward, every parameter's gradient
-    (None where the forward does not read it) and the forward's SR."""
+def step_grads(model, lr_img, hr_img, plain: bool):
+    """The L1 loss of one training forward (on the plain versions where
+    ``plain``), every parameter's gradient (None where the forward does not
+    read it) and the forward's SR."""
     from sisr_tpu_torch.train.losses import l1_loss
 
     model.zero_grad(set_to_none=True)
-    sr = model(lr_img, reference=reference, deterministic=False)
+    sr = on_plain(model, plain)(lr_img, deterministic=False)
     loss = l1_loss(sr, hr_img)
     loss.backward()
     return float(loss.detach()), {k: None if p.grad is None else p.grad.clone()
@@ -1695,7 +1711,7 @@ def run_train_check(failures: list) -> None:
     steps = {}
     with exact_mode():
         for ref, model in models.items():
-            step = make_train_step(model, l1_loss, adam(model), reference=ref)
+            step = on_plain(make_train_step(model, l1_loss, adam(model)), ref)
             steps[ref] = [float(step(*b)) for b in train_batches(5, seed=4)]
     step_err = max(abs(a - b) / abs(b) for a, b in zip(steps[False], steps[True]))
     ok = ok and step_err <= 1e-4
@@ -1732,7 +1748,7 @@ def _bf16_move(t, seed: int):
 def bf16_step_check(failures: list, make, label: str, steps: int = BF16_STEPS,
                     card: str = "") -> dict:
     """``steps`` Adam steps (L1, 2e-5) of ``make()``'s bfloat16 model on the
-    kernel path, the plain path (``reference=True``) taking the kernel
+    kernel path, the plain path (``plain_versions()``) taking the kernel
     path's weights and optimizer state before each step (the parameters
     change in place: a stale packed weight would pass step 1 and fail
     after it), cuDNN deterministic.  Each step: the L1 loss and every
@@ -1919,7 +1935,7 @@ def check_images(exp, images: list, failures: list, label: str, plain: bool,
         if plain:
             x = torch.from_numpy(im["lr"]).to(exp.device)
             with torch.inference_mode(), exact_mode():
-                ref = exp.model(x, reference=True).clamp(0, 1).float().cpu().numpy()
+                ref = on_plain(exp.model)(x).clamp(0, 1).float().cpu().numpy()
             err = float(np.abs(ref - im["sr"]).max())
         shape = im["lr"].shape[1:3]
         log(f"  {label} LR {shape[0]}x{shape[1]}: {im['s']:.2f} s, launches "
@@ -2223,8 +2239,8 @@ def run_heads(failures: list, card: str) -> dict:
             err = models["float32"](tile).clamp(0, 1)
             k16 = models["bfloat16"](tile).float().clamp(0, 1)
             with exact_mode():
-                ref = models["float32"](tile, reference=True).clamp(0, 1)
-                p16 = models["bfloat16"](tile, reference=True).float().clamp(0, 1)
+                ref = on_plain(models["float32"])(tile).clamp(0, 1)
+                p16 = on_plain(models["bfloat16"])(tile).float().clamp(0, 1)
             err = (err - ref).abs()
         row.update(max_abs=float(err.max()), rms=float(err.square().mean().sqrt()),
                    db_bf16=_psnr_db(k16, ref), db_plain_bf16=_psnr_db(p16, ref))
@@ -2313,8 +2329,8 @@ def run_hat(failures: list, card: str) -> dict:
         k16 = out.float().clamp(0, 1)
         del out
         with exact_mode():
-            ref = models["float32"](frame, reference=True).clamp(0, 1)
-            p16 = m16(frame, reference=True).float().clamp(0, 1)
+            ref = on_plain(models["float32"])(frame).clamp(0, 1)
+            p16 = on_plain(m16)(frame).float().clamp(0, 1)
         row.update(db_bf16=_psnr_db(k16, ref), db_plain_bf16=_psnr_db(p16, ref),
                    max_abs_vs_plain_bf16=float((k16 - p16).abs().max()))
         del k16, ref, p16
@@ -2388,7 +2404,7 @@ def gan_grads(g, d, perceptual, lr_img, hr_img, stale_uv: bool = False) -> tuple
 
     d_run = copy.deepcopy(d).requires_grad_(False)
     g.zero_grad(set_to_none=True)
-    sr = g(lr_img, reference=True, deterministic=False)
+    sr = on_plain(g)(lr_img, deterministic=False)
     gan_generator_loss(sr, hr_img, d_run, l1_loss, perceptual).backward()
     if stale_uv:
         d_run = copy.deepcopy(d)
@@ -2423,11 +2439,11 @@ def run_gan_check(failures: list, card: str) -> dict:
     rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
     lr_img, hr_img = train_batches(1, seed=7)[0]
 
-    def run(g, d, reference):
+    def run(g, d, plain):
         # hitsir_pro_gan_experiment's settings: L1 + 1.0 perceptual + 0.1
         # adversarial, Adam 2e-5, betas (0.9, 0.99) for both networks
-        step = make_gan_train_step(g, d, l1_loss, perceptual, adam(g), adam(d),
-                                   reference=reference)
+        step = on_plain(make_gan_train_step(g, d, l1_loss, perceptual, adam(g), adam(d)),
+                        plain)
         g_loss, d_loss = step(lr_img, hr_img)
         return dict(g_loss=float(g_loss), d_loss=float(d_loss), grads=_grads(g),
                     d_grads=_grads(d), d_state={k: v.clone() for k, v in d.state_dict().items()})
@@ -2544,17 +2560,17 @@ def run_gan_steps(failures: list, card: str) -> dict:
     summary = dict(card=card, tf32_cudnn=torch.backends.cudnn.allow_tf32,
                    tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
     mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
-    for label, reference in (("kernels", False), ("plain", True)):
+    for label, plain in (("kernels", False), ("plain", True)):
         g = train_model()
         d, perceptual = gan_parts()
         g_opt, d_opt = adam(g), adam(d)
-        step = make_gan_train_step(g, d, l1_loss, perceptual, g_opt, d_opt, reference=reference)
+        step = on_plain(make_gan_train_step(g, d, l1_loss, perceptual, g_opt, d_opt), plain)
         batches = train_batches(GAN_WARM + GAN_STEPS, seed=0)
         for lr_img, hr_img in batches[:GAN_WARM]:
             step(lr_img, hr_img)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        want = {k: 0 if reference else PER_STEP.get(k, 0) for k in build.launches}
+        want = {k: 0 if plain else PER_STEP.get(k, 0) for k in build.launches}
         ms, losses = [], []
         for lr_img, hr_img in batches[GAN_WARM:]:
             before = dict(build.launches)
@@ -2576,7 +2592,7 @@ def run_gan_steps(failures: list, card: str) -> dict:
             f"{4 * TRAIN_LR}, float32): median {med:.1f} ms, min {min(ms):.1f} ms, "
             f"{row['lr_mp_per_s']:.4f} LR MP/s, peak {peak:.2f} GiB; (g_loss, d_loss) "
             + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in losses) + f" [{card}]")
-        if not reference:
+        if not plain:
             row["launches_per_step"] = {k: v for k, v in want.items() if v}
             log(f"  launches per step (each checked): {row['launches_per_step']}")
             row["split"] = split = gan_split(step, g_opt, d_opt, *batches[-1])
@@ -2968,8 +2984,8 @@ def run_dense_check(failures: list, card: str) -> dict:
             if got != want or not bool(torch.isfinite(outs[dt]).all()):
                 failures.append(f"Dense {dt} tile: launches {got} or not finite")
         with exact_mode():
-            ref = models["float32"](tile, reference=True)
-            p16 = models["bfloat16"](tile, reference=True).float()
+            ref = on_plain(models["float32"])(tile)
+            p16 = on_plain(models["bfloat16"])(tile).float()
     mx, rms, ok32 = _whole_model_bars(outs["float32"], ref)
     db16, db_plain = _psnr_db(outs["bfloat16"], ref), _psnr_db(p16, ref)
     bar16 = min(44.0, db_plain - 3.0)
@@ -3061,12 +3077,12 @@ def run_family_steps(failures: list, card: str) -> dict:
 
     summary = {}
     mp = TRAIN_BATCH * TRAIN_LR * TRAIN_LR / 1e6
-    for family, reference, dt in (("dense", False, "float32"), ("dense", True, "float32"),
-                                  ("unet", False, "float32"), ("dense", False, "bfloat16")):
-        label = f"{family}{' plain' if reference else ''}{' bf16' if dt != 'float32' else ''}"
+    for family, plain, dt in (("dense", False, "float32"), ("dense", True, "float32"),
+                              ("unet", False, "float32"), ("dense", False, "bfloat16")):
+        label = f"{family}{' plain' if plain else ''}{' bf16' if dt != 'float32' else ''}"
         model = family_model(family, dt)
         opt = adam(model)
-        step = make_train_step(model, l1_loss, opt, reference=reference)
+        step = on_plain(make_train_step(model, l1_loss, opt), plain)
         batches = train_batches(TRAIN_WARM + TRAIN_STEPS, seed=0)
         for lr_img, hr_img in batches[:TRAIN_WARM]:
             step(lr_img, hr_img)
@@ -3076,7 +3092,7 @@ def run_family_steps(failures: list, card: str) -> dict:
         gc.collect()
         base = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
-        want = {k: 0 for k in build.launches} if reference else family_want(family)
+        want = {k: 0 for k in build.launches} if plain else family_want(family)
         ms, losses = [], []
         for lr_img, hr_img in batches[TRAIN_WARM:]:
             before = dict(build.launches)
@@ -3098,7 +3114,7 @@ def run_family_steps(failures: list, card: str) -> dict:
             f"min {min(ms):.1f} ms, {summary[label]['lr_mp_per_s']:.4f} LR MP/s, peak "
             f"{summary[label]['peak_gib']:.2f} GiB ({base:.2f} allocated before the steps), "
             f"L1 {', '.join(f'{v:.5f}' for v in losses)} [{card}]")
-        if not reference:
+        if not plain:
             split = summary[label]["split"] = profile_step(model, opt, *batches[-1])
             split["idle_share_of_median"] = 1 - split["busy_ms"] / med
             log(f"  {label}: device busy {split['busy_ms']:.1f} ms against the {med:.1f} ms "
@@ -3150,7 +3166,7 @@ def run_family_runners(failures: list, card: str) -> dict:
             for im in rec["images"]:
                 x = torch.from_numpy(im["lr"]).to(exp.device)
                 with torch.inference_mode(), exact_mode():
-                    ref = exp.model(x, reference=True).clamp(0, 1).float().cpu().numpy()
+                    ref = on_plain(exp.model)(x).clamp(0, 1).float().cpu().numpy()
                 im["err"] = float(np.abs(ref - im["sr"]).max())
             ok = (not bad and rec["steps"] and all(im["launches"] == want and im["err"] <= 1e-3
                                                   for im in rec["images"])
@@ -3305,13 +3321,14 @@ def exact_deterministic():
         yield
 
 
-def drop_grads(model, lr_img, hr_img, rng, reference: bool = False) -> tuple:
+def drop_grads(model, lr_img, hr_img, rng, plain: bool = False) -> tuple:
     """The L1 loss and every gradient of one training forward of ``model``
-    whose dropout masks come from ``rng`` (``make_train_step``'s forward)."""
+    (on the plain versions where ``plain``) whose dropout masks come from
+    ``rng`` (``make_train_step``'s forward)."""
     from sisr_tpu_torch.train.losses import l1_loss
 
     model.zero_grad(set_to_none=True)
-    loss = l1_loss(model(lr_img, reference=reference, deterministic=False, generator=rng),
+    loss = l1_loss(on_plain(model, plain)(lr_img, deterministic=False, generator=rng),
                    hr_img)
     loss.backward()
     return float(loss.detach()), {k: p.grad.clone() for k, p in model.named_parameters()
@@ -3950,16 +3967,16 @@ def htb_tail_alone(failures: list) -> list:
     for h, w in ((TILE, TILE), (192, FRAME[1])):
         case = htb_cases(h, w, ((True, 0),), scope="frame")[0]
         ins = case.make(torch.bfloat16)
-        case.call(ins, False)
+        case.call(ins)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
-                case.call(ins, False)
+                case.call(ins)
             torch.cuda.synchronize()
         tail_ms = sum(e.self_device_time_total for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and "htb_tail_out_wg" in e.key) / 5e3
-        ms = time_ms(lambda: case.call(ins, False))
-        plain = time_ms(lambda: case.call(ins, True), max_iters=10)
+        ms = time_ms(lambda: case.call(ins))
+        plain = time_ms(lambda: case.plain(ins), max_iters=10)
         px = h * w
         nbytes = 2 * (px * ch + 2 * px * c + ch * c + 26 * ch + 3 * c) + 4 * (2 * px + 2 * c)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4049,10 +4066,10 @@ def launch_split(cases, dtypes=("bfloat16", "float32")) -> dict:
             if case.scope == "frame" and dt == "float32":
                 continue
             ins = case.make(getattr(torch, dt))
-            case.call(ins, False)
+            case.call(ins)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                case.call(ins, False)
+                case.call(ins)
                 torch.cuda.synchronize()
             parts = {}
             for e in prof.key_averages():
@@ -4153,8 +4170,7 @@ def ab_worker(tree: str, split: bool) -> int:
         for dt in (torch.bfloat16, torch.float32):
             ins = case.make(dt)
             few = dict(min_iters=1) if case.scope == "frame" else {}
-            times[f"{case.kernel} {case.label} {dt}"] = time_ms(lambda: case.call(ins, False),
-                                                                **few)
+            times[f"{case.kernel} {case.label} {dt}"] = time_ms(lambda: case.call(ins), **few)
             del ins
             torch.cuda.empty_cache()
     print("AB " + json.dumps(times), flush=True)
@@ -4382,7 +4398,7 @@ def main(argv=None) -> int:
                 failures.append(f"profile: {traceback.format_exc()}")
                 log(traceback.format_exc())
     if "check" in phases and served is not None:
-        log("[check] a 192x192 tile of each request against the plain model (reference=True)")
+        log("[check] a 192x192 tile of each request against the plain model (plain_versions())")
         try:
             run_check(served, failures)
             if "whole" in phases:
@@ -4392,7 +4408,7 @@ def main(argv=None) -> int:
             failures.append(f"check: {traceback.format_exc()}")
             log(traceback.format_exc())
     if "check" in phases and "train" in phases:
-        log("[check] the training step against the plain path (reference=True)")
+        log("[check] the training step against the plain path (plain_versions())")
         try:
             run_train_check(failures)
         except Exception:

@@ -5,7 +5,9 @@ NHWC activations.
 
 Also the pieces the JAX package gets from flax and the port's families
 share: ``conv_nhwc`` (a conv module applied to an NHWC map, as flax's
-``nn.Conv`` computes it outside the kernels) and ``flax_init_``, which
+``nn.Conv`` computes it outside the kernels), ``derived`` and
+``conv_weights`` (what a module derives from its parameters for the
+kernels, kept while they are unchanged) and ``flax_init_``, which
 draws a module's parameters from flax's default distributions (the JAX
 package defines the UNet and Dense families, so their initial state is
 JAX's: ``lecun_normal`` kernels, zero biases, unit norm scales).
@@ -23,6 +25,7 @@ from torch import nn
 
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle  # noqa: F401
 from sisr_tpu_torch.utils.precision import exact_mode
+from sisr_tpu_torch.utils.profiling import span
 
 # flax's variance_scaling draws from a normal truncated to [-2, 2] whose
 # standard deviation is this: dividing by it gives the asked-for variance
@@ -44,6 +47,47 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
             y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), bias,
                          stride=conv.stride, padding=conv.padding, groups=conv.groups)
     return y.permute(0, 2, 3, 1)
+
+
+def derived(module: nn.Module, kind: str, dt, device, make, sources=None):
+    """``make()``: the tensors of ``kind`` derived from the parameters of
+    ``sources`` (default: ``module``) for the compute type ``dt``, kept on
+    ``module``, made once and kept until one of those parameters is moved
+    or written (its storage or version counter changes; a parameter made
+    under inference_mode has no version counter and is followed by its
+    storage alone).  The parameter list is taken once: a Parameter object
+    assigned later is not followed.  When grad mode is on and one of those
+    parameters requires grad, ``make()`` runs anew under autograd and
+    nothing is kept, so that the gradient reaches the parameters.  Each
+    ``make()`` runs inside a ``sisr.derive.<kind>`` span."""
+    lists = module.__dict__.setdefault("_derived_params", {})
+    params = lists.get(kind)
+    if params is None:
+        params = lists[kind] = [p for m in (sources or (module,)) for p in m.parameters()]
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        with span("derive." + kind):
+            return make()
+    stamp = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                  for p in params)
+    cache = module.__dict__.setdefault("_derived", {})
+    key = (kind, dt, device)
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        # plain tensors outside autograd, whatever mode the caller is in
+        with torch.inference_mode(False), torch.no_grad(), span("derive." + kind):
+            hit = (stamp, make())
+        cache[key] = hit
+    return hit[1]
+
+
+def _hwio(conv: nn.Conv2d, dt):
+    """Conv weight (O, I, kh, kw) -> contiguous (kh, kw, I, O) in dt."""
+    return conv.weight.permute(2, 3, 1, 0).to(dt).contiguous()
+
+
+def conv_weights(conv: nn.Conv2d, dt, device):
+    """(HWIO kernel, bias) of a 3x3 conv in dt, cached."""
+    return derived(conv, "conv", dt, device, lambda: (_hwio(conv, dt), conv.bias.to(dt)))
 
 
 def _fan_in(module: nn.Module) -> int:

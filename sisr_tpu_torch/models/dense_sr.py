@@ -74,8 +74,8 @@ class DenseSR(nn.Module):
         self.upsample = nn.Conv2d(c, scale * scale * in_channel, 3, padding=1)
         flax_init_(self)
 
-    def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         if isinstance(self.conv_first, MultipleSizeConvExtract):
@@ -95,6 +95,5 @@ class DenseSR(nn.Module):
         feat = conv_nhwc(conv_nhwc(torch.cat(group_outputs, dim=-1), self.gff1), self.gff2)
         if self.sa_attn is not None:
             feat = self.sa_attn(feat)
-        feat = (self.fusion(feat, shallow, reference) if self.fusion is not None
-                else feat + shallow)
+        feat = self.fusion(feat, shallow) if self.fusion is not None else feat + shallow
         return pixel_shuffle(conv_nhwc(feat, self.upsample), self.scale)

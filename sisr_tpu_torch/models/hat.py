@@ -29,8 +29,7 @@ parameter names, the two position-index buffers and the initialisation are
 HAT's, so its checkpoints load strictly.
 Activations are NHWC; parameters stay float32 and what is derived from them
 (HWIO conv weights, each block's dense bias) is kept per compute ``dtype``
-as ``hit_sir_pro._derived`` keeps it.  ``reference=True`` runs every
-kernel's plain version.  HAT's stochastic depth (its class default 0.1) is
+(``arch_util.derived``).  HAT's stochastic depth (its class default 0.1) is
 not ported: ``deterministic`` and ``generator`` are taken, as by every
 model of the port, and change nothing.
 """
@@ -44,8 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sisr_tpu_torch.models.arch_util import conv_nhwc
-from sisr_tpu_torch.models.hit_sir_pro import _conv_weights, _derived
+from sisr_tpu_torch.models.arch_util import conv_nhwc, conv_weights, derived
 from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3
 from sisr_tpu_torch.ops.kernels.win_attn import win_attn
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -140,10 +138,10 @@ class CAB(nn.Module):
             nn.Conv2d(dim, dim // compress_ratio, 3, 1, 1), nn.GELU(),
             nn.Conv2d(dim // compress_ratio, dim, 3, 1, 1), ChannelAttention(dim, squeeze))
 
-    def forward(self, u: torch.Tensor, reference: bool) -> torch.Tensor:
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
         dt, dev = u.dtype, u.device
-        h = F.gelu(conv3x3(u, None, *_conv_weights(self.cab[0], dt, dev), "none", reference))
-        z = conv3x3(h, None, *_conv_weights(self.cab[2], dt, dev), "none", reference)
+        h = F.gelu(conv3x3(u, None, *conv_weights(self.cab[0], dt, dev), "none"))
+        z = conv3x3(h, None, *conv_weights(self.cab[2], dt, dev), "none")
         return self.cab[3](z)
 
 
@@ -172,15 +170,14 @@ class HAB(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, t: torch.Tensor, index: torch.Tensor, reference: bool) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         dt, attn = t.dtype, self.attn
         u = _norm(t, self.norm1)
         with span("hat.cab"):
-            cab = self.conv_block(u, reference)
-        bias = _derived(attn, "win_bias", torch.float32, t.device,
-                        lambda: _dense_bias(attn.relative_position_bias_table, index))
-        a = win_attn(_linear(u, attn.qkv, dt), bias, attn.heads, self.window, self.shift,
-                     reference=reference)
+            cab = self.conv_block(u)
+        bias = derived(attn, "win_bias", torch.float32, t.device,
+                       lambda: _dense_bias(attn.relative_position_bias_table, index))
+        a = win_attn(_linear(u, attn.qkv, dt), bias, attn.heads, self.window, self.shift)
         t = torch.add(t, cab, alpha=self.conv_scale).add_(_linear(a, attn.proj, dt))
         return _mlp(_norm(t, self.norm2), self.mlp, dt).add_(t)
 
@@ -201,12 +198,12 @@ class OCAB(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
 
-    def forward(self, t: torch.Tensor, index: torch.Tensor, reference: bool) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         dt = t.dtype
-        bias = _derived(self, "win_bias", torch.float32, t.device,
-                        lambda: _dense_bias(self.relative_position_bias_table, index))
+        bias = derived(self, "win_bias", torch.float32, t.device,
+                       lambda: _dense_bias(self.relative_position_bias_table, index))
         a = win_attn(_linear(_norm(t, self.norm1), self.qkv, dt), bias, self.heads,
-                     self.window, 0, self.key_window, reference=reference)
+                     self.window, 0, self.key_window)
         t = _linear(a, self.proj, dt).add_(t)
         return _mlp(_norm(t, self.norm2), self.mlp, dt).add_(t)
 
@@ -232,13 +229,13 @@ class RHAG(nn.Module):
                                           compress_ratio, squeeze, conv_scale, mlp_ratio)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, t: torch.Tensor, rpi_sa_: torch.Tensor, rpi_oca_: torch.Tensor,
-                reference: bool) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, rpi_sa_: torch.Tensor,
+                rpi_oca_: torch.Tensor) -> torch.Tensor:
         y = t
         for block in self.residual_group.blocks:
-            y = block(y, rpi_sa_, reference)
-        y = self.residual_group.overlap_attn(y, rpi_oca_, reference)
-        return conv3x3(y, t, *_conv_weights(self.conv, t.dtype, t.device), "none", reference)
+            y = block(y, rpi_sa_)
+        y = self.residual_group.overlap_attn(y, rpi_oca_)
+        return conv3x3(y, t, *conv_weights(self.conv, t.dtype, t.device), "none")
 
 
 class PatchEmbed(nn.Module):
@@ -297,7 +294,7 @@ class HAT(nn.Module):
                 nn.init.trunc_normal_(m.weight, std=0.02)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor, reference: bool = False, deterministic: bool = True,
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator=None) -> torch.Tensor:
         """(B, H, W, in_chans) -> (B, upscale H, upscale W, in_chans)."""
         _, h, w, cin = x.shape
@@ -308,13 +305,10 @@ class HAT(nn.Module):
         shallow = conv_nhwc((x - mean) * self.img_range, self.conv_first)
         t = _norm(shallow, self.patch_embed.norm)
         for layer in self.layers:
-            t = layer(t, self.relative_position_index_SA, self.relative_position_index_OCA,
-                      reference)
+            t = layer(t, self.relative_position_index_SA, self.relative_position_index_OCA)
         t = _norm(t, self.norm)
-        y = conv3x3(t, shallow, *_conv_weights(self.conv_after_body, dt, dev), "none",
-                    reference)
-        y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, dev), "leaky",
-                    reference)
+        y = conv3x3(t, shallow, *conv_weights(self.conv_after_body, dt, dev), "none")
+        y = conv3x3(y, None, *conv_weights(self.conv_before_upsample[0], dt, dev), "leaky")
         for conv in self.upsample[::2]:
             y = pixel_shuffle(conv_nhwc(y, conv), 2)
         y = conv_nhwc(y, self.conv_last) / self.img_range + mean

@@ -23,17 +23,19 @@ Parameters stay float32; what a module derives from them for its kernels
 made once per compute ``dtype`` and device and kept until a parameter
 changes, so a forward runs only the work that depends on its input; a
 forward that records gradients makes it anew under autograd instead.
-Every ``forward`` takes ``reference``: False runs the CUDA kernels for CUDA
-tensors, True the plain versions (the yardstick on the card); CPU tensors
-always run plain.  ``deterministic=False`` is the training forward, as in
-JAX: no block threads the SCA statistics to the next (its tail kernel has
-no backward), ``fused_htb`` is ignored, and the dropout rates, when set
-(no experiment sets them), take effect (``HiTSIR``'s docstring), each
-mask drawn from the forward's ``generator`` (``ops/dropout.py``).
+The kernel functions run their CUDA kernels for CUDA tensors and their
+plain versions for CPU tensors and inside ``ops.kernels.autograd.
+plain_versions()`` (the yardstick on the card).  ``deterministic=False`` is
+the training forward, as in JAX: no block threads the SCA statistics to the
+next (its tail kernel has no backward), ``fused_htb`` is ignored, and the
+dropout rates, when set (no experiment sets them), take effect
+(``HiTSIR``'s docstring), each mask drawn from the forward's ``generator``
+(``ops/dropout.py``).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -42,9 +44,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from sisr_tpu_torch.models.arch_util import conv_nhwc
+from sisr_tpu_torch.models.arch_util import conv_nhwc, conv_weights, derived
 from sisr_tpu_torch.ops import dropout as drop
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
+from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions, plain_versions
 from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
                                                 conv3x3_shuffled_tail,
                                                 conv3x3_shuffled_tail_packed)
@@ -58,7 +61,6 @@ from sisr_tpu_torch.ops.kernels.scc_block import sca_reference, scc_block
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from sisr_tpu_torch.ops.windows import pad_to_multiple
 from sisr_tpu_torch.utils.constants import device_constant
-from sisr_tpu_torch.utils.profiling import span
 
 
 def _linear(x, mod: nn.Linear, dt):
@@ -89,47 +91,6 @@ def _input_mean(cin: int) -> np.ndarray:
     """The mean subtracted from the input: the RGB mean, or 0 for other
     channel counts."""
     return np.asarray(IMAGENET_ISH_RGB_MEAN if cin == 3 else (0.0,))
-
-
-def _derived(module: nn.Module, kind: str, dt, device, make, sources=None):
-    """``make()``: the tensors of ``kind`` derived from the parameters of
-    ``sources`` (default: ``module``) for the compute type ``dt``, kept on
-    ``module``, made once and kept until one of those parameters is moved
-    or written (its storage or version counter changes; a parameter made
-    under inference_mode has no version counter and is followed by its
-    storage alone).  The parameter list is taken once: a Parameter object
-    assigned later is not followed.  When grad mode is on and one of those
-    parameters requires grad, ``make()`` runs anew under autograd and
-    nothing is kept, so that the gradient reaches the parameters.  Each
-    ``make()`` runs inside a ``sisr.derive.<kind>`` span."""
-    lists = module.__dict__.setdefault("_derived_params", {})
-    params = lists.get(kind)
-    if params is None:
-        params = lists[kind] = [p for m in (sources or (module,)) for p in m.parameters()]
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        with span("derive." + kind):
-            return make()
-    stamp = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
-                  for p in params)
-    cache = module.__dict__.setdefault("_derived", {})
-    key = (kind, dt, device)
-    hit = cache.get(key)
-    if hit is None or hit[0] != stamp:
-        # plain tensors outside autograd, whatever mode the caller is in
-        with torch.inference_mode(False), torch.no_grad(), span("derive." + kind):
-            hit = (stamp, make())
-        cache[key] = hit
-    return hit[1]
-
-
-def _hwio(conv: nn.Conv2d, dt):
-    """Conv weight (O, I, kh, kw) -> contiguous (kh, kw, I, O) in dt."""
-    return conv.weight.permute(2, 3, 1, 0).to(dt).contiguous()
-
-
-def _conv_weights(conv: nn.Conv2d, dt, device):
-    """(HWIO kernel, bias) of a 3x3 conv in dt, cached."""
-    return _derived(conv, "conv", dt, device, lambda: (_hwio(conv, dt), conv.bias.to(dt)))
 
 
 class MultipleSizeConvExtract(nn.Module):
@@ -168,7 +129,7 @@ class MultipleSizeConvExtract(nn.Module):
     def forward(self, x: torch.Tensor, dt) -> torch.Tensor:
         c = self.conv_x.out_channels
         b, h, w, cin = x.shape
-        weights = _derived(self, "msce", dt, x.device, lambda: self._weights(dt))
+        weights = derived(self, "msce", dt, x.device, lambda: self._weights(dt))
         # a slab of rows at a time on large maps: the packed conv's 4c-channel
         # output and the im2col columns are ~30x the input, which set a
         # 1080p frame's peak memory; every pixel's value is unchanged
@@ -364,14 +325,14 @@ class SCC(nn.Module):
         return (sca_w, se_w, w1, w2, bb, pmat, pb, mask, bias.to(dt),
                 self.proj.weight.t().to(dt), self.proj.bias.to(dt))
 
-    def forward(self, x: torch.Tensor, stats=None, reference: bool = False,
-                deterministic: bool = True, generator: drop.Rng = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats=None, deterministic: bool = True,
+                generator: drop.Rng = None) -> torch.Tensor:
         sca, rest = self.bundle(x, stats)
         if self.value_drop > 0.0 and not deterministic:
             out = _scc_with_value_drop(x, sca, *rest, self.num_heads, self.window_size,
                                        self.value_drop, generator)
         else:
-            out = scc_block(x, sca, *rest, self.num_heads, self.window_size, reference)
+            out = scc_block(x, sca, *rest, self.num_heads, self.window_size)
         return out if deterministic else drop.dropout(out, self.proj_drop, generator)
 
     def bundle(self, x: torch.Tensor, stats=None):
@@ -380,8 +341,8 @@ class SCC(nn.Module):
         (cmean, cmax) maps when ``stats`` are given."""
         b, hp, wp, c = x.shape
         dt = x.dtype
-        sca_w, se_w, *rest = _derived(self, "scc", dt, x.device,
-                                      lambda: self._weights(dt, x.device))
+        sca_w, se_w, *rest = derived(self, "scc", dt, x.device,
+                                     lambda: self._weights(dt, x.device))
 
         sca = None
         if sca_w is not None:
@@ -470,8 +431,7 @@ class HierarchicalTransformerBlock(nn.Module):
         self.mlp = ConvFFN(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, emit_stats: bool = False, stats=None,
-                reference: bool = False, deterministic: bool = True,
-                generator: drop.Rng = None):
+                deterministic: bool = True, generator: drop.Rng = None):
         """``deterministic=False`` (training, JAX's flag) drops ``stats``
         and runs no ``htb_fused``; its dropouts draw from ``generator``;
         ``emit_stats`` is for evaluation."""
@@ -479,13 +439,13 @@ class HierarchicalTransformerBlock(nn.Module):
         dt = x.dtype
         if not deterministic:
             stats = None
-        tail = _derived(self, "tail", dt, x.device, lambda: self._tail_weights(dt),
-                        sources=(self.norm1, self.mlp, self.norm2))
+        tail = derived(self, "tail", dt, x.device, lambda: self._tail_weights(dt),
+                       sources=(self.norm1, self.mlp, self.norm2))
         if (self.fused_htb and deterministic and h % self.window_size[0] == 0
                 and w % self.window_size[1] == 0):
             sca, rest = self.correlation.bundle(x, stats)
             return htb_fused(x, sca, *rest, self.correlation.num_heads, self.window_size,
-                             *tail, emit_stats=emit_stats, reference=reference)
+                             *tail, emit_stats=emit_stats)
         xp = pad_to_multiple(x, self.window_size)
         if stats is not None and xp.shape[1:3] != (h, w):
             # the threaded stats describe the UNPADDED x: channel pools
@@ -498,8 +458,8 @@ class HierarchicalTransformerBlock(nn.Module):
             ssum = (ssum + xp[:, h:, :w].to(f32).sum(dim=(1, 2))
                     + xp[:, :, w:].to(f32).sum(dim=(1, 2)))
             stats = (cmean, cmax, ssum, smax)
-        attn = self.correlation(xp, stats=stats, reference=reference,
-                                deterministic=deterministic, generator=generator)
+        attn = self.correlation(xp, stats=stats, deterministic=deterministic,
+                                generator=generator)
         if not deterministic and (self.drop > 0.0 or self.drop_path > 0.0):
             return self._tail_with_dropout(attn[:, :h, :w], x, *tail, generator)
 
@@ -507,8 +467,8 @@ class HierarchicalTransformerBlock(nn.Module):
         # the (possibly window-padded) attn goes in whole: the tail reads
         # only its first h rows and w columns
         if emit_stats:
-            return htb_tail_stats(attn, *args, reference=reference)
-        return htb_tail(attn, *args, reference=reference)
+            return htb_tail_stats(attn, *args)
+        return htb_tail(attn, *args)
 
     def _tail_with_dropout(self, attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
                            ln2_s, ln2_b, rng: drop.Rng) -> torch.Tensor:
@@ -573,8 +533,8 @@ class RHTB(nn.Module):
                 nn.Conv2d(dim // 4, dim // 4, 1), nn.LeakyReLU(0.2, inplace=True),
                 nn.Conv2d(dim // 4, dim, 3, padding=1))
 
-    def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True, generator: drop.Rng = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: drop.Rng = None) -> torch.Tensor:
         blocks = self.residual_group.blocks
         thread = deterministic and not self.use_checkpoint
         remat = self.use_checkpoint and torch.is_grad_enabled()
@@ -582,29 +542,31 @@ class RHTB(nn.Module):
         for i, block in enumerate(blocks):
             want = thread and i + 1 < len(blocks) and self.is_channel_spatial_attn
             if remat:
-                y = _checkpointed(block, y, reference, deterministic, generator)
+                y = _checkpointed(block, y, deterministic, generator)
                 continue
-            out = block(y, emit_stats=want, stats=stats, reference=reference,
-                        deterministic=deterministic, generator=generator)
+            out = block(y, emit_stats=want, stats=stats, deterministic=deterministic,
+                        generator=generator)
             y, stats = out if want else (out, None)
         if isinstance(self.conv, nn.Sequential):
             y = F.leaky_relu(conv_nhwc(y, self.conv[0]), 0.2)
             y = F.leaky_relu(conv_nhwc(y, self.conv[2]), 0.2)
             return x + conv_nhwc(y, self.conv[4])
-        return conv3x3(y, x, *_conv_weights(self.conv, x.dtype, x.device), "none",
-                       reference)
+        return conv3x3(y, x, *conv_weights(self.conv, x.dtype, x.device), "none")
 
 
-def _checkpointed(block: nn.Module, y: torch.Tensor, reference: bool, deterministic: bool,
+def _checkpointed(block: nn.Module, y: torch.Tensor, deterministic: bool,
                   rng: drop.Rng) -> torch.Tensor:
     """``block(y)`` under ``torch.utils.checkpoint``, whose recompute in
     the backward draws the forward's dropout masks again: checkpoint
     restores torch's default generators only, so the recompute draws from
     a copy of the caller's generator as it stood before the forward (the
-    caller's generator advances once, as without checkpointing)."""
+    caller's generator advances once, as without checkpointing).  The
+    recompute runs on the backward's thread: a forward inside
+    ``plain_versions()`` recomputes inside it too."""
     rng = drop.as_rng(rng)
     g = rng.generator
     state = None if g is None or deterministic else g.get_state()
+    plain = in_plain_versions()
     calls = []
 
     def run(y):
@@ -614,7 +576,8 @@ def _checkpointed(block: nn.Module, y: torch.Tensor, reference: bool, determinis
             replay.set_state(state)
             r = rng._replace(generator=replay)
         calls.append(1)
-        return block(y, reference=reference, deterministic=deterministic, generator=r)
+        with plain_versions() if plain else nullcontext():
+            return block(y, deterministic=deterministic, generator=r)
 
     return checkpoint(run, y, use_reentrant=False)
 
@@ -672,8 +635,7 @@ class Fusion(nn.Module):
         for i in (1, 2, 3):
             setattr(self, f"union_attention{i}", UnionAttention(channels))
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor,
-                reference: bool = False) -> torch.Tensor:
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         def make():
             raws = tuple(getattr(self, f"union_attention{i}").raw() for i in (1, 2, 3))
             # the kernel's weights; gradients reach raws through fused_fusion
@@ -681,8 +643,8 @@ class Fusion(nn.Module):
                 packed = pack_params(raws, self.channels, a.dtype)
             return raws, packed
 
-        raws, packed = _derived(self, "fusion", a.dtype, a.device, make)
-        return fused_fusion(a, b, raws, packed, reference)
+        raws, packed = derived(self, "fusion", a.dtype, a.device, make)
+        return fused_fusion(a, b, raws, packed)
 
 
 class PatchEmbed(nn.Module):
@@ -808,7 +770,7 @@ class HiTSIR(nn.Module):
                     m.weight.normal_(0.0, 0.02).clamp_(-2.0, 2.0)
                     nn.init.zeros_(m.bias)
 
-    def _x4_head(self, y: torch.Tensor, reference: bool, packed: bool = False) -> torch.Tensor:
+    def _x4_head(self, y: torch.Tensor, packed: bool = False) -> torch.Tensor:
         """The packed nearest+conv x4 tail (``hit_sir_pro.py`` _x4_head,
         :1014-1042, as the JAX package runs it on its chip): conv_up1 emits
         the packed x2 map, conv_up2 reads it through the shuffled conv and
@@ -817,18 +779,15 @@ class HiTSIR(nn.Module):
         that kernel writes the packed layout (the width 4*w1 must be a
         multiple of 16)."""
         dt, dev = y.dtype, y.device
-        y = conv3x3(y, None, *_derived(self.conv_up1, "up2", dt, dev,
-                                       lambda: _folded_up2(self.conv_up1, dt)),
-                    "leaky2", reference)
-        y = conv3x3_shuffled(y, *_derived(self.conv_up2, "up2", dt, dev,
-                                          lambda: _folded_up2(self.conv_up2, dt)),
-                             "leaky2", reference)
+        y = conv3x3(y, None, *derived(self.conv_up1, "up2", dt, dev,
+                                      lambda: _folded_up2(self.conv_up1, dt)), "leaky2")
+        y = conv3x3_shuffled(y, *derived(self.conv_up2, "up2", dt, dev,
+                                         lambda: _folded_up2(self.conv_up2, dt)), "leaky2")
         tail = conv3x3_shuffled_tail_packed if packed else conv3x3_shuffled_tail
-        return tail(y, *_conv_weights(self.conv_hr, dt, dev), "leaky2",
-                    *_conv_weights(self.conv_last, dt, dev), reference)
+        return tail(y, *conv_weights(self.conv_hr, dt, dev), "leaky2",
+                    *conv_weights(self.conv_last, dt, dev))
 
-    def forward(self, x: torch.Tensor, reference: bool = False,
-                stage: str = "full", deterministic: bool = True,
+    def forward(self, x: torch.Tensor, stage: str = "full", deterministic: bool = True,
                 generator: drop.Rng = None) -> torch.Tensor:
         """``stage``: 'full' the whole network; 'features' stops at the
         pre-upsample feature map (B, H, W, num_feat), without the mean
@@ -848,7 +807,7 @@ class HiTSIR(nn.Module):
         x = x.to(dt)
         if stage == "head":
             mean = device_constant(_input_mean, (self.in_chans,), dt, x.device)
-            out = self._x4_head(x, reference, self.head_packed)
+            out = self._x4_head(x, self.head_packed)
             if out.shape[-1] != self.in_chans and mean.numel() == self.in_chans:
                 mean = mean.repeat(out.shape[-1] // self.in_chans)
             return out / self.img_range + mean
@@ -869,19 +828,17 @@ class HiTSIR(nn.Module):
         if not deterministic:
             feat = drop.dropout(feat, self.drop_rate, generator)
         for layer in self.layers:
-            feat = layer(feat, reference, deterministic, generator)
+            feat = layer(feat, deterministic, generator)
         feat = _layer_norm_slabs(feat, self.norm.weight, self.norm.bias)
-        deep = conv3x3(feat, None, *_conv_weights(self.conv_after_body, dt, x.device),
-                       "none", reference)
-        y = (self.fusion(deep, shallow, reference) if self.fusion is not None
-             else deep + shallow)
+        deep = conv3x3(feat, None, *conv_weights(self.conv_after_body, dt, x.device), "none")
+        y = self.fusion(deep, shallow) if self.fusion is not None else deep + shallow
         if self.upsampler in ("pixelshuffle", "nearest+conv"):
-            y = conv3x3(y, None, *_conv_weights(self.conv_before_upsample[0], dt, x.device),
-                        "leaky", reference)
+            y = conv3x3(y, None, *conv_weights(self.conv_before_upsample[0], dt, x.device),
+                        "leaky")
         if stage == "features":
             return y
         if self.upsampler == "nearest+conv":
-            y = self._x4_head(y, reference)
+            y = self._x4_head(y)
         elif self.upsampler == "pixelshuffle":
             for conv in self.upsample[::2]:
                 y = pixel_shuffle(conv_nhwc(y, conv), 2)

@@ -149,8 +149,8 @@ class UNetSR(nn.Module):
         self.conv_out = nn.Conv2d(cur, upscale * upscale * image_in_channels, 3, padding=1)
         flax_init_(self)
 
-    def forward(self, x: torch.Tensor, reference: bool = False,
-                deterministic: bool = True, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         _, h, w, _ = x.shape
         step = 2 ** (len(self.ch_mults) - 1)
         if h % step or w % step:

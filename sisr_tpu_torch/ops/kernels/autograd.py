@@ -44,10 +44,18 @@ on itself, so gradients land on the tensors the caller passed.  When no
 input needs a gradient the kernel runs as it is, with no Function around it.
 ``with_kernel`` swaps the kernel, so that the CPU tests can hold the wiring
 with the plain version standing in.
+
+``KernelFunction`` alone decides which implementation runs.  A CUDA kernel
+(``card_only``) runs for tensors on a card; other tensors, and every call
+inside ``plain_versions()``, run the plain version (the yardstick on the
+card).  The switch is thread-local, as grad mode is: the autograd engine's
+and the data loader's threads keep the default.  A stand-in kernel runs on
+any device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import warnings
 from collections import OrderedDict
@@ -309,19 +317,52 @@ class _Apply(torch.autograd.Function):
         return (None, None) + tuple(got)
 
 
+class _Switch(threading.local):
+    on = False
+
+
+_switch = _Switch()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside it, every kernel function of this thread runs its plain version."""
+    before, _switch.on = _switch.on, True
+    try:
+        yield
+    finally:
+        _switch.on = before
+
+
+def in_plain_versions() -> bool:
+    """Whether this thread is inside ``plain_versions()``."""
+    return _switch.on
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a CUDA kernel's call on ``t`` runs the plain version: inside
+    ``plain_versions()``, or ``t`` off a card."""
+    return _switch.on or not t.is_cuda
+
+
 class KernelFunction:
     """``kernel`` forward, ``plain``'s vjp (or ``vjp``) backward, traced as
     ``sisr.vjp.<name>``; see the module docstring.  ``vjp(kernel, leaves,
-    need, grads)`` returns one gradient (or None) per flattened input."""
+    need, grads)`` returns one gradient (or None) per flattened input.
+    ``card_only``: ``kernel`` takes CUDA tensors only, so a call whose first
+    argument is off a card runs ``plain``."""
 
     def __init__(self, name: str, kernel: Callable, plain: Callable,
-                 vjp: Optional[Callable] = None):
+                 vjp: Optional[Callable] = None, card_only: bool = False):
         self.name, self.kernel, self.plain, self.vjp = name, kernel, plain, vjp
+        self.card_only = card_only
 
     def with_kernel(self, kernel: Callable) -> "KernelFunction":
         return KernelFunction(self.name, kernel, self.plain, self.vjp)
 
     def __call__(self, *args):
+        if _switch.on or (self.card_only and not args[0].is_cuda):
+            return self.plain(*args)
         if not needs_grad(*args):
             return self.kernel(*args)
         leaves: List[torch.Tensor] = []

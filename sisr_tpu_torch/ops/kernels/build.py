@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -49,6 +49,7 @@ launches: Dict[str, int] = {name: 0 for name in (
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Callable] = {}
 _lock = threading.Lock()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -137,6 +138,18 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def entry(lib: str, symbol: str, restype, argtypes):
+    """The C function ``symbol`` of kernel ``lib``'s library, its result and
+    argument types declared once."""
+    key = (lib, symbol)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(library(lib), symbol)
+        fn.restype, fn.argtypes = restype, argtypes
+        _entries[key] = fn
+    return fn
+
+
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor, or NULL for None."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -166,11 +179,13 @@ def as_arg(t, dtype: torch.dtype):
 
 def cached(owner: torch.Tensor, name: str, deps, make):
     """``make()`` outside autograd, kept on ``owner`` under ``name`` while the
-    tensors ``deps`` keep their identities and version counters: the packed
-    weights a kernel reads, made once per weight tensor.  An inference
-    tensor has no version counter: made anew every call."""
-    key = (None if any(t.is_inference() for t in deps)
-           else tuple((id(t), t._version) for t in deps))
+    tensors ``deps`` keep their identities and version counters and its
+    other ``deps`` (a packed width) their values: the packed weights a
+    kernel reads, made once per weight tensor.  An inference tensor has no
+    version counter: made anew every call."""
+    key = None
+    if not any(isinstance(t, torch.Tensor) and t.is_inference() for t in deps):
+        key = tuple((id(t), t._version) if isinstance(t, torch.Tensor) else t for t in deps)
     hit = getattr(owner, name, None)
     if key is not None and hit is not None and hit[0] == key:
         return hit[1]

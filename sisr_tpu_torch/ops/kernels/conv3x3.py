@@ -48,7 +48,6 @@ import torch.nn.functional as F
 from sisr_tpu_torch.ops.kernels import build
 from sisr_tpu_torch.ops.kernels.autograd import KernelFunction
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle_phase_major
-from sisr_tpu_torch.utils.profiling import span
 
 ACTS = {"none": 0, "leaky": 1, "leaky2": 2}
 # conv_hr's channels the tail kernel keeps on chip (csrc/shuffled_tail.cu)
@@ -89,18 +88,9 @@ def pack_weights(kernel: torch.Tensor, npad: int) -> torch.Tensor:
 
 
 def _packed(kernel: torch.Tensor, npad: int) -> torch.Tensor:
-    """``pack_weights(kernel, npad)`` outside autograd, kept on ``kernel``
-    while its version counter stays (an inference tensor has none and is
-    packed every call)."""
-    version = None if kernel.is_inference() else kernel._version
-    hit = getattr(kernel, "_wgmma_pack", None)
-    if version is not None and hit is not None and hit[0] == (version, npad):
-        return hit[1]
-    with torch.no_grad(), span("derive.wgmma_pack"):
-        pack = pack_weights(kernel, npad)
-    if version is not None:
-        kernel._wgmma_pack = ((version, npad), pack)
-    return pack
+    """``pack_weights(kernel, npad)``, kept on ``kernel`` (``build.cached``)."""
+    return build.cached(kernel, "_wgmma_pack", (kernel, npad),
+                        lambda: pack_weights(kernel, npad))
 
 
 def _act(out: torch.Tensor, act: str) -> torch.Tensor:
@@ -159,10 +149,9 @@ def _conv3x3_cuda(y, res, kernel, bias, act: str, shuffled: bool):
     npad = None if y.dtype != torch.bfloat16 else wgmma_width(cin, cout, shuffled)
     packed = None if npad is None else _packed(kernel, npad)
     out = torch.empty((b, h, w, cout), dtype=y.dtype, device=y.device)
-    fn = build.library("conv3x3").conv3x3_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn = build.entry("conv3x3", "conv3x3_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                     + [ctypes.c_void_p])
     code = build.launch(fn, y.device,
                         build.DTYPE_CODES[y.dtype], build.ptr(y), build.ptr(res),
                         build.ptr(kernel), build.ptr(packed), build.ptr(bias), build.ptr(out),
@@ -176,34 +165,32 @@ CONV3X3 = KernelFunction(
     build.launched("conv3x3")(lambda y, res, kernel, bias, act: _conv3x3_cuda(
         y, res, build.as_arg(kernel, y.dtype), build.as_arg(bias, y.dtype), act,
         shuffled=False)),
-    conv3x3_reference)
+    lambda *args: conv3x3_reference(*args), card_only=True)
 CONV3X3_SHUFFLED = KernelFunction(
     "conv3x3_shuffled",
     build.launched("conv3x3_shuffled")(lambda yp, kernel, bias, act: _conv3x3_cuda(
         yp, None, build.as_arg(kernel, yp.dtype), build.as_arg(bias, yp.dtype), act,
         shuffled=True)),
-    conv3x3_shuffled_reference)
+    lambda *args: conv3x3_shuffled_reference(*args), card_only=True)
 
 
-def conv3x3(y, res, kernel, bias, act: str = "none", reference: bool = False):
-    """Fused 3x3 conv; ``res`` may be None.  A CPU tensor runs the plain
-    version; a CUDA tensor runs the kernel unless ``reference=True`` asks
-    for the plain version as a yardstick."""
+def _check_act(act: str) -> None:
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
-    if reference or y.device.type == "cpu":
-        return conv3x3_reference(y, res, kernel, bias, act)
+
+
+def conv3x3(y, res, kernel, bias, act: str = "none"):
+    """Fused 3x3 conv; ``res`` may be None.  The kernel for a CUDA tensor,
+    the plain version otherwise (``autograd.KernelFunction``)."""
+    _check_act(act)
     return CONV3X3(y, res, kernel, bias, act)
 
 
-def conv3x3_shuffled(yp, kernel, bias, act: str = "none", reference: bool = False):
+def conv3x3_shuffled(yp, kernel, bias, act: str = "none"):
     """conv3x3 (no residual) over ``pixel_shuffle_phase_major(yp, 2)``
     without materializing the shuffle: yp (B, H, W, 4Cin) -> (B, 2H, 2W,
     Cout).  Device rule as ``conv3x3``."""
-    if act not in ACTS:
-        raise ValueError(f"unknown act {act!r}")
-    if reference or yp.device.type == "cpu":
-        return conv3x3_shuffled_reference(yp, kernel, bias, act)
+    _check_act(act)
     return CONV3X3_SHUFFLED(yp, kernel, bias, act)
 
 
@@ -238,10 +225,9 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     out = torch.empty(shape, dtype=yp.dtype, device=yp.device)
     w1p = (_packed(k1, _TAIL_MAX_C1)
            if yp.dtype == torch.bfloat16 and tail_wgmma(cin, c1, cout) else None)
-    fn = build.library("shuffled_tail").shuffled_tail_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    fn = build.entry("shuffled_tail", "shuffled_tail_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     + [ctypes.c_void_p])
     code = build.launch(fn, yp.device,
                         build.DTYPE_CODES[yp.dtype], build.ptr(yp), build.ptr(k1),
                         build.ptr(w1p), build.ptr(b1), build.ptr(k2), build.ptr(b2),
@@ -250,41 +236,37 @@ def _shuffled_tail_cuda(yp, k1, b1, act1, k2, b2, packed: bool = False):
     return out
 
 
-def _shuffled_tail_kernel(name: str, packed: bool):
+def _shuffled_tail_kernel(name: str, packed: bool, plain):
     @build.launched(name)
     def kernel(yp, k1, b1, act1, k2, b2):
         cast = lambda t: build.as_arg(t, yp.dtype)
         return _shuffled_tail_cuda(yp, cast(k1), cast(b1), act1, cast(k2), cast(b2), packed)
-    return KernelFunction(name, kernel, (conv3x3_shuffled_tail_packed_reference if packed
-                                         else conv3x3_shuffled_tail_reference))
+    return KernelFunction(name, kernel, plain, card_only=True)
 
 
-SHUFFLED_TAIL = _shuffled_tail_kernel("conv3x3_shuffled_tail", False)
-SHUFFLED_TAIL_PACKED = _shuffled_tail_kernel("conv3x3_shuffled_tail_packed", True)
+SHUFFLED_TAIL = _shuffled_tail_kernel(
+    "conv3x3_shuffled_tail", False, lambda *args: conv3x3_shuffled_tail_reference(*args))
+SHUFFLED_TAIL_PACKED = _shuffled_tail_kernel(
+    "conv3x3_shuffled_tail_packed", True,
+    lambda *args: conv3x3_shuffled_tail_packed_reference(*args))
 
 
-def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2, reference: bool = False):
+def conv3x3_shuffled_tail(yp, k1, b1, act1, k2, b2):
     """conv3x3(act1(conv3x3(pixel_shuffle_phase_major(yp, 2), k1, b1)), k2,
     b2): the x4 head's conv_hr + conv_last in one kernel that keeps hr on
     chip.  yp (B, H, W, 4Cin) -> (B, 2H, 2W, Cout).  Device rule as
     ``conv3x3``."""
-    if act1 not in ACTS:
-        raise ValueError(f"unknown act {act1!r}")
-    if reference or yp.device.type == "cpu":
-        return conv3x3_shuffled_tail_reference(yp, k1, b1, act1, k2, b2)
+    _check_act(act1)
     return SHUFFLED_TAIL(yp, k1, b1, act1, k2, b2)
 
 
-def conv3x3_shuffled_tail_packed(yp, k1, b1, act1, k2, b2, reference: bool = False):
+def conv3x3_shuffled_tail_packed(yp, k1, b1, act1, k2, b2):
     """``conv3x3_shuffled_tail`` with its output packed 16 pixels to a row:
     yp (B, H, W, 4Cin) -> (B, 2H, 2W/16, 16*Cout), values equal to the
     unpacked output reshaped; 2W must be a multiple of 16.  Device rule as
     ``conv3x3``."""
-    if act1 not in ACTS:
-        raise ValueError(f"unknown act {act1!r}")
+    _check_act(act1)
     if (2 * yp.shape[2]) % tail_pack_group():
         raise ValueError(f"conv3x3_shuffled_tail_packed: output width {2 * yp.shape[2]} "
                          f"is not a multiple of {tail_pack_group()}")
-    if reference or yp.device.type == "cpu":
-        return conv3x3_shuffled_tail_packed_reference(yp, k1, b1, act1, k2, b2)
     return SHUFFLED_TAIL_PACKED(yp, k1, b1, act1, k2, b2)

@@ -43,10 +43,9 @@ def _dwconv_cuda(x, w, b, flip: bool):
                          f"{None if b is None else tuple(b.shape)} do not fit C={c}")
     build.check_cuda("dwconv5x5", x.device, x.dtype, x=x, w=w, b=b)
     y = torch.empty_like(x)
-    fn = build.library("dwconv").dwconv5x5_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn = build.entry("dwconv", "dwconv5x5_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
     code = build.launch(fn, x.device,
                         build.DTYPE_CODES[x.dtype], build.ptr(x), build.ptr(w), build.ptr(b),
                         build.ptr(y), bsz, h, wd, c, int(flip))
@@ -84,13 +83,9 @@ def dwconv_vjp(kernel, leaves, need, grads):
     return dx, dw, db
 
 
-DWCONV5X5 = KernelFunction("dwconv5x5", _kernel, depthwise_conv_reference, vjp=dwconv_vjp)
-
-
-def dwconv5x5(x, w, b, reference: bool = False):
-    """5x5 depthwise conv + bias: x (B, H, W, C), w (5, 5, C), b (C,).  A
-    CPU tensor runs the plain version; a CUDA tensor the kernel (and the
-    kernel again for dx in backward) unless ``reference=True``."""
-    if reference or x.device.type == "cpu":
-        return depthwise_conv_reference(x, w, b)
-    return DWCONV5X5(x, w, b)
+# dwconv5x5(x, w, b): 5x5 depthwise conv + bias, x (B, H, W, C), w (5, 5, C),
+# b (C,); the kernel (and the kernel again for dx in backward) for a CUDA
+# tensor, the plain version otherwise
+dwconv5x5 = DWCONV5X5 = KernelFunction(
+    "dwconv5x5", _kernel, lambda *args: depthwise_conv_reference(*args), vjp=dwconv_vjp,
+    card_only=True)

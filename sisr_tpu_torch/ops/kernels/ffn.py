@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from sisr_tpu_torch.ops.kernels import build
-from sisr_tpu_torch.ops.kernels.autograd import KernelFunction, needs_grad
+from sisr_tpu_torch.ops.kernels.autograd import KernelFunction, needs_grad, runs_plain
 from sisr_tpu_torch.ops.kernels.dwconv import depthwise_conv_reference, dwconv5x5
 
 K = 5
@@ -205,12 +205,9 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
                                                                stats, band)
     else:
         hbuf, (cmean, cmax, psum, pmax) = _tail_buffers(b, h, w, c, ch, dt, dev, stats)
-    lib = build.library("htb_tail")
-    fn = lib.htb_tail_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 21
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    fn = build.entry("htb_tail", "htb_tail_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 21 + [ctypes.c_longlong] * 2
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     code = build.launch(fn, dev,
                         build.DTYPE_CODES[dt], build.ptr(attn), build.ptr(shortcut),
                         *[build.ptr(t) for t in weights], build.ptr(out),
@@ -227,37 +224,31 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 
 
-def _tail_plain(attn, shortcut, *weights, dwconv=depthwise_conv_reference):
+def _tail_plain(attn, shortcut, *weights):
     """``htb_tail_reference`` on the rows and columns of ``attn`` the tail
-    reads."""
+    reads, its depthwise conv ``dwconv5x5`` (in the backward on a card:
+    the dwconv kernel and its backward kernel)."""
     h, w = shortcut.shape[1:3]
-    return htb_tail_reference(attn[:, :h, :w], shortcut, *weights, dwconv=dwconv)
+    return htb_tail_reference(attn[:, :h, :w], shortcut, *weights, dwconv=dwconv5x5)
 
 
-HTB_TAIL = KernelFunction(
+# htb_tail(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s,
+# ln2_b): the fused HTB tail (module docstring), the kernel for a CUDA
+# tensor, the plain version otherwise
+htb_tail = HTB_TAIL = KernelFunction(
     "htb_tail",
     lambda attn, shortcut, *weights: _htb_tail_cuda(attn, shortcut, weights, stats=False),
-    lambda *args: _tail_plain(*args, dwconv=dwconv5x5))
-
-
-def htb_tail(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
-             ln2_s, ln2_b, reference: bool = False):
-    """Fused HTB tail; see the module docstring.  A CPU tensor runs the
-    plain version; a CUDA tensor the kernel unless ``reference=True``."""
-    args = (attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b)
-    if reference or shortcut.device.type == "cpu":
-        return _tail_plain(*args)
-    return HTB_TAIL(*args)
+    lambda *args: _tail_plain(*args), card_only=True)
 
 
 def htb_tail_stats(attn, shortcut, ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2,
-                   ln2_s, ln2_b, reference: bool = False):
+                   ln2_s, ln2_b):
     """``htb_tail`` that also returns the next block's SCA statistics:
     (out, (cmean, cmax, ssum, smax)), as ``stats_reference(out)``.  The
     kernel has no backward: on a CUDA tensor, inputs that need a gradient
     raise."""
     weights = (ln1_s, ln1_b, w1, b1, dw, dwb, w2, b2, ln2_s, ln2_b)
-    if reference or shortcut.device.type == "cpu":
+    if runs_plain(shortcut):
         out = _tail_plain(attn, shortcut, *weights)
         return out, stats_reference(out)
     if needs_grad(attn, shortcut, weights):

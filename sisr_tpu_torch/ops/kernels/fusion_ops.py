@@ -99,10 +99,9 @@ def _fusion_pools_cuda(a, b):
     cp3 = torch.empty((bsz, 6, h, w), dtype=dt, device=a.device)
     hp3 = torch.empty((bsz, 6, w, c), dtype=torch.float32, device=a.device)
     wp3 = torch.empty((bsz, 6, h, c), dtype=dt, device=a.device)
-    fn = build.library("fusion").fusion_pools_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    fn = build.entry("fusion", "fusion_pools_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
     code = build.launch(fn, a.device,
                         build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
                         build.ptr(hp3), build.ptr(wp3), bsz, h, w, c)
@@ -110,15 +109,11 @@ def _fusion_pools_cuda(a, b):
     return cp3, hp3, wp3
 
 
-FUSION_POOLS = KernelFunction("fusion_pools", _fusion_pools_cuda, fusion_pools_reference)
-
-
-def fusion_pools(a, b, reference: bool = False):
-    """All nine Fusion pool pairs of a, a + b and b.  A CPU tensor runs the
-    plain version; a CUDA tensor the kernel unless ``reference=True``."""
-    if reference or a.device.type == "cpu":
-        return fusion_pools_reference(a, b)
-    return FUSION_POOLS(a, b)
+# fusion_pools(a, b): all nine Fusion pool pairs of a, a + b and b, the
+# kernel for a CUDA tensor, the plain version otherwise
+fusion_pools = FUSION_POOLS = KernelFunction(
+    "fusion_pools", _fusion_pools_cuda, lambda *args: fusion_pools_reference(*args),
+    card_only=True)
 
 
 def _ua_raw_reference(pools, raw, dt):
@@ -199,10 +194,9 @@ def _fused_fusion_cuda(a, b, packed):
     cp3, hp3, wp3 = _fusion_pools_cuda(a, b)
     scratch = torch.empty(bsz * 9 * (w * c + h * c), dtype=torch.float32, device=a.device)
     out = torch.empty_like(a)
-    fn = build.library("fusion").fusion_maps_gate_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    fn = build.entry("fusion", "fusion_maps_gate_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
     code = build.launch(fn, a.device,
                         build.DTYPE_CODES[dt], build.ptr(a), build.ptr(b), build.ptr(cp3),
                         build.ptr(hp3), build.ptr(wp3), *[build.ptr(t) for t in packed],
@@ -211,17 +205,11 @@ def _fused_fusion_cuda(a, b, packed):
     return out
 
 
-FUSED_FUSION = KernelFunction("fused_fusion",
-                              lambda a, b, raws, packed: _fused_fusion_cuda(a, b, packed),
-                              lambda a, b, raws, packed: fused_fusion_reference(a, b, raws))
-
-
-def fused_fusion(a, b, raws, packed, reference: bool = False):
-    """The whole Fusion gate of a (deep) and b (shallow), (B, H, W, C).  A
-    CPU tensor runs the plain version on ``raws``; a CUDA tensor the pools
-    kernel, then the maps and gate kernels on ``packed``, which is
-    ``pack_params(raws, C, a.dtype)`` as the caller keeps it (the Fusion
-    module does), unless ``reference=True``."""
-    if reference or a.device.type == "cpu":
-        return fused_fusion_reference(a, b, raws)
-    return FUSED_FUSION(a, b, raws, packed)
+# fused_fusion(a, b, raws, packed): the whole Fusion gate of a (deep) and b
+# (shallow), (B, H, W, C).  A CUDA tensor runs the pools kernel, then the
+# maps and gate kernels on ``packed``, which is ``pack_params(raws, C,
+# a.dtype)`` as the caller keeps it (the Fusion module does); other tensors
+# the plain version on ``raws``
+fused_fusion = FUSED_FUSION = KernelFunction(
+    "fused_fusion", lambda a, b, raws, packed: _fused_fusion_cuda(a, b, packed),
+    lambda a, b, raws, packed: fused_fusion_reference(a, b, raws), card_only=True)

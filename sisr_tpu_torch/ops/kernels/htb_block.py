@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from sisr_tpu_torch.ops.kernels import build
-from sisr_tpu_torch.ops.kernels.autograd import needs_grad
+from sisr_tpu_torch.ops.kernels.autograd import needs_grad, runs_plain
 from sisr_tpu_torch.ops.kernels.ffn import (_tail_buffers, htb_tail_reference, pack_w1,
                                             pack_w2, stats_reference)
 from sisr_tpu_torch.ops.kernels.scc_block import (_patches, pack_proj, pack_wkv,
@@ -101,10 +101,9 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                               lambda: pack_proj(proj_k, heads).to(dt)),
                  build.cached(fc1_k, "_htb_w1_pack", (fc1_k,), lambda: pack_w1(fc1_k)),
                  build.cached(fc2_k, "_htb_w2_pack", (fc2_k,), lambda: pack_w2(fc2_k)))
-    fn = build.library("htb_fused").htb_fused_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn = build.entry("htb_fused", "htb_fused_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8
+                     + [ctypes.c_void_p])
     code = build.launch(fn, dev,
                         build.DTYPE_CODES[dt], build.ptr(x), *[build.ptr(t) for t in sca_in],
                         *[build.ptr(t) for t in ins[:3]], build.ptr(pb32),
@@ -123,17 +122,16 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
 
 def htb_fused(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
               heads: int, window, ln1_s, ln1_b, fc1_k, fc1_b, dw_k, dw_b,
-              fc2_k, fc2_b, ln2_s, ln2_b, emit_stats: bool = False,
-              reference: bool = False):
+              fc2_k, fc2_b, ln2_s, ln2_b, emit_stats: bool = False):
     """The whole block.  Arguments as ``scc_block`` then ``htb_tail``
     (without the shortcut: it is ``x``); ``sca`` may carry threaded
     (cmean, cmax) maps at positions 6-7.  Returns ``out``, or ``(out,
     (cmean, cmax, ssum, smax))`` with ``emit_stats``, as ``htb_tail_stats``.
-    A CPU tensor runs the plain version; a CUDA tensor the kernel unless
-    ``reference=True``.  The kernel derives the same-head mask from
+    The kernel for a CUDA tensor, the plain version otherwise
+    (``autograd.runs_plain``).  The kernel derives the same-head mask from
     ``heads``; ``mask`` is the plain version's form of it."""
     tail = (ln1_s, ln1_b, fc1_k, fc1_b, dw_k, dw_b, fc2_k, fc2_b, ln2_s, ln2_b)
-    if reference or x.device.type == "cpu":
+    if runs_plain(x):
         out = htb_fused_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k,
                                   proj_b, heads, window, *tail)
         return (out, stats_reference(out)) if emit_stats else out

@@ -170,17 +170,14 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
                               lambda: pack_wkv(w1, w2, heads).to(dt)),
                  build.cached(proj_k, "_scc_proj_pack", (proj_k,),
                               lambda: pack_proj(proj_k, heads).to(dt)))
-    lib = build.library("scc_block")
-    size_fn = lib.scc_block_scratch_bytes
-    size_fn.restype = ctypes.c_longlong
-    size_fn.argtypes = [ctypes.c_int] * 9
+    size_fn = build.entry("scc_block", "scc_block_scratch_bytes", ctypes.c_longlong,
+                          [ctypes.c_int] * 9)
     nbytes = size_fn(int(packed), b, hp, wp, c, heads, wh, ww, l_base)
     scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
-    fn = lib.scc_block_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn = build.entry("scc_block", "scc_block_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+                     + [ctypes.c_void_p])
     code = build.launch(fn, x.device,
                         build.DTYPE_CODES[dt], build.ptr(x),
                         *[build.ptr(t) for t in sca_in],
@@ -192,22 +189,12 @@ def _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     return out
 
 
-# the kernel derives the head mask from ``heads``
-SCC_BLOCK = KernelFunction(
+# scc_block(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads,
+# window): fused SCA + SCC + proj (module docstring), the kernel for a CUDA
+# tensor, the plain version otherwise; the kernel derives the same-head mask
+# from ``heads``, ``mask`` is the plain version's form of it
+scc_block = SCC_BLOCK = KernelFunction(
     "scc_block",
     lambda x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads, window:
     _scc_block_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b, heads, window),
-    scc_block_reference)
-
-
-def scc_block(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b,
-              heads: int, window, reference: bool = False):
-    """Fused SCA + SCC + proj; see the module docstring.  A CPU tensor runs
-    the plain version; a CUDA tensor the kernel unless ``reference=True``.
-    The kernel derives the same-head mask from ``heads``; ``mask`` is the
-    plain version's form of it."""
-    if reference or x.device.type == "cpu":
-        return scc_block_reference(x, sca, w1, w2, bb, pmat, pb, mask, bias,
-                                   proj_k, proj_b, heads, window)
-    return SCC_BLOCK(x, sca, w1, w2, bb, pmat, pb, mask, bias, proj_k, proj_b, heads,
-                     window)
+    lambda *args: scc_block_reference(*args), card_only=True)

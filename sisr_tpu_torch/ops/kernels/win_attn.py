@@ -159,10 +159,9 @@ def _win_attn_cuda(qkv, bias, heads: int, window: int, shift: int, key_window: i
     build.check_cuda("win_attn", qkv.device, qkv.dtype, qkv=qkv)
     build.check_cuda("win_attn", bias.device, torch.float32, bias=bias)
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
-    fn = build.library("win_attn").win_attn_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn = build.entry("win_attn", "win_attn_launch", ctypes.c_int,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_void_p])
     code = build.launch(fn, qkv.device, build.DTYPE_CODES[qkv.dtype], build.ptr(qkv),
                         build.ptr(bias), build.ptr(out), b, hp, wp, c, heads, window,
                         key_window, shift, float(d) ** -0.5)
@@ -177,14 +176,7 @@ def _kernel(qkv, bias, heads: int, window: int, shift: int = 0, key_window: int 
                           key_window or window)
 
 
-WIN_ATTN = KernelFunction("win_attn", _kernel, win_attn_reference)
-
-
-def win_attn(qkv, bias, heads: int, window: int, shift: int = 0, key_window: int = 0,
-             reference: bool = False) -> torch.Tensor:
-    """Window attention over the qkv map (module docstring).  A CPU tensor
-    runs the plain version; a CUDA tensor the kernel unless
-    ``reference=True``."""
-    if reference or qkv.device.type == "cpu":
-        return win_attn_reference(qkv, bias, heads, window, shift, key_window)
-    return WIN_ATTN(qkv, bias, heads, window, shift, key_window)
+# win_attn(qkv, bias, heads, window, shift=0, key_window=0): window attention
+# over the qkv map (module docstring)
+win_attn = WIN_ATTN = KernelFunction("win_attn", _kernel,
+                                     lambda *args: win_attn_reference(*args), card_only=True)

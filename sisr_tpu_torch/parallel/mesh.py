@@ -159,7 +159,7 @@ def _broadcast_(mesh: Mesh, tensors: Iterable[torch.Tensor]) -> None:
     """Overwrite ``tensors`` with rank 0's values: one broadcast per dtype.
     The values are written with ``copy_``, which advances each tensor's
     version counter: the packed and derived weights cached on a parameter
-    (``build.cached``, ``HiTSIR._derived``) are keyed on it."""
+    (``build.cached``, ``arch_util.derived``) are keyed on it."""
     if mesh.group is None:
         return
     for ts in _by_dtype(tensors).values():

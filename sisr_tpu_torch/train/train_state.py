@@ -65,7 +65,7 @@ def _dropout_rng(mesh: Optional[Mesh], generator: Optional[torch.Generator]) -> 
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer: torch.optim.Optimizer, reference: bool = False,
+                    optimizer: torch.optim.Optimizer,
                     mesh: Optional[Mesh] = None) -> Callable:
     """Pixel-loss train step: ``step(lr_imgs, hr_imgs, generator) -> loss``
     on NHWC batches, updating the model's parameters in place.
@@ -75,17 +75,15 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     default generators are left as they were.  A bfloat16 model returns a
     bfloat16 SR, and the loss against the float32 HR promotes it to
     float32, as JAX's does; parameters and the optimizer's state stay
-    float32, with no loss scaling (JAX has none).  ``reference=True`` runs the plain
-    versions instead of the kernels (the yardstick on the card).  With a
-    ``mesh`` the batch is this rank's slice, the gradients are averaged
-    over the ranks and the loss is the global batch's."""
+    float32, with no loss scaling (JAX has none).  With a ``mesh`` the
+    batch is this rank's slice, the gradients are averaged over the ranks
+    and the loss is the global batch's."""
 
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         with span("step.forward"):
-            sr = model(lr_imgs, reference=reference, deterministic=False,
-                       generator=_dropout_rng(mesh, generator))
+            sr = model(lr_imgs, deterministic=False, generator=_dropout_rng(mesh, generator))
             loss = loss_fn(sr, hr_imgs)
         with span("step.backward"):
             loss.backward()
@@ -128,7 +126,6 @@ def make_gan_train_step(
     d_optimizer: torch.optim.Optimizer,
     perceptual_weight: float = 1.0,
     adversarial_weight: float = 0.1,
-    reference: bool = False,
     mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Real-ESRGAN-style two-optimizer step (hitsir_pro_gan_experiment.py
@@ -145,11 +142,10 @@ def make_gan_train_step(
     two losses, as the reference logs them.  ``generator`` as
     ``make_train_step``'s.  A bfloat16 generator's SR goes to the float32
     discriminator and VGG19 as it is: each casts its input to its
-    parameters' float32 where JAX's does (the VGG after its input norm).  ``reference=True`` runs the
-    generator's plain versions instead of its kernels.  With a ``mesh``
-    each network's gradients are averaged over the ranks before its
-    optimizer's step (D's after both of its backwards), and the losses are
-    the global batch's."""
+    parameters' float32 where JAX's does (the VGG after its input norm).
+    With a ``mesh`` each network's gradients are averaged over the ranks
+    before its optimizer's step (D's after both of its backwards), and the
+    losses are the global batch's."""
 
     def step(lr_imgs: torch.Tensor, hr_imgs: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,7 +153,7 @@ def make_gan_train_step(
         d_model.requires_grad_(False)
         try:
             with span("step.forward"):
-                sr = g_model(lr_imgs, reference=reference, deterministic=False,
+                sr = g_model(lr_imgs, deterministic=False,
                              generator=_dropout_rng(mesh, generator))
                 g_loss = gan_generator_loss(sr, hr_imgs, d_model, pixel_loss,
                                             perceptual_loss, perceptual_weight,

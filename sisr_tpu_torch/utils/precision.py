@@ -2,9 +2,10 @@
 
 On the card, a float32 matrix product runs in full float32 by default, but a
 float32 cuDNN convolution runs in TF32 (about three decimal digits).  Plain
-code that serves as a float32 yardstick (the ``reference=True`` model) runs
-inside ``exact_mode()``.  The hand-written kernels accumulate in float32
-FMAs and do not read these flags, so nothing here switches them off.
+code that serves as a float32 yardstick (the model inside
+``plain_versions()``) runs inside ``exact_mode()``.  The hand-written
+kernels accumulate in float32 FMAs and do not read these flags, so nothing
+here switches them off.
 """
 
 from __future__ import annotations

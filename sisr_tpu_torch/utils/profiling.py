@@ -33,8 +33,8 @@ The spans and what each bounds:
   run eager (a signature's first sighting, its capture, a fallback, or
   CPU tensors).  ``ops/kernels/autograd.py`` says which runs when.
 * ``sisr.derive.<kind>``: derived weights or weight packs made anew
-  (``_derived`` under grad or on a miss, ``build.cached`` and conv3x3's
-  pack on a miss).
+  (``arch_util.derived`` under grad or on a miss, ``build.cached`` on a
+  miss).
 * ``sisr.hat.cab``: a HAT block's channel-attention branch (its two convs
   and the gate); ``sisr.hat.pad``: HAT's reflect pad of the input to
   multiples of its window, and the crop of the output.

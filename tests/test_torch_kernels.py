@@ -11,6 +11,8 @@ The plain versions are held equal to the JAX package in
 flagship's shapes.
 """
 
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -53,11 +55,13 @@ def _check(fn, args, tol):
     versions round differently, so each output of the kernel must stay as
     close to the float32 plain version on the same (upcast) inputs as twice
     the plain bfloat16 version does, or within 4 bf16 ulps of its scale."""
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.utils.precision import exact_mode
 
     with exact_mode():
-        got, ref = fn(*args), fn(*args, reference=True)
-        truth = fn(*_upcast(list(args)), reference=True)
+        got = fn(*args)
+        with plain_versions():
+            ref, truth = fn(*args), fn(*_upcast(list(args)))
     for g, r, t in zip(_flat(got), _flat(ref), _flat(truth)):
         assert bool(torch.isfinite(g).all())
         if args[0].dtype == torch.float32:
@@ -251,6 +255,7 @@ def test_cuda_tensor_never_reaches_plain_code(cuda_device, monkeypatch):
     """A CUDA tensor runs the kernel (the launch counter moves) unless the
     caller asks for the plain version."""
     from sisr_tpu_torch.ops.kernels import build, conv3x3 as mod
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
 
     calls = []
     monkeypatch.setattr(mod, "conv3x3_reference",
@@ -261,7 +266,8 @@ def test_cuda_tensor_never_reaches_plain_code(cuda_device, monkeypatch):
     before = build.launches["conv3x3"]
     mod.conv3x3(y, None, k, b)
     assert build.launches["conv3x3"] == before + 1 and not calls
-    mod.conv3x3(y, None, k, b, reference=True)
+    with plain_versions():
+        mod.conv3x3(y, None, k, b)
     assert build.launches["conv3x3"] == before + 1 and calls == [1]
 
 
@@ -295,8 +301,7 @@ def test_conv3x3_shuffled_tail_kernel_matches_plain_on_card(cuda_device, dtype, 
                              _rand(rng, 3, 3, cin, c1, scale=(9 * cin) ** -0.5),
                              _rand(rng, c1), _rand(rng, 3, 3, c1, cout, scale=(9 * c1) ** -0.5),
                              _rand(rng, cout))
-    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
-        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    fn = lambda yp, k1, b1, k2, b2: conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
     out = _check(fn, (yp, k1, b1, k2, b2), 1e-4)
     assert tuple(out.shape) == (2, 2 * h2, 2 * w2, cout)
 
@@ -339,8 +344,7 @@ def test_conv3x3_shuffled_tail_model_shapes_match_plain_on_card(cuda_device, dty
     from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3_shuffled_tail
 
     args = _head_args(np.random.default_rng(17), cuda_device, dtype, *bhw)
-    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
-        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    fn = lambda yp, k1, b1, k2, b2: conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
     out = _check(fn, tuple(args), 1e-4)
     assert tuple(out.shape) == (bhw[0], 2 * bhw[1], 2 * bhw[2], 3)
 
@@ -357,8 +361,7 @@ def test_conv3x3_shuffled_tail_outside_the_rule_matches_plain_on_card(cuda_devic
 
     assert not tail_wgmma(cin, c1, cout)
     args = _head_args(np.random.default_rng(18), cuda_device, dtype, 2, 9, 17, cin, c1, cout)
-    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail(
-        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    fn = lambda yp, k1, b1, k2, b2: conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
     _check(fn, tuple(args), 1e-4)
 
 
@@ -457,6 +460,7 @@ def test_head_model_shapes_take_the_redesigned_kernels_on_card(cuda_device, dtyp
                                    (1, 9, 1920, 180), (1, 37, 200, 180), (1, 16, 5, 7),
                                    (2, 64, 64, 64), (1, 96, 120, 64), (1, 192, 192, 64)])
 def test_fusion_pools_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.ops.kernels.fusion_ops import fusion_pools
 
     rng = np.random.default_rng(6)
@@ -464,7 +468,8 @@ def test_fusion_pools_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     cp3, hp3, wp3 = _check(fusion_pools, (a, b), 1e-5)
     assert cp3.dtype == wp3.dtype == dtype and hp3.dtype == torch.float32
     # the max slots hold stored values: exact
-    ref = fusion_pools(a, b, reference=True)
+    with plain_versions():
+        ref = fusion_pools(a, b)
     for got, want in zip((cp3, hp3, wp3), ref):
         torch.testing.assert_close(got[:, 1::2], want[:, 1::2], atol=0, rtol=0)
 
@@ -493,8 +498,7 @@ def test_fused_fusion_kernels_match_plain_on_card(cuda_device, dtype, shape):
     raws = _ua_raws(rng, shape[-1], cuda_device)
     packed = pack_params(raws, shape[-1], dtype)
     before = dict(build.launches)
-    _check(lambda a, b, reference=False: fused_fusion(a, b, raws, packed, reference), (a, b),
-           1e-4)
+    _check(lambda a, b: fused_fusion(a, b, raws, packed), (a, b), 1e-4)
     assert build.launches["fused_fusion"] == before["fused_fusion"] + 1
     assert build.launches["fusion_pools"] == before["fusion_pools"] + 1
 
@@ -513,6 +517,7 @@ def test_fused_fusion_backward_through_kernel_function_on_card(cuda_device, dtyp
     1.6e-5 relative at (1, 24, 20, 180), NVIDIA H100 80GB HBM3, 700.00 W)
     the two agree to rounding."""
     from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.ops.kernels.fusion_ops import fused_fusion, pack_params
     from sisr_tpu_torch.utils.precision import exact_mode
 
@@ -528,11 +533,12 @@ def test_fused_fusion_backward_through_kernel_function_on_card(cuda_device, dtyp
     grads = []
     with exact_mode(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                                   deterministic=True, allow_tf32=False):
-        for reference in (False, True):
+        for plain in (False, True):
             before = dict(build.launches)
-            out = fused_fusion(a, b, raws, packed, reference)
+            with plain_versions() if plain else nullcontext():
+                out = fused_fusion(a, b, raws, packed)
             grads.append(torch.autograd.grad(out, leaves, dy))
-            assert build.launches["fused_fusion"] == before["fused_fusion"] + (not reference)
+            assert build.launches["fused_fusion"] == before["fused_fusion"] + (not plain)
     for got, want in zip(*grads):
         assert bool(torch.isfinite(got).all())
         err = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
@@ -574,8 +580,8 @@ def test_conv3x3_shuffled_tail_packed_kernel_matches_plain_on_card(cuda_device, 
                              _rand(rng, 3, 3, cin, c1, scale=(9 * cin) ** -0.5),
                              _rand(rng, c1), _rand(rng, 3, 3, c1, cout, scale=(9 * c1) ** -0.5),
                              _rand(rng, cout))
-    fn = lambda yp, k1, b1, k2, b2, reference=False: conv3x3_shuffled_tail_packed(
-        yp, k1, b1, "leaky2", k2, b2, reference=reference)
+    fn = lambda yp, k1, b1, k2, b2: conv3x3_shuffled_tail_packed(yp, k1, b1, "leaky2", k2,
+                                                                 b2)
     out = _check(fn, (yp, k1, b1, k2, b2), 1e-4)
     assert tuple(out.shape) == (2, 2 * h2, 2 * w2 // 16, 16 * cout)
     flat = conv3x3_shuffled_tail(yp, k1, b1, "leaky2", k2, b2)
@@ -605,7 +611,7 @@ def test_htb_fused_kernel_matches_plain_on_card(cuda_device, dtype, stats, win, 
     args = _fused_args(np.random.default_rng(9), win, heads, c, ch, nh, nw, with_sca,
                        cuda_device, dtype, b=2)
     before = build.launches["htb_fused"]
-    fn = lambda *a, reference=False: htb_fused(*a, emit_stats=stats, reference=reference)
+    fn = lambda *a: htb_fused(*a, emit_stats=stats)
     got = _check(fn, args, 2e-3)
     assert build.launches["htb_fused"] == before + 1
     if stats:
@@ -625,7 +631,7 @@ def test_htb_fused_takes_threaded_channel_maps_on_card(cuda_device):
                             torch.float32))
     x = args[0]
     args[1] = args[1] + (x.mean(-1) + 0.1, x.amax(-1) - 0.1)
-    _check(lambda *a, reference=False: htb_fused(*a, reference=reference), args, 2e-3)
+    _check(htb_fused, args, 2e-3)
 
 
 @pytest.mark.cuda
@@ -653,7 +659,7 @@ def test_htb_fused_wgmma_shapes_match_plain_and_the_chain_on_card(cuda_device, s
     if sca == "threaded":
         x = args[0].float()
         args[1] = args[1] + (x.mean(-1) + 0.1, x.amax(-1) - 0.1)   # float32, as the tail emits
-    fn = lambda *a, reference=False: htb_fused(*a, emit_stats=stats, reference=reference)
+    fn = lambda *a: htb_fused(*a, emit_stats=stats)
     before = dict(build.launches)
     got = _check(fn, args, 2e-3)
     assert build.launches["htb_fused"] == before["htb_fused"] + 1
@@ -692,6 +698,7 @@ def test_banded_head_matches_whole_forward_on_card(cuda_device, hw, band, fused)
     whole forward on the kernels, and stays within the parity bar of the
     plain model."""
     from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.parallel.tiling import BandedHeadSR
     from sisr_tpu_torch.utils.param_synth import synth_state_dict
     from sisr_tpu_torch.utils.precision import exact_mode
@@ -706,7 +713,8 @@ def test_banded_head_matches_whole_forward_on_card(cuda_device, hw, band, fused)
     with torch.inference_mode(), exact_mode():
         banded = BandedHeadSR(model, band_rows=band)(img)
         whole = model(img[None])[0]
-        plain = model(img[None], reference=True)[0]
+        with plain_versions():
+            plain = model(img[None])[0]
     assert banded.shape == whole.shape == (4 * hw[0], 4 * hw[1], 3)
     torch.testing.assert_close(banded, whole, atol=1e-5, rtol=0)
     assert float((banded - plain).abs().max()) < 1e-3
@@ -722,6 +730,7 @@ def test_dwconv5x5_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     filter flipped, no bias: one launch) against plain autograd's dx, at the
     model's two shapes and an odd one (partial tiles and channel slices)."""
     from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions
     from sisr_tpu_torch.ops.kernels.dwconv import _kernel, dwconv5x5, dwconv_vjp
 
     rng = np.random.default_rng(20)
@@ -732,10 +741,10 @@ def test_dwconv5x5_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     _check(dwconv5x5, (x, w, b), 1e-5)
     assert build.launches["dwconv5x5"] == before + 1
 
-    def dx(dy, x, w, b, reference=False):
-        if reference:
+    def dx(dy, x, w, b):
+        if in_plain_versions():
             xg = x.detach().requires_grad_()
-            return torch.autograd.grad(dwconv5x5(xg, w, b, reference=True), xg, dy)[0]
+            return torch.autograd.grad(dwconv5x5(xg, w, b), xg, dy)[0]
         return dwconv_vjp(_kernel, (x, w, b), (True, False, False), (dy,))[0]
 
     before = build.launches["dwconv5x5"]
@@ -752,12 +761,10 @@ def _grad_cases(device):
     rng = np.random.default_rng(21)
     mk = lambda *s, scale=0.3: torch.from_numpy(_rand(rng, *s, scale=scale)).to(device)
     f = 16
-    conv = lambda *a, reference=False: cv.conv3x3(*a, "leaky", reference=reference)
-    tail = lambda *a, reference=False: cv.conv3x3_shuffled_tail(
-        a[0], a[1], a[2], "leaky2", a[3], a[4], reference=reference)
-    packed = lambda *a, reference=False: cv.conv3x3_shuffled_tail_packed(
-        a[0], a[1], a[2], "leaky2", a[3], a[4], reference=reference)
-    shuffled = lambda *a, reference=False: cv.conv3x3_shuffled(*a, "leaky2", reference=reference)
+    conv = lambda *a: cv.conv3x3(*a, "leaky")
+    tail = lambda *a: cv.conv3x3_shuffled_tail(a[0], a[1], a[2], "leaky2", a[3], a[4])
+    packed = lambda *a: cv.conv3x3_shuffled_tail_packed(a[0], a[1], a[2], "leaky2", a[3], a[4])
+    shuffled = lambda *a: cv.conv3x3_shuffled(*a, "leaky2")
     head = (mk(2, 6, 8, 4 * f, scale=1.0), mk(3, 3, f, f, scale=f ** -1), mk(f),
             mk(3, 3, f, 3, scale=f ** -1), mk(3))
     cases = {
@@ -776,12 +783,10 @@ def _grad_cases(device):
     }
     for with_sca in (True, False):
         args = _scc_args(rng, 8, 8, 2, 24, 2, with_sca, device, torch.float32, b=2)
-        cases[f"scc_block {'+' if with_sca else '-'}sca"] = (
-            lambda *a, reference=False: sb.scc_block(*a, reference=reference), args)
+        cases[f"scc_block {'+' if with_sca else '-'}sca"] = (sb.scc_block, args)
     raws = _ua_raws(rng, 20, device)
     cases["fused_fusion"] = (
-        lambda a, b, raws, reference=False: fo.fused_fusion(
-            a, b, raws, fo.pack_params(raws, 20, torch.float32), reference=reference),
+        lambda a, b, raws: fo.fused_fusion(a, b, raws, fo.pack_params(raws, 20, torch.float32)),
         (mk(2, 8, 6, 20, scale=1.0), mk(2, 8, 6, 20, scale=1.0), raws))
     return cases
 
@@ -813,13 +818,16 @@ def test_kernel_function_gradients_match_plain_on_card(cuda_device, name):
     """Forward on the kernel, backward through its Function, against plain
     autograd of the plain path, float32 with TF32 off: outputs within 1e-4
     and every input gradient within a relative norm error of 1e-4."""
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.utils.precision import exact_mode
 
     fn, args = _grad_cases(cuda_device)[name]
     with exact_mode():
         k_args, k_leaves = _with_grad(args)
         p_args, p_leaves = _with_grad(args)
-        got, ref = _flat(fn(*k_args)), _flat(fn(*p_args, reference=True))
+        got = _flat(fn(*k_args))
+        with plain_versions():
+            ref = _flat(fn(*p_args))
         seeds = [torch.randn(r.shape, generator=torch.Generator(cuda_device).manual_seed(i),
                              device=cuda_device) for i, r in enumerate(ref)]
         g_k = torch.autograd.grad(got, k_leaves, seeds, allow_unused=True)
@@ -863,6 +871,7 @@ def test_derived_weights_cache_only_without_grad_on_card(cuda_device):
     dx); the kernel path's gradients match the plain path's."""
     from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
     from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
     from sisr_tpu_torch.utils.param_synth import synth_state_dict
     from sisr_tpu_torch.utils.precision import exact_mode
 
@@ -887,14 +896,15 @@ def test_derived_weights_cache_only_without_grad_on_card(cuda_device):
     conv.__dict__["_derived"].clear()
     grads = {}
     with exact_mode():
-        for reference in (False, True):
+        for plain in (False, True):
             model.zero_grad(set_to_none=True)
             build.reset_launches()
-            (model(x, reference=reference, deterministic=False) ** 2).mean().backward()
+            with plain_versions() if plain else nullcontext():
+                (model(x, deterministic=False) ** 2).mean().backward()
             counts = {k: v for k, v in build.launches.items() if v}
-            grads[reference] = {k: p.grad.clone() for k, p in model.named_parameters()
-                                if p.grad is not None}
-            if not reference:
+            grads[plain] = {k: p.grad.clone() for k, p in model.named_parameters()
+                            if p.grad is not None}
+            if not plain:
                 want = dict(serve, htb_tail_stats=0, dwconv5x5=12)
                 assert counts == {k: v for k, v in want.items() if v}, counts
     assert not conv.__dict__["_derived"]

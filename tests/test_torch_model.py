@@ -197,7 +197,7 @@ def test_packed_head_matches_jax():
                            state_dict_from_jax(variables).items()}, strict=True)
     mean = np.asarray(IMAGENET_ISH_RGB_MEAN, np.float32)   # stage='head' adds it back
     with torch.inference_mode():
-        got = model._x4_head(torch.from_numpy(y), reference=False).numpy() + mean
+        got = model._x4_head(torch.from_numpy(y)).numpy() + mean
     assert got.shape == ref.shape == (1, 24, 40, 3)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 

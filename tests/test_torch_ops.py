@@ -580,3 +580,126 @@ def test_kernel_function_gradients_match_plain_autograd(name):
     # no input needing a gradient: the kernel runs bare, no graph
     with torch.no_grad():
         assert all(o.grad_fn is None for o in outs(fn(*_torch_args(args, False))))
+
+
+# --- the one switch between kernel and plain version ---------------------------
+
+def _refused(*args):
+    raise AssertionError("the stand-in kernel ran")
+
+
+@pytest.mark.parametrize("name", FUNCTIONS)
+def test_plain_versions_switch_picks_the_plain_version(name):
+    """Inside ``plain_versions()`` a KernelFunction runs its plain version
+    (its stand-in kernel, which raises, is never called), with or without
+    inputs that need a gradient; outside it the stand-in runs; the real
+    CUDA kernel's function runs the plain version for CPU tensors."""
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
+
+    fn, plain, args = _function_cases()[name]
+    outs = lambda o: [o] if isinstance(o, torch.Tensor) else list(o)
+    want = outs(plain(*_torch_args(args, False)))
+    for grad in (False, True):
+        with plain_versions():
+            got = outs(fn.with_kernel(_refused)(*_torch_args(args, grad)))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.detach().numpy(), w.numpy())
+        with pytest.raises(AssertionError, match="stand-in"):
+            fn.with_kernel(_refused)(*_torch_args(args, grad))
+    for g, w in zip(outs(fn(*_torch_args(args, True))), want):
+        np.testing.assert_array_equal(g.detach().numpy(), w.numpy())
+
+
+def _switch_after_exception():
+    from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions, plain_versions
+
+    with pytest.raises(ValueError):
+        with plain_versions():
+            with plain_versions():
+                assert in_plain_versions()
+            assert in_plain_versions()
+            raise ValueError
+    assert not in_plain_versions()
+
+
+def _switch_in_another_thread():
+    import threading
+
+    from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions, plain_versions
+
+    seen = []
+    with plain_versions():
+        worker = threading.Thread(target=lambda: seen.append(in_plain_versions()))
+        worker.start()
+        worker.join(timeout=30)
+        assert in_plain_versions()
+    assert not worker.is_alive() and seen == [False]
+
+
+def _switch_in_checkpoint_recompute(monkeypatch):
+    """A ``use_checkpoint`` block's recompute in the backward, called
+    outside the switch, runs plain as its forward did inside it."""
+    from sisr_tpu_torch.models import hit_sir_pro as hsp
+    from sisr_tpu_torch.ops.kernels import scc_block as sb
+    from sisr_tpu_torch.ops.kernels.autograd import plain_versions
+
+    monkeypatch.setattr(hsp, "scc_block", sb.SCC_BLOCK.with_kernel(_refused))
+    torch.manual_seed(0)
+    model = hsp.HiTSIR(embed_dim=24, depths=(2,), num_heads=(2,), base_win_size=(8, 8),
+                       hier_win_ratios=(0.5, 1), use_checkpoint=True)
+    with plain_versions():
+        out = model(torch.rand(1, 16, 16, 3), deterministic=False)
+    out.square().mean().backward()
+    assert model.conv_after_body.weight.grad is not None
+
+
+@pytest.mark.parametrize("case", ["exception", "thread", "checkpoint"])
+def test_plain_versions_switch_is_restored_and_thread_local(monkeypatch, case):
+    """The switch is restored when its block raises (nested, too), is not
+    seen by another thread, and carries into a checkpointed block's
+    recompute."""
+    if case == "exception":
+        _switch_after_exception()
+    elif case == "thread":
+        _switch_in_another_thread()
+    else:
+        _switch_in_checkpoint_recompute(monkeypatch)
+
+
+def _forwards():
+    from sisr_tpu_torch.models.dense_sr import DenseSR
+    from sisr_tpu_torch.models.hat import HAT
+    from sisr_tpu_torch.models.hit_sir_pro import HiTSIR
+    from sisr_tpu_torch.models.unet_sr import UNetSR
+    from sisr_tpu_torch.train.train_state import make_gan_train_step, make_train_step
+
+    return {"HiTSIR": HiTSIR.forward, "HAT": HAT.forward, "DenseSR": DenseSR.forward,
+            "UNetSR": UNetSR.forward, "make_train_step": make_train_step,
+            "make_gan_train_step": make_gan_train_step}
+
+
+@pytest.mark.parametrize("name", ["HiTSIR", "HAT", "DenseSR", "UNetSR", "make_train_step",
+                                  "make_gan_train_step"])
+def test_no_model_or_step_takes_reference(name):
+    """The plain versions are chosen by ``plain_versions()`` alone: no
+    model's forward and no step maker takes a ``reference`` argument."""
+    import inspect
+
+    assert "reference" not in inspect.signature(_forwards()[name]).parameters
+
+
+def test_entry_binds_each_c_function_once(monkeypatch):
+    """``build.entry`` looks a C function up and declares its types once per
+    library and symbol; later calls return the bound function as it is."""
+    import ctypes
+
+    from sisr_tpu_torch.ops.kernels import build
+
+    loads = []
+    monkeypatch.setattr(build, "_entries", {})
+    monkeypatch.setattr(build, "library", lambda name: loads.append(name) or ctypes.CDLL(None))
+    fn = build.entry("libc", "abs", ctypes.c_int, [ctypes.c_int])
+    assert fn(-3) == 3 and fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert build.entry("libc", "abs", ctypes.c_int, [ctypes.c_int]) is fn and loads == ["libc"]
+    assert build.entry("libc", "labs", ctypes.c_long, [ctypes.c_long])(-4) == 4
+    assert loads == ["libc", "libc"]

@@ -37,26 +37,22 @@ KERNEL_NAMES = {"conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail", "htb_tai
 def _route_kernels(monkeypatch):
     """The model's public kernel functions (and the HTB tail's dwconv in its
     backward) through their ``KernelFunction``s, the plain versions
-    standing in for the kernels; the trailing ``reference`` is dropped."""
+    standing in for the kernels."""
     from sisr_tpu_torch.models import hit_sir_pro as hsp
     from sisr_tpu_torch.ops.kernels import conv3x3 as cv, dwconv, ffn
     from sisr_tpu_torch.ops.kernels import fusion_ops as fo, scc_block as sb
 
-    def route(kf, plain, n):
-        fn = kf.with_kernel(plain)
-        return lambda *args, reference=False: fn(*args[:n])
-
-    monkeypatch.setattr(hsp, "conv3x3", route(cv.CONV3X3, cv.conv3x3_reference, 5))
+    monkeypatch.setattr(hsp, "conv3x3", cv.CONV3X3.with_kernel(cv.conv3x3_reference))
     monkeypatch.setattr(hsp, "conv3x3_shuffled",
-                        route(cv.CONV3X3_SHUFFLED, cv.conv3x3_shuffled_reference, 4))
+                        cv.CONV3X3_SHUFFLED.with_kernel(cv.conv3x3_shuffled_reference))
     monkeypatch.setattr(hsp, "conv3x3_shuffled_tail",
-                        route(cv.SHUFFLED_TAIL, cv.conv3x3_shuffled_tail_reference, 6))
-    monkeypatch.setattr(hsp, "htb_tail", route(ffn.HTB_TAIL, ffn._tail_plain, 12))
-    monkeypatch.setattr(hsp, "scc_block", route(sb.SCC_BLOCK, sb.scc_block_reference, 13))
-    monkeypatch.setattr(hsp, "fused_fusion", route(
-        fo.FUSED_FUSION, lambda a, b, raws, packed: fo.fused_fusion_reference(a, b, raws), 4))
+                        cv.SHUFFLED_TAIL.with_kernel(cv.conv3x3_shuffled_tail_reference))
+    monkeypatch.setattr(hsp, "htb_tail", ffn.HTB_TAIL.with_kernel(ffn._tail_plain))
+    monkeypatch.setattr(hsp, "scc_block", sb.SCC_BLOCK.with_kernel(sb.scc_block_reference))
+    monkeypatch.setattr(hsp, "fused_fusion", fo.FUSED_FUSION.with_kernel(
+        lambda a, b, raws, packed: fo.fused_fusion_reference(a, b, raws)))
     monkeypatch.setattr(ffn, "dwconv5x5",
-                        route(dwconv.DWCONV5X5, dwconv.depthwise_conv_reference, 3))
+                        dwconv.DWCONV5X5.with_kernel(dwconv.depthwise_conv_reference))
 
 
 def _psnr_step():

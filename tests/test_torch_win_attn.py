@@ -70,13 +70,15 @@ def test_kernel_matches_plain_version(cuda_device, size, shift, wk):
     qkv, bias = _inputs(cuda_device, h, w, wk)
     with exact_mode():
         got = win_attn(qkv, bias, HEADS, WS, shift, wk)
-        want = win_attn(qkv, bias, HEADS, WS, shift, wk, reference=True)
+        with ag.plain_versions():
+            want = win_attn(qkv, bias, HEADS, WS, shift, wk)
         scale = max(1.0, float(want.abs().max()))
         assert _errs(got, want, scale) <= 2e-5
         q16 = qkv.bfloat16()
         got16 = win_attn(q16, bias, HEADS, WS, shift, wk)
-        plain16 = win_attn(q16, bias, HEADS, WS, shift, wk, reference=True)
-        truth = win_attn(q16.float(), bias, HEADS, WS, shift, wk, reference=True)
+        with ag.plain_versions():
+            plain16 = win_attn(q16, bias, HEADS, WS, shift, wk)
+            truth = win_attn(q16.float(), bias, HEADS, WS, shift, wk)
     assert got16.dtype == torch.bfloat16 and bool(torch.isfinite(got16.float()).all())
     edge = torch.zeros((h, w), dtype=torch.bool, device=cuda_device)
     edge[:WS], edge[-WS:], edge[:, :WS], edge[:, -WS:] = True, True, True, True
@@ -100,8 +102,9 @@ def test_backward_eager_and_replayed(cuda_device, monkeypatch, shift, wk):
     dy = torch.randn((2, 64, 64, C), device=cuda_device)
     with exact_mode():
         leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
-        want = torch.autograd.grad(
-            win_attn(*leaves, HEADS, WS, shift, wk, reference=True), leaves, dy)
+        with ag.plain_versions():
+            plain = win_attn(*leaves, HEADS, WS, shift, wk)
+        want = torch.autograd.grad(plain, leaves, dy)
         for _ in range(3):
             leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
             got = torch.autograd.grad(win_attn(*leaves, HEADS, WS, shift, wk), leaves, dy)
@@ -123,6 +126,7 @@ def test_hat_forward_launches_and_agrees(cuda_device):
     with torch.inference_mode():
         got = model(x)
         assert build.launches["win_attn"] - before == 42
-        want = model(x, reference=True)
+        with ag.plain_versions():
+            want = model(x)
     assert got.shape == (1, 256, 256, 3)
     assert float((got.float() - want.float()).abs().max()) <= 3e-2
