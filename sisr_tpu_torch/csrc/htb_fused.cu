@@ -41,8 +41,8 @@
 // SASS, against 172 KB unrolled, which slowed the attention by 17%).
 // Launch B is htb_tail's wgmma tail (htb_tail_wg.cuh::tail_out: persistent
 // blocks over 8x16 tiles, h by TMA, the taps beside fc2 on wgmma, the
-// statistics' totals by atomics) over the whole map as one band: h and x2
-// stay whole, as the earlier kernels kept them.
+// statistics' sums into per-block slots) over the whole map as one band: h
+// and x2 stay whole, as the earlier kernels kept them.
 // Values round to bfloat16 exactly where the two-kernel chain (scc_block,
 // then htb_tail) rounds them, so the two store the same bits.
 //
@@ -553,7 +553,7 @@ static_assert(nf<16>() == 1 && nf<64>() == 2 && smem<16>() <= 232448 && smem<64>
 // 1024-byte aligned): Xa | bias | pool | G | Ball | meta | U, the
 // attention's regions as scc_fused_wg's with meta before U, so that U and
 // what follows it lie in a row for the K blocks of W1 that land after the
-// projection.  Block 0 also zeroes the statistics' totals.
+// projection.  Block 0 also sets the statistics' maxima to -inf.
 template <int LB>
 __global__ void __launch_bounds__(wgs::NTW, 1) htb_fused_wg(Args a, Dims D, wgt::Tail t) {
   constexpr int NF = nf<LB>();
@@ -573,11 +573,8 @@ __global__ void __launch_bounds__(wgs::NTW, 1) htb_fused_wg(Args a, Dims D, wgt:
   bf16* par = (bf16*)(xr + XR_B);                 // ln1 scale, ln1 bias, b1
   unsigned char* x2t = r.U + (KB - NF) * W1C_B;   // x2, fc1's A
   const int g = threadIdx.x >> 7;
-  if (t.ssum != nullptr && blockIdx.x == 0) {
-    for (int e = threadIdx.x; e < t.B * wgt::CC; e += wgs::NTW) {
-      t.ssum[e] = 0.0f;
-      t.smax[e] = -CUDART_INF_F;
-    }
+  if (t.smax != nullptr && blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < t.B * wgt::CC; e += wgs::NTW) t.smax[e] = -CUDART_INF_F;
   }
   wgs::attend_tile<LB>(a, D, r);
   // the projection's weights over U; the x rows and the parameters over
@@ -716,8 +713,8 @@ int launch(const Args& a, wgt::Tail t, int Ch, cudaStream_t s) {
 // and w2p (184, 384) are the wgmma path's packed weights
 // (ops/kernels/scc_block.py::pack_wkv, pack_proj, ops/kernels/ffn.py::
 // pack_w1, pack_w2) or NULL; with them (bfloat16 only) wkv may be NULL and
-// psum/pmax are the (B, C) totals.  Returns cudaGetLastError() after the
-// launches, or -1 for refused shapes.
+// psum/pmax are the sums' slots and the maxima, as htb_tail_launch's.
+// Returns cudaGetLastError() after the launches, or -1 for refused shapes.
 extern "C" int htb_fused_launch(int dtype, const void* x, const void* patches, const void* w9a,
                                 const void* b9a, const void* w9m, const void* b9m,
                                 const void* s1, const void* s2, const void* wkv, const void* bb,

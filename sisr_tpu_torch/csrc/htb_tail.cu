@@ -2,7 +2,8 @@
 // h2 = h + gelu(dw5x5(h) + dwb); out = x + LN2(h2@W2 + b2); optionally the
 // next block's SCA statistics of out (per-pixel channel mean/max, and the
 // per-channel sum/max over the image: per-block partials that the caller
-// reduces, or on the wgmma path the totals themselves).
+// reduces, or on the wgmma path per-block slots of the sums and the
+// maxima themselves).
 //
 // Replaces sisr_tpu/ops/pallas/ffn.py::_htb_tail_pipe (kernels
 // _tail_pipe_kernel / _tail_pipe_parity_kernel, with and without stats)
@@ -47,10 +48,12 @@
 //    accumulators (a row's columns over the lanes of a quad): b2, LN2,
 //    the residual, out (staged in shared memory for whole-row stores); the
 //    statistics' per-channel sums gather in shared memory and go into the
-//    image's totals by atomics as a block leaves the image.  On the H100 a
-//    1080p call takes ~4.0 ms (the 8-warp blocks it replaced, 5.75): the
-//    consumers issue ~3 instructions a cycle of 4 (csrc/phase_clock.py),
-//    so every instruction cut from the taps and gelu shows.
+//    block's slots of the image's sums (added up by the caller in a fixed
+//    order, so the bits are the same on every run) and its maxima by
+//    atomics as a block leaves the image.  On the H100 a 1080p call takes
+//    ~4.0 ms (the 8-warp blocks it replaced, 5.75): the consumers issue ~3
+//    instructions a cycle of 4 (csrc/phase_clock.py), so every instruction
+//    cut from the taps and gelu shows.
 //    The rows go in bands that keep h of a band within 256 MiB (the 1080p
 //    frame: 6 bands of 192 rows; fc1 recomputes the conv's 2-row halo of
 //    each).
@@ -300,7 +303,8 @@ __device__ __forceinline__ void issue_raw(const Tail& t, long long m0, long long
 // 64-pixel tiles of the band's h rows; warpgroup g computes hidden channels
 // [180 g, 180 g + 180) (n184) while the next tile's attn and shortcut rows
 // arrive.  h = gelu(x W1 + b1) leaves through shared memory.  The first
-// band's block 0 also zeroes the statistics' totals.
+// band's block 0 also sets the statistics' maxima to -inf (the sums' slots
+// come zeroed).
 __global__ void __launch_bounds__(NTW, 1) htb_tail_fc1_wg(Tail t) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* w1s = align1k(smem_raw);
@@ -311,11 +315,8 @@ __global__ void __launch_bounds__(NTW, 1) htb_tail_fc1_wg(Tail t) {
   const long long M = (long long)t.B * (t.hr1 - t.hr0) * t.W;
   const long long ntiles = (M + TM - 1) / TM;
   const int g = threadIdx.x >> 7;
-  if (t.ssum != nullptr && t.r0 == 0 && blockIdx.x == 0) {
-    for (int e = threadIdx.x; e < t.B * CC; e += NTW) {
-      t.ssum[e] = 0.0f;
-      t.smax[e] = -CUDART_INF_F;
-    }
+  if (t.smax != nullptr && t.r0 == 0 && blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < t.B * CC; e += NTW) t.smax[e] = -CUDART_INF_F;
   }
   stage_w1(w1s, t.w1p, 0, KC / 64);
   issue_par1(t, par);
@@ -467,7 +468,8 @@ int launch_bf16(const void* attn, const void* sc, const void* const* wts, void* 
 // (184, 384) are the wgmma path's packed W1 and W2 (ops/kernels/ffn.py::
 // pack_w1, pack_w2) or NULL.  With them the rows go in bands of band_rows
 // (a multiple of 8): hbuf is scratch of (B, band_rows + 4, W, Ch), xbuf of
-// (B, band_rows, W, C) for x, and psum/pmax are the (B, C) totals.
+// (B, band_rows, W, C) for x, psum the (2 x SMs, B, C) slots of the sums,
+// zeroed (ops/kernels/ffn.py::totals_buffers), pmax the (B, C) maxima.
 // Returns cudaGetLastError() after the launches, or -1 for refused shapes.
 extern "C" int htb_tail_launch(int dtype, const void* attn, const void* sc, const void* ln1s,
                                const void* ln1b, const void* w1, const void* b1, const void* dw,

@@ -100,6 +100,9 @@ __device__ __forceinline__ void atomic_max_f(float* p, float v) {
 struct Tail {
   const bf16 *attn, *sc, *ln1s, *ln1b, *w1p, *b1, *dw, *dwb, *w2p, *b2, *ln2s, *ln2b;
   bf16 *out, *hbuf, *xbuf;
+  // ssum: the per-channel sums' slots, (2 x grid, B, CC), one a consumer
+  // warpgroup of each block, zeroed by the caller, who adds them up in a
+  // fixed order; smax: the (B, CC) maxima
   float *cmean, *cmax, *ssum, *smax;
   long long a_bs, a_rs;
   int B, H, W, r0, r1, hr0, hr1;
@@ -299,9 +302,10 @@ struct TailMaps {
 // epilogue runs on the accumulators (a row's 184 columns over the four
 // lanes of a quad): b2, LN2, the residual, out, and the statistics
 // (per-pixel channel mean and max; the per-channel sum and max gathered in
-// shared memory and added into the image's totals by atomics once the
-// block leaves the image).  The residual x of a tile's pixels is loaded into
-// registers as its first chunk starts.
+// shared memory and added into the block's slot of the image's sums, and
+// into its maxima by atomics, once the block leaves the image).  The
+// residual x of a tile's pixels is loaded into registers as its first
+// chunk starts.
 __device__ __forceinline__ void tail_out(const Tail& t, const TailMaps& m,
                                          unsigned char* smem_raw) {
   unsigned char* sm = align1k(smem_raw);
@@ -581,7 +585,10 @@ __device__ __forceinline__ void tail_out(const Tail& t, const TailMaps& m,
         mx = fmaxf(mx, part[(2 * v + 1) * NH + c]);
       }
       if (leaving) {
-        atomicAdd(t.ssum + bi * CC + c, sum);
+        // the sum into this thread's own slot (no other thread writes it,
+        // and bands run in turn), so the totals add up in one order on
+        // every run; a maximum is the same in any order
+        t.ssum[((2 * blockIdx.x + g) * t.B + bi) * CC + c] += sum;
         atomic_max_f(t.smax + bi * CC + c, mx);
         sum = 0.0f;
         mx = -CUDART_INF_F;

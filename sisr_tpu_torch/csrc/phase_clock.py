@@ -54,8 +54,8 @@ extern "C" int phase_clock_reset() {
 # source -> (namespace of the kernel, [(anchor, the anchor with its mark)])
 MARKS = {
     "htb_fused": ("fwg", [
-        ("  const int g = threadIdx.x >> 7;\n  if (t.ssum != nullptr && blockIdx.x == 0) {",
-         "  const int g = threadIdx.x >> 7;\n  FWG_T0\n  if (t.ssum != nullptr && blockIdx.x == 0) {"),
+        ("  const int g = threadIdx.x >> 7;\n  if (t.smax != nullptr && blockIdx.x == 0) {",
+         "  const int g = threadIdx.x >> 7;\n  FWG_T0\n  if (t.smax != nullptr && blockIdx.x == 0) {"),
         ("  wgs::attend_tile<LB>(a, D, r);\n", "  wgs::attend_tile<LB>(a, D, r);\n  FWG_MARK(0)\n"),
         ("  __syncthreads();\n  // W1's first blocks behind them",
          "  __syncthreads();\n  FWG_MARK(1)\n  // W1's first blocks behind them"),
@@ -75,8 +75,8 @@ MARKS = {
          "(hs + row * (wgt::CH * 2) + c * 8);\n  }\n  FWG_MARK(8)\n}\n"),
     ]),
     "htb_tail": ("wgt", [
-        ("  const int g = threadIdx.x >> 7;\n  if (t.ssum != nullptr && t.r0 == 0",
-         "  const int g = threadIdx.x >> 7;\n  FWG_T0\n  if (t.ssum != nullptr && t.r0 == 0"),
+        ("  const int g = threadIdx.x >> 7;\n  if (t.smax != nullptr && t.r0 == 0",
+         "  const int g = threadIdx.x >> 7;\n  FWG_T0\n  if (t.smax != nullptr && t.r0 == 0"),
         ("  __syncthreads();\n  for (; tile < ntiles; tile += gridDim.x) {",
          "  __syncthreads();\n  FWG_MARK(0)\n  for (; tile < ntiles; tile += gridDim.x) {"),
         ("    __syncthreads();   // x is built, raw is read\n",

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sisr_tpu_torch.models.arch_util import conv_nhwc, conv_weights, derived
+from sisr_tpu_torch.ops.kernels.autograd import replayed_forward
 from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3
 from sisr_tpu_torch.ops.kernels.win_attn import win_attn
 from sisr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -296,7 +297,13 @@ class HAT(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator=None) -> torch.Tensor:
-        """(B, H, W, in_chans) -> (B, upscale H, upscale W, in_chans)."""
+        """(B, H, W, in_chans) -> (B, upscale H, upscale W, in_chans); inside
+        ``replayed_forwards()`` (``TiledSR``'s tiles) a forward without grad
+        on a card replays as a CUDA graph per signature
+        (``ops/kernels/autograd.py::replayed_forward``)."""
+        return replayed_forward(self, self._forward, x, (self.dtype,), deterministic)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         _, h, w, cin = x.shape
         dt, dev = self.dtype, x.device
         with span("hat.pad"):

@@ -47,7 +47,8 @@ from torch.utils.checkpoint import checkpoint
 from sisr_tpu_torch.models.arch_util import conv_nhwc, conv_weights, derived
 from sisr_tpu_torch.ops import dropout as drop
 from sisr_tpu_torch.ops.color import IMAGENET_ISH_RGB_MEAN
-from sisr_tpu_torch.ops.kernels.autograd import in_plain_versions, plain_versions
+from sisr_tpu_torch.ops.kernels.autograd import (in_plain_versions, plain_versions,
+                                                 replayed_forward)
 from sisr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_shuffled,
                                                 conv3x3_shuffled_tail,
                                                 conv3x3_shuffled_tail_packed)
@@ -797,7 +798,16 @@ class HiTSIR(nn.Module):
         forward (see the module docstring), its dropout masks drawn from
         ``generator``: a ``torch.Generator`` on the input's device (None:
         torch's default one), or an ``ops.dropout.DropoutRng`` that also
-        names this rank's slice of the global batch."""
+        names this rank's slice of the global batch.  Inside
+        ``replayed_forwards()`` (``TiledSR``'s tiles) a forward without grad
+        on a card replays as a CUDA graph per signature
+        (``ops/kernels/autograd.py::replayed_forward``)."""
+        return replayed_forward(
+            self, lambda t: self._forward(t, stage, deterministic, generator), x,
+            (self.dtype, self.head_packed, stage), deterministic)
+
+    def _forward(self, x: torch.Tensor, stage: str, deterministic: bool,
+                 generator: drop.Rng) -> torch.Tensor:
         if stage not in ("full", "features", "head"):
             raise ValueError(f"unknown stage {stage!r}")
         if stage != "full" and self.upsampler != "nearest+conv":

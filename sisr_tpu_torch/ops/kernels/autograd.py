@@ -36,6 +36,19 @@ recompute's working set (the flagship's float32 step at batch 2, LR 64x64:
 recompute (first sighting, capture or fallback) as
 ``sisr.recompute.<name>``.
 
+A model's whole forward replays the same way (``replayed_forward``), where
+its caller declares that calls repeat: inside ``replayed_forwards()``, which
+``TiledSR`` holds around every tile, a forward with grad off, on a card, not
+in training, is captured per signature (the model itself, the attributes its
+forward reads, the input's place, every parameter's and buffer's storage
+and version counter, the library settings, the plain versions' switch) on
+the same rule, shares the LRU bound, the capture stream and the memory
+pool, and returns each answer in a tensor of its own.  A replay is traced
+as ``sisr.forward.replay``, any other forward under the switch as
+``sisr.forward.eager``.  The model keeps its ``__call__``, so its forward
+hooks fire on every call; its submodules' hooks fire only when it runs
+eager.
+
 Arguments may nest tensors in tuples (``scc_block``'s ``sca``,
 ``fused_fusion``'s ``raws``): they are flattened into the Function's inputs
 and rebuilt for each call.  Non-tensor arguments (an activation name, heads,
@@ -56,14 +69,17 @@ any device.
 from __future__ import annotations
 
 import contextlib
+import operator
 import threading
 import warnings
+import weakref
 from collections import OrderedDict
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from sisr_tpu_torch.ops.kernels import build
+from sisr_tpu_torch.utils.constants import kept_alive
 from sisr_tpu_torch.utils.profiling import span
 
 
@@ -188,7 +204,7 @@ def _sighting(key):
             _signatures[key] = _SEEN
             while len(_signatures) > MAX_SIGNATURES:
                 _, old = _signatures.popitem(last=False)
-                if isinstance(old, _VjpGraph):
+                if isinstance(old, _Graph):
                     # no replay of it may still be queued when it is freed
                     torch.cuda.synchronize(old.device)
             return None
@@ -202,37 +218,40 @@ def drop_graphs() -> None:
     recompute runs (a planted fault) drops them before and after."""
     with _lock:
         for entry in _signatures.values():
-            if isinstance(entry, _VjpGraph):
+            if isinstance(entry, _Graph):
                 torch.cuda.synchronize(entry.device)
         _signatures.clear()
         _failed.clear()
 
 
-class _VjpGraph:
-    """``_plain_vjp`` of one signature captured on static buffers; ``first``
-    holds the gradients of the call that captured it until taken."""
+class _Graph:
+    """``run(*ins)``, a tuple of tensors and Nones, captured as a CUDA graph on
+    static copies of ``ins``; ``first`` holds the warm-up's result (the
+    capturing call's answer) until taken.  The device constants the capture
+    reads are held as long as the graph (``utils/constants.py::kept_alive``)."""
 
-    def __init__(self, plain, spec, leaves, need, grads):
-        dev = self.device = leaves[0].device
-        self.ins = [torch.empty_like(t) for t in leaves]
-        self.cots = [None if g is None else torch.empty_like(g) for g in grads]
-        self._load(leaves, grads)
+    def __init__(self, run: Callable, ins: Sequence[torch.Tensor]):
+        dev = self.device = ins[0].device
+        # plain tensors, so that a graph captured under inference_mode loads outside it
+        with torch.inference_mode(False):
+            self.static = [torch.empty_like(t) for t in ins]
+        self._load(ins)
         if dev not in _capture_on:
             _capture_on[dev] = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
         (stream, pool), current = _capture_on[dev], torch.cuda.current_stream(dev)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            self.first = _plain_vjp(plain, spec, self.ins, need, self.cots)
+            self.first = run(*self.static)
         current.wait_stream(stream)
-        for g in self.first:
-            if g is not None:
-                g.record_stream(current)
+        for t in self.first:
+            if t is not None:
+                t.record_stream(current)
         counted = dict(build.launches)
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.outs = _plain_vjp(plain, spec, self.ins, need, self.cots)
+            with kept_alive() as self.constants, torch.cuda.graph(
+                    self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                self.outs = run(*self.static)
         except BaseException:
             torch.cuda.set_stream(current)  # an end of capture that raises leaves it unset
             raise
@@ -243,37 +262,60 @@ class _VjpGraph:
             build.launches.update(counted)
 
     @torch.no_grad()
-    def _load(self, leaves, grads):
-        dst = self.ins + [c for c in self.cots if c is not None]
-        torch._foreach_copy_(dst, list(leaves) + [g for g in grads if g is not None])
+    def _load(self, ins):
+        torch._foreach_copy_(self.static, list(ins))
 
     @torch.no_grad()
-    def replay(self, leaves, grads):
-        """This call's gradients, in tensors of their own."""
-        self._load(leaves, grads)
+    def replay(self, ins):
+        """This call's result, in tensors of its own."""
+        self._load(ins)
         self.graph.replay()
         for k, v in self.launches.items():
             build.launches[k] += v
-        outs = [g for g in self.outs if g is not None]
-        fresh = [torch.empty_like(g) for g in outs]
+        outs = [t for t in self.outs if t is not None]
+        fresh = [torch.empty_like(t) for t in outs]
         if outs:
             torch._foreach_copy_(fresh, outs)
         got = iter(fresh)
-        return tuple(None if g is None else next(got) for g in self.outs)
+        return tuple(None if t is None else next(got) for t in self.outs)
 
 
-def _capture(fn, spec, leaves, need, grads, key):
-    """The call's gradients, its signature's graph kept for the later
-    sightings; None, and eager for good, where the capture raises."""
+class _VjpGraph(_Graph):
+    """``_plain_vjp`` of one signature captured on static buffers: ``ins``
+    for the leaves, ``cots`` for the cotangents (None where one is)."""
+
+    def __init__(self, plain, spec, leaves, need, grads):
+        n, given = len(leaves), [g is not None for g in grads]
+
+        def run(*ins):
+            cots = iter(ins[n:])
+            return _plain_vjp(plain, spec, ins[:n], need,
+                              [next(cots) if g else None for g in given])
+
+        super().__init__(run, _vjp_ins(leaves, grads))
+        cots = iter(self.static[n:])
+        self.ins, self.cots = self.static[:n], [next(cots) if g else None for g in given]
+
+    def replay(self, leaves, grads):
+        return super().replay(_vjp_ins(leaves, grads))
+
+
+def _vjp_ins(leaves, grads) -> list:
+    return list(leaves) + [g for g in grads if g is not None]
+
+
+def _capture(make: Callable, key, what: str):
+    """The capturing call's answer, with the graph ``make()`` builds kept for
+    the signature's later sightings; None, and eager for good, where the
+    capture raises."""
     try:
-        graph = _VjpGraph(fn.plain, spec, leaves, need, grads)
+        graph = make()
     except Exception as err:        # noqa: BLE001 - any failure leaves the call eager
         with _lock:
             _failed.add(key)
             _signatures.pop(key, None)
-        warnings.warn(f"{fn.name}: the recomputed backward could not be captured as a "
-                      f"CUDA graph ({type(err).__name__}: {err}); this signature runs "
-                      f"eager")
+        warnings.warn(f"{what} could not be captured as a CUDA graph "
+                      f"({type(err).__name__}: {err}); this signature runs eager")
         return None
     with _lock:
         if key in _signatures:
@@ -292,10 +334,82 @@ def _recompute(fn, spec, leaves, need, grads):
             return entry.replay(leaves, grads)
     with span("recompute." + fn.name):
         if entry is _SEEN:
-            got = _capture(fn, spec, leaves, need, grads, key)
+            got = _capture(lambda: _VjpGraph(fn.plain, spec, leaves, need, grads), key,
+                           f"{fn.name}: the recomputed backward")
             if got is not None:
                 return got
         return _plain_vjp(fn.plain, spec, leaves, need, grads)
+
+
+class _ForwardGraph(_Graph):
+    """A module's forward of one signature captured on a static input."""
+
+    def __init__(self, run: Callable, x: torch.Tensor):
+        super().__init__(lambda t: (run(t),), [x])
+        self.first, = self.first
+
+    def replay(self, x: torch.Tensor) -> torch.Tensor:
+        return super().replay([x])[0]
+
+
+# the devices whose forwards are captured
+GRAPH_DEVICES = ("cuda",)
+_version = operator.attrgetter("_version")
+
+
+def _forward_key(module: torch.nn.Module, x: torch.Tensor, attrs: tuple) -> Optional[tuple]:
+    """The forward's signature: the module itself (not a copy of it), the
+    ``attrs`` its forward reads, the input's place, each parameter's and
+    buffer's storage and version counter (a ``load_state_dict`` or an
+    optimizer's step makes a new one), the library settings and the plain
+    versions' switch.  None where a parameter or buffer was made under
+    inference_mode: it has no version counter to follow.  The list of
+    parameters and buffers is taken once (walking the modules costs more
+    than a tile's launches), so a Parameter object assigned later is not
+    followed, as by ``arch_util.derived``."""
+    tensors = module.__dict__.get("_graph_tensors")
+    if tensors is None:
+        tensors = module.__dict__["_graph_tensors"] = [*module.parameters(), *module.buffers()]
+    try:
+        versions = tuple(map(_version, tensors))
+    except RuntimeError:        # an inference tensor
+        return None
+    return ("forward", weakref.ref(module), attrs, x.shape, x.stride(), x.dtype, x.device,
+            tuple(map(torch.Tensor.data_ptr, tensors)), versions, _modes(), _switch.on)
+
+
+def _forward_signature(module, x, attrs, deterministic: bool) -> Optional[tuple]:
+    """The key of a forward that may replay as a CUDA graph, or None where it
+    runs eager: outside ``replayed_forwards()``, with grad on, in training
+    (``deterministic`` False), off a card, or ``_forward_key``'s None."""
+    if (not (_switch.replay and deterministic) or torch.is_grad_enabled()
+            or x.device.type not in GRAPH_DEVICES):
+        return None
+    return _forward_key(module, x, attrs)
+
+
+def replayed_forward(module: torch.nn.Module, run: Callable, x: torch.Tensor, attrs: tuple,
+                     deterministic: bool = True) -> torch.Tensor:
+    """``run(x)``, ``module``'s forward of ``x``; inside ``replayed_forwards()``
+    replayed as a CUDA graph per signature (``_forward_key``) where
+    ``_forward_signature`` allows, as the recompute is: the first sighting
+    eager, the second captured, later ones replayed, each answer a tensor of
+    its own.  Under the switch a replay is traced as ``sisr.forward.replay``,
+    any other forward as ``sisr.forward.eager``."""
+    if not _switch.replay:
+        return run(x)
+    key = _forward_signature(module, x, attrs, deterministic)
+    entry = None if key is None else _sighting(key)
+    if isinstance(entry, _ForwardGraph):
+        with span("forward.replay"):
+            return entry.replay(x)
+    with span("forward.eager"):
+        if entry is _SEEN:
+            got = _capture(lambda: _ForwardGraph(run, x), key,
+                           f"{type(module).__name__}: the forward")
+            if got is not None:
+                return got
+        return run(x)
 
 
 class _Apply(torch.autograd.Function):
@@ -318,7 +432,8 @@ class _Apply(torch.autograd.Function):
 
 
 class _Switch(threading.local):
-    on = False
+    on = False          # plain_versions()
+    replay = False      # replayed_forwards()
 
 
 _switch = _Switch()
@@ -337,6 +452,23 @@ def plain_versions():
 def in_plain_versions() -> bool:
     """Whether this thread is inside ``plain_versions()``."""
     return _switch.on
+
+
+@contextlib.contextmanager
+def replayed_forwards():
+    """Inside it, this thread's model forwards that may replay as CUDA graphs
+    do (``replayed_forward``): ``TiledSR`` runs every tile inside it, since
+    its tiles repeat one signature."""
+    before, _switch.replay = _switch.replay, True
+    try:
+        yield
+    finally:
+        _switch.replay = before
+
+
+def in_replayed_forwards() -> bool:
+    """Whether this thread is inside ``replayed_forwards()``."""
+    return _switch.replay
 
 
 def runs_plain(t: torch.Tensor) -> bool:

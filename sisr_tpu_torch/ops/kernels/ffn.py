@@ -18,8 +18,10 @@ window-padded SCC output, taller or wider than ``shortcut``: only rows
 In bfloat16 at the model's widths (``wgmma_path``) fc1 and fc2 run on
 ``wgmma`` over W1 and W2 packed once per weight tensor (``pack_w1``,
 ``pack_w2``), and the rows go in bands (``band_rows``) so that h of one
-band stays within 256 MiB; there ``htb_tail_stats``'s per-channel sum and
-max come out of the kernel as totals.
+band stays within 256 MiB; there ``htb_tail_stats``'s per-channel max
+comes out of the kernel as the image's, its sum as one partial a slot
+(``totals_buffers``), added up here in a fixed order so that the bits are
+the same on every run, however the blocks are scheduled.
 
 ``htb_tail``'s gradient is the JAX ``custom_vjp``'s (``ffn.py:493-521``):
 the vjp of the plain composition recomputed from the saved inputs, with
@@ -32,6 +34,7 @@ it refuses inputs that need a gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -117,17 +120,38 @@ def _tail_buffers(b, h, w, c, ch, dt, dev, stats: bool, totals: bool = False):
     """Device buffers of h = gelu(fc1) for every row, which passes between
     the two launches, and the statistics (cmean, cmax, and the per-tile
     partials psum, pmax of the earlier kernels or, with ``totals``, the
-    image's per-channel totals the wgmma tail sums), all None without
-    ``stats``."""
+    wgmma tail's ``totals_buffers``), all None without ``stats``."""
     hbuf = torch.empty((b, h, w, ch), dtype=dt, device=dev)
     if not stats:
         return hbuf, (None,) * 4
     f32 = torch.float32
-    parts = (b, c) if totals else (b, -(-h // _TILE) * -(-w // _TILE), c)
-    return hbuf, (torch.empty((b, h, w), dtype=f32, device=dev),
-                  torch.empty((b, h, w), dtype=f32, device=dev),
-                  torch.empty(parts, dtype=f32, device=dev),
-                  torch.empty(parts, dtype=f32, device=dev))
+    maps = tuple(torch.empty((b, h, w), dtype=f32, device=dev) for _ in range(2))
+    if totals:
+        return hbuf, maps + totals_buffers(b, c, dev)
+    parts = (b, -(-h // _TILE) * -(-w // _TILE), c)
+    return hbuf, maps + tuple(torch.empty(parts, dtype=f32, device=dev) for _ in range(2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def totals_buffers(b: int, c: int, dev):
+    """The wgmma tail's per-channel statistics: zeroed slots of the sums,
+    (2 x SMs, B, C), one for each consumer warpgroup of each persistent
+    block, which ``stats_totals`` adds up in a fixed order (float atomics would
+    add them in the order the blocks finish, which changes from run to
+    run), and the (B, C) maxima."""
+    f32 = torch.float32
+    return (torch.zeros((2 * _sms(torch.device(dev)), b, c), dtype=f32, device=dev),
+            torch.empty((b, c), dtype=f32, device=dev))
+
+
+def stats_totals(stats):
+    """(cmean, cmax, ssum, smax) of the wgmma tail's statistics buffers."""
+    cmean, cmax, slots, smax = stats
+    return cmean, cmax, slots.sum(0), smax
 
 
 def band_rows(b: int, h: int, w: int, ch: int) -> int:
@@ -165,10 +189,8 @@ def _wgmma_buffers(b, h, w, c, ch, dt, dev, stats: bool, band: int):
     if not stats:
         return hbuf, xbuf, (None,) * 4
     f32 = torch.float32
-    return hbuf, xbuf, (torch.empty((b, h, w), dtype=f32, device=dev),
-                        torch.empty((b, h, w), dtype=f32, device=dev),
-                        torch.empty((b, c), dtype=f32, device=dev),
-                        torch.empty((b, c), dtype=f32, device=dev))
+    maps = tuple(torch.empty((b, h, w), dtype=f32, device=dev) for _ in range(2))
+    return hbuf, xbuf, maps + totals_buffers(b, c, dev)
 
 
 @build.launched("htb_tail")
@@ -219,8 +241,8 @@ def _htb_tail_cuda(attn, shortcut, weights, stats: bool):
     if not stats:
         return out
     build.launches["htb_tail_stats"] += 1
-    if packed:          # the kernel's totals
-        return out, (cmean, cmax, psum, pmax)
+    if packed:          # the kernel's slots and maxima
+        return out, stats_totals((cmean, cmax, psum, pmax))
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 
 

@@ -13,7 +13,8 @@ In bfloat16 at the model's shapes (``wgmma_path``) the kernel runs the
 attention on ``scc_block``'s wgmma phases and LN1, fc1 and the tail on
 ``htb_tail``'s, over the same packed weights (``scc_block.pack_wkv``,
 ``pack_proj``, ``ffn.pack_w1``, ``pack_w2``, kept on their weight tensors),
-and returns the statistics' per-channel totals as the kernel sums them.
+and returns the statistics' per-channel totals as ``htb_tail`` adds them
+up (``ffn.stats_totals``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from sisr_tpu_torch.ops.kernels import build
 from sisr_tpu_torch.ops.kernels.autograd import needs_grad, runs_plain
 from sisr_tpu_torch.ops.kernels.ffn import (_tail_buffers, htb_tail_reference, pack_w1,
-                                            pack_w2, stats_reference)
+                                            pack_w2, stats_reference, stats_totals)
 from sisr_tpu_torch.ops.kernels.scc_block import (_patches, pack_proj, pack_wkv,
                                                   scc_block_reference)
 
@@ -114,8 +115,8 @@ def _htb_fused_cuda(x, sca, w1, w2, bb, pmat, pb, bias, proj_k, proj_b,
     build.raise_on_error("htb_fused", code)
     if not stats:
         return out
-    if packed:          # the kernel's totals
-        return out, st
+    if packed:          # the kernel's slots and maxima
+        return out, stats_totals(st)
     cmean, cmax, psum, pmax = st
     return out, (cmean, cmax, psum.sum(dim=1), pmax.amax(dim=1))
 

@@ -24,6 +24,7 @@ from typing import Callable, List, Tuple, Union
 import numpy as np
 import torch
 
+from sisr_tpu_torch.ops.kernels.autograd import replayed_forwards
 from sisr_tpu_torch.ops.kernels.conv3x3 import tail_pack_group
 from sisr_tpu_torch.ops.windows import pad_hw
 from sisr_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
@@ -63,7 +64,10 @@ class TiledSR:
     model_apply: (k, th, tw, 3) NHWC tensor -> (k, th*s, tw*s, 3).
     ``tile`` is an int (square tiles) or an (th, tw) pair.  A request runs
     inside a ``sisr.tiler`` span, each ``model_apply`` call inside a
-    ``sisr.tiler.model`` span.
+    ``sisr.tiler.model`` span and inside ``replayed_forwards()``: every tile
+    has one input signature, so the port's models capture their forward as a
+    CUDA graph at the second tile and replay it from the third on
+    (``ops/kernels/autograd.py::replayed_forward``).
     """
 
     def __init__(self, model_apply: Callable, scale: int,
@@ -105,7 +109,7 @@ class TiledSR:
         out = torch.zeros((hh * s, ww * s, 3), dtype=dtype, device=img.device)
         for yx in pos.reshape(-1, self.chunk, 2):
             patches = torch.stack([img[y:y + th, x:x + tw] for y, x in yx])
-            with span("tiler.model"):
+            with span("tiler.model"), replayed_forwards():
                 sr = self.model_apply(patches)
             sr = sr.to(dtype)
             for i, (y, x) in enumerate(yx):

@@ -32,6 +32,13 @@ The spans and what each bounds:
   copies out); ``sisr.recompute.<name>``: inside it, the plain recompute
   run eager (a signature's first sighting, its capture, a fallback, or
   CPU tensors).  ``ops/kernels/autograd.py`` says which runs when.
+* ``sisr.forward.replay``: a model's forward inside
+  ``replayed_forwards()`` (``TiledSR``'s tiles, so inside
+  ``sisr.tiler.model``) replayed as its signature's CUDA graph (the copy
+  in, the replay, the copy out); ``sisr.forward.eager``: any other forward
+  under that switch (a signature's first sighting, its capture, a
+  fallback, CPU tensors).  ``ops/kernels/autograd.py::replayed_forward``
+  says which runs when.
 * ``sisr.derive.<kind>``: derived weights or weight packs made anew
   (``arch_util.derived`` under grad or on a miss, ``build.cached`` on a
   miss).

@@ -181,6 +181,26 @@ def test_htb_tail_bands_match_one_band_on_card(cuda_device, monkeypatch):
                                    atol=1e-5 * max(1.0, float(want.abs().max())))
 
 
+@pytest.mark.cuda
+def test_htb_tail_statistics_are_the_same_bits_back_to_back(cuda_device):
+    """The wgmma path's per-channel sums add up in one order however its
+    persistent blocks finish: calls queued back to back behind a long
+    kernel (as a CUDA graph's replay runs them) store the bits of a call
+    made on an idle card, at a 192² tile of the flagship's widths."""
+    from sisr_tpu_torch.ops.kernels import ffn
+
+    args = _on(cuda_device, torch.bfloat16,
+               *_tail_args(np.random.default_rng(41), 192, 192, 180, 360, b=1))
+    out, want = ffn.htb_tail_stats(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)        # ~0.1 s: the calls below queue behind it
+    got = [ffn.htb_tail_stats(*args) for _ in range(20)]
+    torch.cuda.synchronize()
+    for o, st in got:
+        assert torch.equal(o, out)
+        assert all(torch.equal(a, b) for a, b in zip(st, want))
+
+
 def _scc_args(rng, win, base, heads, c, nw, with_sca, device, dtype, b=1):
     from sisr_tpu_torch.ops.kernels.scc_attention import (blockdiag_kgen, head_mask,
                                                           pooling_matrix)
