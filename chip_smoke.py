@@ -129,6 +129,15 @@ Phases:
            model (float32, TF32 off) at the heads phase's bfloat16 bar;
            then ``infer.upscale`` (TiledSR, tile 192) on a 200x260 image,
            42 win_attn launches a tile;
+  dat      DAT x4 at its published widths (weights from param_synth,
+           seeded BatchNorm statistics) in bfloat16 on the 1080p frame (LR
+           1080x1920, zero-padded to 1088x1920 inside the spatial
+           attention's kernel): every forward's launches exactly 18
+           win_attn, 18 chan_attn and 8 conv3x3 (``DAT_FORWARD``), the wall
+           ms (median of 3), peak device memory, and the kernel path
+           against the plain model (float32, TF32 off) at the heads phase's
+           bfloat16 bar; then ``infer.upscale`` (TiledSR, tile 192) on a
+           200x260 image, ``DAT_FORWARD`` launches a tile;
   gan      the GAN fine-tune: ``train_state.make_gan_train_step`` over the
            flagship in float32, UNetDiscriminatorSN(64) and a random
            full-width VGG19 (L1 + 1.0 perceptual + 0.1 adversarial, Adam
@@ -247,8 +256,8 @@ and this runs also print their launch split; then a ``{"ab": ...}`` line
 (exit 0, no result line).
 
 Prints the card's name and power limit, ``{"whole": ...}``, ``{"train":
-...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"hat": ...}``, ``{"gan": ...}``,
-``{"families": ...}``, ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines
+...}``, ``{"runner": ...}``, ``{"heads": ...}``, ``{"hat": ...}``, ``{"dat":
+...}``, ``{"gan": ...}``, ``{"families": ...}``, ``{"mesh": ...}`` and ``{"kernels": [...]}`` lines
 and, as the
 last line when every phase passed,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -299,12 +308,21 @@ SOURCES = {
     "htb_fused": ("sisr_tpu_torch/csrc/htb_fused.cu", "sisr_tpu/ops/pallas/htb_block.py:217"),
     "dwconv5x5": ("sisr_tpu_torch/csrc/dwconv.cu", "sisr_tpu/ops/pallas/dwconv.py:74"),
     "win_attn": ("sisr_tpu_torch/csrc/win_attn.cu",
-                 "none: HAT's window attention (models/hat.py), which the JAX package lacks"),
+                 "none: HAT's and DAT's window attention (models/hat.py, models/dat.py), "
+                 "which the JAX package lacks"),
+    "chan_attn": ("sisr_tpu_torch/csrc/chan_attn.cu",
+                  "none: DAT's channel attention's whole-image sums (models/dat.py), which "
+                  "the JAX package lacks"),
 }
-# kernels of models/hat.py alone, which none of the HiT-SIR paths below runs
-HAT_ONLY = ("win_attn",)
+# kernels of models/hat.py and models/dat.py alone, which none of the
+# HiT-SIR paths below runs
+HAT_ONLY = ("win_attn", "chan_attn")
 # HAT x4's attention calls on a 1080p frame: (shift, key window, calls)
 HAT_ATTN = ((0, 16, 18), (8, 16, 18), (0, 24, 6))
+# DAT x4's spatial attention calls on a 1080p frame (both branches a call):
+# (shift, calls); and its channel attention's sums, 18 a frame
+DAT_ATTN = (((0, 0), 9), ((4, 16), 9))
+DAT_CHAN = 18
 # the training step: the flagship in float32 at the reference's crop (LR 64,
 # x4) and the command line's batch 2; launches of each kernel per step (the
 # forward runs 36 blocks of scc_block + htb_tail, no stats tail; the tails'
@@ -871,6 +889,37 @@ def win_attn_cases():
                               n if counted else 0, make, call,
                               lambda es, h=h, w=w: es * 4 * h * w * c,
                               4.0 * h * w * wk * wk * c, scope=scope))
+    return cases + dat_attn_cases()
+
+
+def dat_attn_cases():
+    """DAT's spatial attention (C = 180, two branches of 3 heads of 30 in
+    8 x 32 and 32 x 8 windows, the map zero-padded to 1088 x 1920 in the
+    kernel) and its channel attention's whole-image sums, on a 1080p
+    frame's map (1080 x 1920) with their calls a frame.  Work: the window
+    attention's as HAT's (256 keys); the sums' q and k read once, the Gram
+    and the norms (2 (C d + 2C) a pixel)."""
+    from sisr_tpu_torch.ops.kernels.chan_attn import chan_attn
+    from sisr_tpu_torch.ops.kernels.win_attn import win_attn
+
+    c, heads, (h, w) = 180, 6, FRAME
+    cases = []
+    for shift, n in DAT_ATTN:
+        def make(dt, shift=shift):
+            rn = _gen(70 + shift[0])
+            return [rn(1, h, w, 3 * c).to(dt), 0.5 * rn(heads, 256, 256)]
+
+        def call(ins, shift=shift):
+            return win_attn(*ins, heads // 2, (8, 32), shift, 0, 2, 32)
+
+        kind = "shifted" if shift[0] else "unshifted"
+        cases.append(Case("win_attn", f"{h}x{w} DAT {kind} (8x32 + 32x8, 256 keys)", n, make,
+                          call, lambda es: es * 4 * h * w * c, 4.0 * h * w * 256 * c,
+                          scope="dat_frame"))
+    cases.append(Case("chan_attn", f"{h}x{w} DAT sums (6 heads of 30)", DAT_CHAN,
+                      lambda dt: [_gen(75)(1, h, w, 3 * c).to(dt)],
+                      lambda ins: chan_attn(*ins, heads), lambda es: es * 2 * h * w * c,
+                      2.0 * h * w * (c * 30 + 2 * c), scope="dat_frame"))
     return cases
 
 
@@ -946,7 +995,7 @@ def run_kernels(failures: list) -> tuple:
         failures.append(f"the step's cases make {per_step} calls, a step launches {PER_STEP}")
     for case in tile_cases() + frame_cases() + steps + dense_cases() + win_attn_cases():
         # a frame case runs for seconds: time it over one call after the warm-up
-        few = dict(min_iters=1) if case.scope in ("frame", "hat_frame") else {}
+        few = dict(min_iters=1) if case.scope in ("frame", "hat_frame", "dat_frame") else {}
         try:
             with exact_mode():
                 ins32 = case.make(f32)
@@ -2362,6 +2411,123 @@ def run_hat(failures: list, card: str) -> dict:
     counts = dict(build.launches)
     log(f"  launches over the phase: {counts}")
     log(json.dumps({"hat": row}))
+    return counts
+
+
+# --- DAT x4: the 1080p frame through models/dat.py -----------------------------
+
+# one DAT x4 forward's launches (6 groups of 3 spatial and 3 channel blocks):
+# each spatial attention's two branches in one win_attn launch, each channel
+# attention's whole-image sums on chan_attn; the group convs, conv_after_body
+# and conv_before_upsample on conv3x3; no other kernel
+DAT_FORWARD = {"win_attn": sum(n for _, n in DAT_ATTN), "chan_attn": DAT_CHAN, "conv3x3": 8}
+DAT_KERNELS = tuple(DAT_FORWARD)
+
+
+def dat_statistics(model, seed: int) -> None:
+    """Seeded BatchNorm running statistics (means 0.1 N(0, 1), variances
+    1 + U(0, 0.5)), so that folding them into the convs is no identity."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+        elif name.endswith("running_var"):
+            buf.copy_(1.0 + 0.5 * torch.rand(buf.shape, generator=g))
+
+
+def run_dat(failures: list, card: str) -> dict:
+    """DAT x4 at its published widths (weights from param_synth, seed 0,
+    BatchNorm statistics from ``dat_statistics``) in bfloat16 on the 1080p
+    frame (LR 1080x1920, which the spatial attention takes as zero-padded
+    to 1088x1920 in the kernel): each forward's launches exactly
+    ``DAT_FORWARD``, the wall ms (median of 3) and the peak device memory;
+    the kernel path (PyTorch's defaults) against the plain model (float32,
+    TF32 off) at the heads phase's bfloat16 bar, >= min(44, plain bfloat16
+    - 3) dB; then one ``HAT_TILED_LR`` image through ``infer.upscale``
+    (TiledSR, tile 192): ``DAT_FORWARD`` launches a tile.  Returns the
+    launches over the phase."""
+    import statistics
+
+    import torch
+    from sisr_tpu_torch import infer
+    from sisr_tpu_torch.models.dat import DAT
+    from sisr_tpu_torch.ops.kernels import build
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    frame = torch.rand((1, *FRAME, 3), generator=g, device="cuda")
+    models = {}
+    for dt in ("bfloat16", "float32"):
+        model = DAT(dtype=getattr(torch, dt)).eval()
+        infer.synth_weights(model, seed=0)
+        dat_statistics(model, seed=0)
+        models[dt] = model.to("cuda")
+    m16 = models["bfloat16"]
+    want = dict.fromkeys(build.launches, 0)
+    want.update(DAT_FORWARD)
+    row = dict(params=sum(p.numel() for p in m16.parameters()), lr=list(FRAME))
+    build.reset_launches()
+    with torch.inference_mode():
+        m16(frame)                                # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, bad = [], []
+        for _ in range(3):
+            before = dict(build.launches)
+            t0 = time.perf_counter()
+            out = m16(frame)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: build.launches[k] - before[k] for k in build.launches}
+            if got != want:
+                bad.append({k: v for k, v in got.items() if v})
+        row.update(median_ms=statistics.median(ms), runs_ms=ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={k: v for k, v in got.items() if v})
+        shape = (1, 4 * FRAME[0], 4 * FRAME[1], 3)
+        if bad or tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            failures.append(f"dat frame: shape {tuple(out.shape)} (want {shape}), finite, "
+                            f"launches {bad[:1]} (want {DAT_FORWARD})")
+        k16 = out.float().clamp(0, 1)
+        del out
+        with exact_mode():
+            ref = on_plain(models["float32"])(frame).clamp(0, 1)
+            p16 = on_plain(m16)(frame).float().clamp(0, 1)
+        row.update(db_bf16=_psnr_db(k16, ref), db_plain_bf16=_psnr_db(p16, ref),
+                   max_abs_vs_plain_bf16=float((k16 - p16).abs().max()))
+        del k16, ref, p16
+        bar16 = min(44.0, row["db_plain_bf16"] - 3.0)
+        ok = row["db_bf16"] >= bar16
+        log(f"  DAT x4 {row['params']:,} params, LR {FRAME[0]}x{FRAME[1]} bf16: "
+            f"{row['median_ms']:.1f} ms (wall median of 3), peak {row['peak_gib']:.2f} GiB; "
+            f"launches a forward {row['launches']} (want {DAT_FORWARD}); against the plain "
+            f"float32 model {row['db_bf16']:.2f} dB (bar {bar16:.2f}; plain bf16 "
+            f"{row['db_plain_bf16']:.2f}), max abs against plain bf16 "
+            f"{row['max_abs_vs_plain_bf16']:.3e} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append("dat frame: the kernel path against the plain model")
+        # the command line's route: infer.upscale over TiledSR's 192 tiles
+        lr = torch.rand((*HAT_TILED_LR, 3), generator=g, device="cuda")
+        before = dict(build.launches)
+        sr = infer.upscale(m16, lr)
+        per = {k: build.launches[k] - before[k] for k in DAT_FORWARD}
+        tiles = per["win_attn"] / DAT_FORWARD["win_attn"]
+        row["tiled"] = dict(lr=list(HAT_TILED_LR), tiles=tiles, launches=per)
+        shape = (4 * HAT_TILED_LR[0], 4 * HAT_TILED_LR[1], 3)
+        log(f"  infer.upscale over TiledSR(tile 192), LR {HAT_TILED_LR[0]}x{HAT_TILED_LR[1]}: "
+            f"{tiles} tiles, launches {per}, shape {tuple(sr.shape)}")
+        if (tiles < 1 or tiles != int(tiles) or tuple(sr.shape) != shape
+                or per != {k: int(tiles) * n for k, n in DAT_FORWARD.items()}
+                or not bool(torch.isfinite(sr).all())):
+            failures.append(f"dat tiled: launches {per} ({tiles} tiles), shape "
+                            f"{tuple(sr.shape)}")
+    del models, m16
+    torch.cuda.empty_cache()
+    counts = dict(build.launches)
+    log(f"  launches over the phase: {counts}")
+    log(json.dumps({"dat": row}))
     return counts
 
 
@@ -3928,9 +4094,12 @@ PER = {"tile": "one 192x192 tile (sum over its shapes)",
        "dense": "one DenseSR training step at its defaults (C = 64), batch 2, LR 64x64, "
                 "float32 (one call)",
        "hat_frame": "one HAT x4 frame, LR 1080x1920 padded to 1088x1920 (18 unshifted and "
-                    "18 shifted window attentions, 6 overlapping)"}
+                    "18 shifted window attentions, 6 overlapping)",
+       "dat_frame": "one DAT x4 frame, LR 1080x1920 (9 unshifted and 9 shifted two-branch "
+                    "window attentions over the map zero-padded to 1088x1920; 18 channel "
+                    "attentions' sums)"}
 TIMED_DTYPE = {"tile": "bfloat16", "frame": "bfloat16", "step": "float32", "dense": "float32",
-               "hat_frame": "bfloat16"}
+               "hat_frame": "bfloat16", "dat_frame": "bfloat16"}
 
 
 def scope_numbers(row: dict, scope: str) -> dict:
@@ -4231,8 +4400,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases",
-                   default="build,kernels,split,serve,whole,train,runner,heads,hat,gan,"
-                           "families,mesh,profile,check")
+                   default="build,kernels,split,serve,whole,train,runner,heads,hat,dat,"
+                           "gan,families,mesh,profile,check")
     p.add_argument("--ab", metavar="BASE", help="only time conv3x3, the x4 head's shuffled "
                    "convs, dwconv5x5, scc_block, htb_tail, htb_fused, the Fusion gate and "
                    "the bfloat16 serving requests against the checkout BASE (one process "
@@ -4266,7 +4435,7 @@ def main(argv=None) -> int:
     failures: list = []
     rows, extra, served, whole, trained, ran = {}, {}, None, None, None, None
     heads, ganned, families, fusion_backward, meshed = None, None, None, None, None
-    hatted, tail_alone = None, None
+    hatted, datted, tail_alone = None, None, None
 
     log("[build]")
     try:
@@ -4364,6 +4533,14 @@ def main(argv=None) -> int:
         except Exception:
             failures.append(f"hat: {traceback.format_exc()}")
             log(traceback.format_exc())
+    if "dat" in phases and not failures:
+        log("[dat] DAT x4 at its published widths, bfloat16: the 1080p frame against the "
+            "plain model, then infer.upscale's tiles")
+        try:
+            datted = run_dat(failures, card)
+        except Exception:
+            failures.append(f"dat: {traceback.format_exc()}")
+            log(traceback.format_exc())
     if "gan" in phases and not failures:
         log("[gan] make_gan_train_step over the flagship, UNetDiscriminatorSN(64) and a "
             "random VGG19, float32; python -m sisr_tpu_torch hitsir_pro_gan's experiment")
@@ -4417,11 +4594,12 @@ def main(argv=None) -> int:
 
     # each path's counts, set to 0 just before it and read just after
     paths = {"serve": (served or {}).get("counts"), "whole": whole, "train": trained,
-             "runner": ran, "heads": heads, "hat": hatted, "gan": ganned,
+             "runner": ran, "heads": heads, "hat": hatted, "dat": datted, "gan": ganned,
              "families": families, "mesh": meshed}
     for path, names in (("serve", SERVE_KERNELS), ("whole", WHOLE_KERNELS),
                         ("train", TRAIN_KERNELS), ("runner", RUNNER_KERNELS),
-                        ("heads", HEADS_KERNELS), ("hat", HAT_KERNELS), ("gan", GAN_KERNELS),
+                        ("heads", HEADS_KERNELS), ("hat", HAT_KERNELS), ("dat", DAT_KERNELS),
+                        ("gan", GAN_KERNELS),
                         ("families", FAMILIES_KERNELS), ("mesh", MESH_KERNELS)):
         if paths[path] is not None and not all(paths[path][k] > 0 for k in names):
             failures.append(f"the {path} path did not launch every kernel: {paths[path]}")
@@ -4454,8 +4632,8 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "hat", "gan",
-            "families", "mesh", "check"} <= phases:
+    if not {"build", "kernels", "serve", "whole", "train", "runner", "heads", "hat", "dat",
+            "gan", "families", "mesh", "check"} <= phases:
         log("chip_smoke: partial run (--phases); no result line")
         return 2
     log(card)

@@ -6,14 +6,17 @@ plus ``--device``):
     python -m sisr_tpu_torch hitsir_pro --device cpu ...   # without a card
     python -m sisr_tpu_torch hitsir_pro_gan --epochs 10    # the GAN fine-tune
     python -m sisr_tpu_torch hat --batch-size 4            # HAT x4 (its widths)
+    python -m sisr_tpu_torch dat --batch-size 4            # DAT x4 (its widths)
 
 Runs on the card (``--device cuda``) unless asked for the CPU.  ``main``
 also takes "unet" and "dense" (the UNet and Dense families' experiments,
 their keyword arguments, a None dropped), as root ``main.py``'s does; its
-command line offers the two HiT-SIR experiments and HAT.  For "hat" the
+command line offers the two HiT-SIR experiments, HAT and DAT.  For "hat" the
 HiT-SIR-only options are dropped; ``--embed-dim``, ``--depths``,
 ``--num-heads`` and ``--mlp-ratio`` set HAT's widths (their defaults are
-HAT x4's; its window stays 16).
+HAT x4's; its window stays 16).  For "dat" ``--mlp-ratio`` is dropped too:
+``--embed-dim``, ``--depths`` and ``--num-heads`` set DAT's widths (its
+split size stays 8 x 32 and its expansion factor 4).
 """
 
 from __future__ import annotations
@@ -41,6 +44,12 @@ def main(model_name: str, is_test: bool, **kwargs):
 
         return hat_experiment(is_test, **{k: v for k, v in kwargs.items()
                                           if k not in HIT_ONLY and v is not None})
+    if model_name == "dat":
+        from sisr_tpu_torch.experiments.dat_experiment import dat_experiment
+
+        return dat_experiment(is_test, **{k: v for k, v in kwargs.items()
+                                          if k not in HIT_ONLY + ("mlp_ratio",)
+                                          and v is not None})
     if model_name == "unet":
         from sisr_tpu_torch.experiments.unet_experiment import unet_experiment
 
@@ -55,7 +64,7 @@ def main(model_name: str, is_test: bool, **kwargs):
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m sisr_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", choices=["hitsir_pro", "hitsir_pro_gan", "hat"])
+    p.add_argument("model", choices=["hitsir_pro", "hitsir_pro_gan", "hat", "dat"])
     p.add_argument("--test", action="store_true")
     p.add_argument("--loss", default="l1", choices=["l1", "mse", "charbonnier"])
     p.add_argument("--epochs", type=int, default=400)

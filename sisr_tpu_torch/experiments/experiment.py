@@ -24,7 +24,8 @@ Lifecycle parity with reference experiments/experiment.py:25-878:
 
 The train step is ``train_state.make_train_step`` (the kernels forward,
 their autograd Functions backward), fed by the host loader through
-``data/prefetch.py``.  Eval and test run the whole image (``BandedHeadSR``
+``data/prefetch.py``; ``train_steps`` yields after each step of an epoch,
+so that a caller can drive the runner one step at a time.  Eval and test run the whole image (``BandedHeadSR``
 at or above ``eval_band_area`` input pixels) or overlap-blended tiles
 (``TiledSR``).  Everything runs on ``device``, the card unless the caller
 asks for the CPU.
@@ -72,6 +73,7 @@ from sisr_tpu_torch.train.train_state import (TrainState, create_train_state,
                                               make_train_step, set_learning_rate)
 from sisr_tpu_torch.utils.meters import AverageMeter, format_str
 from sisr_tpu_torch.utils.precision import exact_mode
+from sisr_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -350,10 +352,12 @@ class Experiment:
         set_learning_rate(self.state.optimizer, self.current_lr())
 
     def save_model_weights(self, model_path: str):
+        """The checkpoint at ``model_path``, traced as ``sisr.ckpt.save``."""
         if not process_zero():
             return
-        ckpt.save_checkpoint(model_path, self.start_epoch, self.state.model,
-                             self.state.optimizer)
+        with span("ckpt.save"):
+            ckpt.save_checkpoint(model_path, self.start_epoch, self.state.model,
+                                 self.state.optimizer)
 
     def init_tools(self):
         self.epoch_loss = AverageMeter()
@@ -470,6 +474,16 @@ class Experiment:
         self.epoch_loss.update(float(loss), len(hr_imgs) * self.mesh.size)
 
     def train(self):
+        """One epoch: ``train_steps`` run to its end."""
+        for _ in self.train_steps():
+            pass
+
+    def train_steps(self):
+        """One epoch of train steps, yielding after each (a caller may drive
+        the runner a step at a time); after the last, the epoch's
+        bookkeeping and checkpoint (``train_dataloader_process``).  The wait
+        for each batch is timed into ``train_wait_s`` and traced as
+        ``sisr.loader.wait``."""
         self.epoch_loss.reset()
         self.train_wait_s = self.train_step_s = 0.0
         self.train_start_time = time.time()
@@ -480,14 +494,20 @@ class Experiment:
                 it = tqdm(it, total=len(loader),
                           desc=f"train_epoch {self.start_epoch}/"
                                f"{self.model_config.epochs}, data: {loader.name}")
-            t_wait = time.perf_counter()
-            for lr_imgs, hr_imgs, _ in it:
+            batches = iter(it)
+            while True:
+                t_wait = time.perf_counter()
+                with span("loader.wait"):
+                    item = next(batches, None)
+                if item is None:
+                    break
+                lr_imgs, hr_imgs, _ = item
                 t_step = time.perf_counter()
                 self.train_wait_s += t_step - t_wait
                 self.train_batch(self.process_lr_imgs("train", lr_imgs),
                                  self.process_hr_imgs("train", hr_imgs))
-                t_wait = time.perf_counter()
-                self.train_step_s += t_wait - t_step
+                self.train_step_s += time.perf_counter() - t_step
+                yield
             if self.progress:
                 it.set_postfix({"loss": f"{self.epoch_loss.avg:.6f}"})
         self.train_dataloader_process()

@@ -106,9 +106,9 @@ class HITSIRPROGANExperiment(HITSIRPROExperiment):
         self.epoch_loss.update(float(g_loss), n)
         self.epoch_discriminator_loss.update(float(d_loss), n)
 
-    def train(self):
+    def train_steps(self):
         self.epoch_discriminator_loss.reset()
-        super().train()
+        yield from super().train_steps()
 
     def train_dataloader_process(self):
         super().train_dataloader_process()

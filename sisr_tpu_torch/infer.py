@@ -3,14 +3,18 @@ root ``test_experiment.py``).
 
 Builds the flagship HiT-SIR-Pro (``flagship_config()``, the Fusion gate on,
 10,220,014 parameters) or, with ``--arch hat``, HAT x4 at its published
-widths (``models/hat.py``, 20,772,507 parameters), loads a ``.pth``
-(``{'model': state_dict}`` such as the reference's fusion checkpoint named
-by ``DEFAULT_WEIGHTS``, or HAT's ``{'params_ema': state_dict}``) strictly,
+widths (``models/hat.py``, 20,772,507 parameters), or with ``--arch dat``
+DAT x4 at its published widths (``models/dat.py``, 14,802,051 parameters),
+loads a ``.pth`` (``{'model': state_dict}`` such as the reference's fusion
+checkpoint named by ``DEFAULT_WEIGHTS``, or HAT's and DAT's
+``{'params_ema': state_dict}`` or ``{'params': state_dict}``) strictly,
 runs one LR image through ``TiledSR`` (192 tiles, overlap 16; 192 is a
-multiple of HAT's window), clips to [0,1] and writes a PNG.
+multiple of HAT's window and of DAT's 32), clips to [0,1] and writes a PNG.
+DAT's channel attention reduces over whatever image it is given, so its
+tiles give another answer than a whole-image forward (the runner's eval).
 
     python -m sisr_tpu_torch.infer lr.png [-o out.png] [--weights ckpt.pth]
-        [--arch hat] [--tile 192] [--dtype bfloat16] [--device cuda] [--show]
+        [--arch hat|dat] [--tile 192] [--dtype bfloat16] [--device cuda] [--show]
     python -m sisr_tpu_torch.infer hr.png --make-lr   # writes hr_bicubic_lr.png
 """
 
@@ -26,7 +30,8 @@ DEFAULT_WEIGHTS = ("weights/hitsir_pro_loss(l1)_mulsizeconvextract(True)_casa(Tr
                    "_fusion_embed_dim(180)_len(depths)(6)_augment/"
                    "best_psnr_ssim_lpips_model.pth")
 HAT_WEIGHTS = "weights/HAT_SRx4_ImageNet-pretrain.pth"
-ARCHS = ("hitsir", "hat")
+DAT_WEIGHTS = "weights/DAT_x4.pth"
+ARCHS = ("hitsir", "hat", "dat")
 
 
 def create_model(dtype: str = "float32", device: str = "cuda"):
@@ -41,6 +46,13 @@ def create_hat(dtype: str = "float32", device: str = "cuda"):
     from sisr_tpu_torch.models.hat import HAT
 
     return HAT(dtype=getattr(torch, dtype)).to(device).eval()
+
+
+def create_dat(dtype: str = "float32", device: str = "cuda"):
+    """DAT x4 at its published widths."""
+    from sisr_tpu_torch.models.dat import DAT
+
+    return DAT(dtype=getattr(torch, dtype)).to(device).eval()
 
 
 def load_model_weights(model, weights_path: str, seed: int = 0) -> None:
@@ -59,7 +71,8 @@ def load_model_weights(model, weights_path: str, seed: int = 0) -> None:
 
 def synth_weights(model, seed: int = 0) -> None:
     """Seeded well-conditioned weights from the model's own manifest (its
-    parameters; buffers such as HAT's position indices stay as built)."""
+    parameters; buffers such as HAT's position indices and DAT's BatchNorm
+    statistics stay as built)."""
     from sisr_tpu_torch.utils.param_synth import synth_state_dict
 
     manifest = [(k, tuple(v.shape)) for k, v in model.named_parameters()]
@@ -94,9 +107,10 @@ def main(img_path: str, out_path: str = None,
 
     if arch not in ARCHS:
         raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
-    model = (create_hat if arch == "hat" else create_model)(dtype, device)
-    load_model_weights(model, weights_path or (HAT_WEIGHTS if arch == "hat"
-                                               else DEFAULT_WEIGHTS))
+    create, default = {"hat": (create_hat, HAT_WEIGHTS), "dat": (create_dat, DAT_WEIGHTS)}.get(
+        arch, (create_model, DEFAULT_WEIGHTS))
+    model = create(dtype, device)
+    load_model_weights(model, weights_path or default)
     with Image.open(img_path) as handle:
         lr = np.asarray(handle.convert("RGB"), dtype=np.float32) / 255.0
 

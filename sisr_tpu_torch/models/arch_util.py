@@ -49,6 +49,18 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def linear(x: torch.Tensor, mod: nn.Linear, dt) -> torch.Tensor:
+    """``x W^T + b`` in the compute dtype, the bias (where the Linear has
+    one) added by the product."""
+    return F.linear(x, mod.weight.to(dt), None if mod.bias is None else mod.bias.to(dt))
+
+
+def layer_norm(x: torch.Tensor, mod: nn.LayerNorm) -> torch.Tensor:
+    """``mod``'s LayerNorm (eps 1e-5) over the channels, float32
+    statistics, the result in x's dtype."""
+    return F.layer_norm(x, x.shape[-1:], mod.weight.to(x.dtype), mod.bias.to(x.dtype), 1e-5)
+
+
 def derived(module: nn.Module, kind: str, dt, device, make, sources=None):
     """``make()``: the tensors of ``kind`` derived from the parameters of
     ``sources`` (default: ``module``) for the compute type ``dt``, kept on

@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sisr_tpu_torch.models.arch_util import conv_nhwc, conv_weights, derived
+from sisr_tpu_torch.models.arch_util import (conv_nhwc, conv_weights, derived, layer_norm,
+                                             linear)
 from sisr_tpu_torch.ops.kernels.autograd import replayed_forward
 from sisr_tpu_torch.ops.kernels.conv3x3 import conv3x3
 from sisr_tpu_torch.ops.kernels.win_attn import win_attn
@@ -91,19 +92,8 @@ def _dense_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return table[index.reshape(-1)].reshape(n, m, -1).permute(2, 0, 1).float().contiguous()
 
 
-def _linear(x, mod: nn.Linear, dt):
-    """``x W^T + b`` in the compute dtype, the bias added by the product."""
-    return F.linear(x, mod.weight.to(dt), mod.bias.to(dt))
-
-
-def _norm(x, mod: nn.LayerNorm):
-    """HAT's LayerNorm (eps 1e-5) over the channels, float32 statistics,
-    the result in x's dtype."""
-    return F.layer_norm(x, x.shape[-1:], mod.weight.to(x.dtype), mod.bias.to(x.dtype), 1e-5)
-
-
 def _mlp(x, mlp: "Mlp", dt):
-    return _linear(F.gelu(_linear(x, mlp.fc1, dt)), mlp.fc2, dt)
+    return linear(F.gelu(linear(x, mlp.fc1, dt)), mlp.fc2, dt)
 
 
 class Mlp(nn.Module):
@@ -173,14 +163,14 @@ class HAB(nn.Module):
 
     def forward(self, t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         dt, attn = t.dtype, self.attn
-        u = _norm(t, self.norm1)
+        u = layer_norm(t, self.norm1)
         with span("hat.cab"):
             cab = self.conv_block(u)
         bias = derived(attn, "win_bias", torch.float32, t.device,
                        lambda: _dense_bias(attn.relative_position_bias_table, index))
-        a = win_attn(_linear(u, attn.qkv, dt), bias, attn.heads, self.window, self.shift)
-        t = torch.add(t, cab, alpha=self.conv_scale).add_(_linear(a, attn.proj, dt))
-        return _mlp(_norm(t, self.norm2), self.mlp, dt).add_(t)
+        a = win_attn(linear(u, attn.qkv, dt), bias, attn.heads, self.window, self.shift)
+        t = torch.add(t, cab, alpha=self.conv_scale).add_(linear(a, attn.proj, dt))
+        return _mlp(layer_norm(t, self.norm2), self.mlp, dt).add_(t)
 
 
 class OCAB(nn.Module):
@@ -203,10 +193,10 @@ class OCAB(nn.Module):
         dt = t.dtype
         bias = derived(self, "win_bias", torch.float32, t.device,
                        lambda: _dense_bias(self.relative_position_bias_table, index))
-        a = win_attn(_linear(_norm(t, self.norm1), self.qkv, dt), bias, self.heads,
+        a = win_attn(linear(layer_norm(t, self.norm1), self.qkv, dt), bias, self.heads,
                      self.window, 0, self.key_window)
-        t = _linear(a, self.proj, dt).add_(t)
-        return _mlp(_norm(t, self.norm2), self.mlp, dt).add_(t)
+        t = linear(a, self.proj, dt).add_(t)
+        return _mlp(layer_norm(t, self.norm2), self.mlp, dt).add_(t)
 
 
 class AttenBlocks(nn.Module):
@@ -310,10 +300,10 @@ class HAT(nn.Module):
             x = pad_to_multiple(x.to(dt), (self.window_size, self.window_size))
         mean = device_constant(_mean, (cin,), dt, dev)
         shallow = conv_nhwc((x - mean) * self.img_range, self.conv_first)
-        t = _norm(shallow, self.patch_embed.norm)
+        t = layer_norm(shallow, self.patch_embed.norm)
         for layer in self.layers:
             t = layer(t, self.relative_position_index_SA, self.relative_position_index_OCA)
-        t = _norm(t, self.norm)
+        t = layer_norm(t, self.norm)
         y = conv3x3(t, shallow, *conv_weights(self.conv_after_body, dt, dev), "none")
         y = conv3x3(y, None, *conv_weights(self.conv_before_upsample[0], dt, dev), "leaky")
         for conv in self.upsample[::2]:

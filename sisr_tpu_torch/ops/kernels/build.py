@@ -34,18 +34,19 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # the sources in csrc/, one library each
 KERNELS = ("conv3x3", "htb_tail", "scc_block", "shuffled_tail", "fusion", "htb_fused",
-           "dwconv", "win_attn")
+           "dwconv", "win_attn", "chan_attn")
 
 # conv3x3.cu serves conv3x3 and conv3x3_shuffled, shuffled_tail.cu
 # conv3x3_shuffled_tail and conv3x3_shuffled_tail_packed, fusion.cu
 # fusion_pools and fused_fusion, htb_fused.cu htb_fused, dwconv.cu
-# dwconv5x5 (forward, and dx in backward), win_attn.cu win_attn (HAT's
-# window attention); htb_tail_stats counts the htb_tail calls that also
+# dwconv5x5 (forward, and dx in backward), win_attn.cu win_attn (HAT's and
+# DAT's window attention), chan_attn.cu chan_attn (DAT's channel
+# attention's whole-image sums); htb_tail_stats counts the htb_tail calls that also
 # emitted the next block's stats
 launches: Dict[str, int] = {name: 0 for name in (
     "conv3x3", "conv3x3_shuffled", "conv3x3_shuffled_tail",
     "conv3x3_shuffled_tail_packed", "htb_tail", "htb_tail_stats", "scc_block",
-    "fusion_pools", "fused_fusion", "htb_fused", "dwconv5x5", "win_attn")}
+    "fusion_pools", "fused_fusion", "htb_fused", "dwconv5x5", "win_attn", "chan_attn")}
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -45,6 +45,12 @@ The spans and what each bounds:
 * ``sisr.hat.cab``: a HAT block's channel-attention branch (its two convs
   and the gate); ``sisr.hat.pad``: HAT's reflect pad of the input to
   multiples of its window, and the crop of the output.
+* ``sisr.dat.aim``: a DAT block's Adaptive Interaction Module (the depthwise
+  conv branch and both gates, after the attention); ``sisr.dat.sgfn``: a DAT
+  block's spatial-gate feed-forward network (fc1 to fc2).
+* ``sisr.loader.wait``: the runner waiting for its next train batch
+  (``Experiment.train_steps``, the interval ``train_wait_s`` times);
+  ``sisr.ckpt.save``: one checkpoint written (``save_model_weights``).
 
 The ``bench.`` prefix is the benchmark's own.
 """

@@ -12,6 +12,12 @@ version, and HAT on it, on a card.
   replayed as a CUDA graph, against autograd of the plain version.
 - HAT x4 in bfloat16 on a 64 x 64 image: 42 launches a forward (36 HABs
   and 6 OCABs), and the output near the plain path's.
+- At DAT's widths (C = 180, two branches of 3 heads of 30 in 8 x 32 and
+  32 x 8 windows, the map zero-padded to multiples of 32 in the kernel's
+  index arithmetic): unshifted and shifted by (4, 16), on a 1080 x 1920
+  frame (the bottom row of windows holds 8 padded rows) and a 72 x 80 map,
+  in bfloat16 and float32, the padded windows held apart; and the
+  backward at a training step's shape.
 
 Every test here needs a CUDA card and skips without one; the file imports
 no JAX:
@@ -130,3 +136,72 @@ def test_hat_forward_launches_and_agrees(cuda_device):
             want = model(x)
     assert got.shape == (1, 256, 256, 3)
     assert float((got.float() - want.float()).abs().max()) <= 3e-2
+
+
+DAT_BIAS = (2 * 3, 256, 256)
+DAT_CASES = [(0, 0), (4, 16)]
+
+
+def _dat_inputs(dev, h, w, seed=0, b=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, h, w, 3 * C), generator=g, device=dev)
+    bias = 0.5 * torch.randn(DAT_BIAS, generator=g, device=dev)
+    return qkv, bias
+
+
+@pytest.mark.parametrize("size", [(1080, 1920), (72, 80)], ids=["frame", "tile"])
+@pytest.mark.parametrize("shift", DAT_CASES, ids=["unshifted", "shifted"])
+def test_dat_branches_match_plain_version(cuda_device, size, shift):
+    """DAT's call, both branches in one launch: float32 within 2e-5 of the
+    output's scale; bfloat16 within twice the plain bfloat16 version's
+    distance from the float32 truth, or 4 bf16 ulps of the scale, on the
+    pixels whose windows hold padding (the last 32 rows and columns of
+    the padded map) and on the others apart."""
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    h, w = size
+    qkv, bias = _dat_inputs(cuda_device, h, w)
+    args = (3, (8, 32), shift, 0, 2, 32)
+    with exact_mode():
+        got = win_attn(qkv, bias, *args)
+        with ag.plain_versions():
+            want = win_attn(qkv, bias, *args)
+        scale = max(1.0, float(want.abs().max()))
+        assert got.shape == (1, h, w, C)
+        assert _errs(got, want, scale) <= 2e-5
+        q16 = qkv.bfloat16()
+        got16 = win_attn(q16, bias, *args)
+        with ag.plain_versions():
+            plain16 = win_attn(q16, bias, *args)
+            truth = win_attn(q16.float(), bias, *args)
+    edge = torch.zeros((h, w), dtype=torch.bool, device=cuda_device)
+    edge[(h - 1) // 32 * 32:], edge[:, (w - 1) // 32 * 32:] = True, True
+    for part in (edge, ~edge):
+        ek = _errs(got16[0][part], truth[0][part], 1.0)
+        ep = _errs(plain16[0][part], truth[0][part], 1.0)
+        assert ek <= max(2.0 * ep, 4 * 2.0 ** -8 * scale), (ek, ep)
+
+
+@pytest.mark.parametrize("shift", DAT_CASES, ids=["unshifted", "shifted"])
+def test_dat_backward_eager_and_replayed(cuda_device, monkeypatch, shift):
+    """DAT's call at a training step's shape (batch 2, 64 x 64, float32):
+    eager, captured and replayed gradients of qkv and the bias all within
+    1e-6 of the plain version's."""
+    from sisr_tpu_torch.utils.precision import exact_mode
+
+    monkeypatch.setattr(ag, "_signatures", OrderedDict())
+    monkeypatch.setattr(ag, "_failed", set())
+    qkv, bias = _dat_inputs(cuda_device, 64, 64, seed=3, b=2)
+    dy = torch.randn((2, 64, 64, C), device=cuda_device)
+    args = (3, (8, 32), shift, 0, 2, 32)
+    with exact_mode():
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
+        with ag.plain_versions():
+            plain = win_attn(*leaves, *args)
+        want = torch.autograd.grad(plain, leaves, dy)
+        for _ in range(3):
+            leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
+            got = torch.autograd.grad(win_attn(*leaves, *args), leaves, dy)
+            for a, b in zip(got, want):
+                assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max()))
+    assert any(isinstance(v, ag._VjpGraph) for v in ag._signatures.values())
